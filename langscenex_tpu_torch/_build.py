@@ -1,0 +1,130 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+-Xcompiler -fPIC`` compiles every ``csrc/*.cu`` into one shared library
+with a plain C interface, placed in ``build/kernels/`` at the repository
+root under a name that hashes the sources and flags (so an edited source
+rebuilds and an unchanged one loads the cached library). ctypes loads it;
+pointers and the CUDA stream travel as ``c_void_p``. Nothing here runs at
+import time: the first CUDA tensor that reaches a kernel wrapper builds
+the library.
+
+Each C entry point returns ``cudaGetLastError()`` after its launches;
+:func:`check` raises on a non-zero code. Each wrapper counts its launches
+in :data:`launch_counts` (plain ints, reset with :func:`reset_launch_counts`)
+so a run can prove that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+launch_counts = {"sort_pairs": 0, "compact_pairs": 0, "blend_forward": 0}
+
+# seconds the last nvcc build of this process took (0.0 when only the
+# cached library was loaded); read by chip_smoke.py
+last_build_seconds = 0.0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # keys_in, vals_in, keys_out, vals_out, keys_tmp, vals_tmp, hist, n,
+    # n_blocks, stream
+    "lsx_sort_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # key, sid, out_key, out_sid, block_counts, n, out_len, n_blocks,
+    # sent_min, fill_key, fill_sid, stream
+    "lsx_compact_pairs": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # point_list, tile_starts, tile_counts, payload, accum, final_T,
+    # observe, n_tiles, grid_x, tile_w, tile_h, n_channels, row_stride,
+    # n_splats, stream
+    "lsx_blend_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _P],
+}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(f"nvcc not found at {path}; set CUDA_HOME")
+    return path
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"liblangscenex_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu into the hashed library unless it exists."""
+    global last_build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # build into a temporary name, then rename: a concurrent or cut build
+    # never leaves a half-written library under the final name
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
+    if verbose:
+        print(proc.stderr, end="")
+    os.replace(tmp, out)
+    last_build_seconds = time.perf_counter() - t0
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.lsx_error_string.argtypes = [ctypes.c_int]
+    lib.lsx_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = library().lsx_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def stream_ptr(device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as an int."""
+    return torch.cuda.current_stream(device).cuda_stream
