@@ -8,9 +8,11 @@ CUDA kernel under ``csrc/``, built with nvcc for sm_90a the first time a
 CUDA tensor reaches it (see ``_build.py``). Importing the package needs
 neither nvcc nor a GPU.
 
-Ported so far (forward render path):
-``ops/{quat,transforms,sh,covariance,projection,sort_engine,compaction,
-binning,rasterize_cuda,rasterize}.py``, ``scene/{gaussians,ply_io,
-cameras}.py``, ``train/field.render_view`` and
-``train/render_mode.render_all_views``.
+Ported so far: the render path (``ops/{quat,transforms,sh,covariance,
+projection,sort_engine,compaction,binning,rasterize_cuda,rasterize}.py``,
+``scene/{gaussians,ply_io,cameras}.py``, ``train/field.render_view`` and
+``train/render_mode.render_all_views``) and the field-construction train
+step (the blend backward, ``ops/{losses,depth_normal,interp,knn}.py``,
+``utils/config.OptimizationConfig``, ``train/{optim,multiview,densify,
+field}.py`` with ``GaussianFieldTrainer``).
 """

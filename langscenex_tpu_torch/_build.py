@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface, placed in ``build/kernels/`` at the repository
-root under a name that hashes the sources and flags (so an edited source
-rebuilds and an unchanged one loads the cached library). ctypes loads it;
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+-fPIC`` compiles every ``csrc/*.cu`` to an object, one nvcc process per
+source, all started together, and ``nvcc -shared`` links the objects into
+one shared library with a plain C interface, placed in ``build/kernels/``
+at the repository root under a name that hashes the sources and flags (so
+an edited source rebuilds and an unchanged one loads the cached library).
+ctypes loads it;
 pointers and the CUDA stream travel as ``c_void_p``. Nothing here runs at
 import time: the first CUDA tensor that reaches a kernel wrapper builds
 the library.
@@ -30,9 +32,10 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
-launch_counts = {"sort_pairs": 0, "compact_pairs": 0, "blend_forward": 0}
+launch_counts = {"sort_pairs": 0, "compact_pairs": 0, "blend_forward": 0,
+                 "blend_backward": 0}
 
 # seconds the last nvcc build of this process took (0.0 when only the
 # cached library was loaded); read by chip_smoke.py
@@ -52,6 +55,11 @@ _SIGNATURES = {
     # n_splats, stream
     "lsx_blend_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _P],
+    # point_list, tile_starts, tile_counts, payload, accum, final_T,
+    # g_accum, g_T, grad, n_tiles, grid_x, tile_w, tile_h, n_channels,
+    # row_stride, n_splats, stream
+    "lsx_blend_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _I, _I, _P],
 }
 
 
@@ -81,26 +89,45 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu into the hashed library unless it exists."""
+    """Compile csrc/*.cu into the hashed library unless it exists: one
+    nvcc per source, started together, then one link."""
     global last_build_seconds
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # build into a temporary name, then rename: a concurrent or cut build
-    # never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
+    # build into a temporary directory and name, then rename: a concurrent
+    # or cut build never leaves a half-written library under the final name
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        nvcc = _nvcc()
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp_dir) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+                   str(src)]
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs, failed = [], []
+        for src, _, proc in jobs:
+            stdout, stderr = proc.communicate()
+            logs.append(stderr)
+            if proc.returncode != 0:
+                failed.append(f"{src.name}:\n{stdout}{stderr}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = Path(tmp_dir) / out.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+             *[str(obj) for _, obj, _ in jobs]],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout
+                               + link.stderr)
+        if verbose:
+            print("".join(logs), end="")
+        os.replace(tmp, out)
     last_build_seconds = time.perf_counter() - t0
     return out
 

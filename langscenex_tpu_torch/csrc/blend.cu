@@ -26,21 +26,22 @@
 // done pixels reaches the tile size. observe is counted per batch in
 // shared memory with integer atomics and flushed with one global integer
 // atomicAdd per pair — integer sums are order-free, so observe is exact.
-// Channel accumulators stay in registers. No wgmma/TMA: later work.
+// Channel accumulators stay in registers. No wgmma/TMA: later work. The
+// per-pixel step is lsx::blend_power, blend_alpha and blend_log_t_next
+// (common.cuh), which the backward (blend_backward.cu) re-runs bit for
+// bit.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace {
 
+using lsx::BLEND_GEOM;
+using lsx::BLEND_MAX_CH;
+using lsx::BLEND_MAX_ROW;
+
 constexpr int BATCH = 256;
-constexpr int MAX_CH = 16;
-constexpr int GEOM = 6;  // x, y, conic a, b, c, opacity
-constexpr int MAX_ROW = GEOM + MAX_CH;
 constexpr int MAX_PIX = 1024;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float LOG_T_EPS = -9.210340371976182f;  // log(1e-4)
 
 __global__ void __launch_bounds__(MAX_PIX)
 blend_forward(const int* __restrict__ point_list,
@@ -48,8 +49,9 @@ blend_forward(const int* __restrict__ point_list,
               const int* __restrict__ tile_counts,
               const float* __restrict__ payload, float* __restrict__ accum,
               float* __restrict__ final_T, int* __restrict__ observe,
-              int grid_x, int tile_w, int tile_h, int n_ch, int row_stride) {
-  __shared__ float s_row[BATCH * MAX_ROW];
+              int grid_x, int tile_w, int tile_h, int n_ch, int row_stride,
+              int n_splats) {
+  __shared__ float s_row[BATCH * BLEND_MAX_ROW];
   __shared__ int s_sid[BATCH];
   __shared__ int s_obs[BATCH];
 
@@ -63,9 +65,9 @@ blend_forward(const int* __restrict__ point_list,
   const float vx = (float)(p % tile_w) - (float)(tile_w / 2);
   const float vy = (float)(p / tile_w) - (float)(tile_h / 2);
 
-  float acc[MAX_CH];
+  float acc[BLEND_MAX_CH];
 #pragma unroll
-  for (int c = 0; c < MAX_CH; ++c) acc[c] = 0.0f;
+  for (int c = 0; c < BLEND_MAX_CH; ++c) acc[c] = 0.0f;
   float log_t = 0.0f;
   int done = 0;
 
@@ -74,52 +76,46 @@ blend_forward(const int* __restrict__ point_list,
     // flush), and the whole-tile early exit
     if (__syncthreads_count(done) == npx) break;
     const int nb = min(BATCH, count - b0);
-    for (int i = p; i < nb; i += npx) {
-      s_sid[i] = point_list[start + b0 + i];
-      s_obs[i] = 0;
-    }
-    __syncthreads();
-    for (int e = p; e < nb * row_stride; e += npx) {
-      const int i = e / row_stride;
-      const int r = e - i * row_stride;
-      s_row[i * MAX_ROW + r] = payload[(size_t)s_sid[i] * row_stride + r];
-    }
+    for (int i = p; i < nb; i += npx) s_obs[i] = 0;
+    lsx::stage_rows(point_list, start + b0, nb, payload, row_stride,
+                    n_splats, s_sid, s_row);
     __syncthreads();
 
     if (!done) {
       for (int i = 0; i < nb; ++i) {
-        const float* row = &s_row[i * MAX_ROW];
-        const float dx = (row[0] - tile_cx) - vx;
-        const float dy = (row[1] - tile_cy) - vy;
-        const float a = row[2], b = row[3], c = row[4];
-        const float power = -0.5f * (a * dx * dx + c * dy * dy) - b * (dx * dy);
+        const float* row = &s_row[i * BLEND_MAX_ROW];
+        lsx::BlendSample s;
+        const float power =
+            lsx::blend_power(row, tile_cx, tile_cy, vx, vy, s);
         if (power > 0.0f) continue;
-        const float alpha = fminf(ALPHA_MAX, row[5] * expf(power));
-        if (alpha < ALPHA_MIN) continue;
-        const float test = log_t + log1pf(-alpha);
-        if (test < LOG_T_EPS) {
+        lsx::blend_alpha(row[5], power, s);
+        if (s.alpha < lsx::BLEND_ALPHA_MIN) continue;
+        const float next = lsx::blend_log_t_next(log_t, s.alpha);
+        if (next < lsx::BLEND_LOG_T_EPS) {
           done = 1;
           break;
         }
         const float t_excl = expf(log_t);
-        const float w = alpha * t_excl;
+        log_t = next;
+        const float w = s.alpha * t_excl;
 #pragma unroll
-        for (int ch = 0; ch < MAX_CH; ++ch) {
-          if (ch < n_ch) acc[ch] += w * row[GEOM + ch];
+        for (int ch = 0; ch < BLEND_MAX_CH; ++ch) {
+          if (ch < n_ch) acc[ch] += w * row[BLEND_GEOM + ch];
         }
         if (t_excl > 0.5f) atomicAdd(&s_obs[i], 1);
-        log_t = test;
       }
     }
     __syncthreads();
     for (int i = p; i < nb; i += npx) {
-      if (s_obs[i] != 0) atomicAdd(&observe[s_sid[i]], s_obs[i]);
+      if (s_obs[i] != 0 && s_sid[i] < n_splats) {
+        atomicAdd(&observe[s_sid[i]], s_obs[i]);
+      }
     }
   }
 
   const size_t base = (size_t)t * n_ch * npx;
 #pragma unroll
-  for (int ch = 0; ch < MAX_CH; ++ch) {
+  for (int ch = 0; ch < BLEND_MAX_CH; ++ch) {
     if (ch < n_ch) accum[base + (size_t)ch * npx + p] = acc[ch];
   }
   final_T[(size_t)t * npx + p] = expf(log_t);
@@ -139,8 +135,8 @@ extern "C" int lsx_blend_forward(const int* point_list, const int* tile_starts,
                                  int tile_h, int n_ch, int row_stride,
                                  int n_splats, cudaStream_t stream) {
   const int npx = tile_w * tile_h;
-  if (npx <= 0 || npx > MAX_PIX || n_ch < 0 || n_ch > MAX_CH ||
-      row_stride != GEOM + n_ch) {
+  if (npx <= 0 || npx > MAX_PIX || n_ch < 0 || n_ch > BLEND_MAX_CH ||
+      row_stride != BLEND_GEOM + n_ch) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t e = cudaMemsetAsync(observe, 0, sizeof(int) * (size_t)n_splats,
@@ -149,7 +145,7 @@ extern "C" int lsx_blend_forward(const int* point_list, const int* tile_starts,
   if (n_tiles <= 0) return 0;
   blend_forward<<<n_tiles, npx, 0, stream>>>(
       point_list, tile_starts, tile_counts, payload, accum, final_T, observe,
-      grid_x, tile_w, tile_h, n_ch, row_stride);
+      grid_x, tile_w, tile_h, n_ch, row_stride, n_splats);
   LSX_CHECK_LAUNCH();
   return (int)cudaGetLastError();
 }

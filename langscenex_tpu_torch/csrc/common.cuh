@@ -1,5 +1,7 @@
 // Shared device helpers for the langscenex kernels: warp/block scans and
-// a one-block exclusive scan used by the radix sort and the compaction.
+// a one-block exclusive scan used by the radix sort and the compaction,
+// and the per-pixel blend recurrence shared by the blend forward (K1) and
+// backward (K2).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,6 +13,86 @@
   } while (0)
 
 namespace lsx {
+
+// ---- the blend recurrence ---------------------------------------------
+constexpr int BLEND_GEOM = 6;  // payload row: x, y, conic a, b, c, opacity
+constexpr int BLEND_MAX_CH = 16;
+constexpr int BLEND_MAX_ROW = BLEND_GEOM + BLEND_MAX_CH;
+constexpr float BLEND_ALPHA_MAX = 0.99f;
+constexpr float BLEND_ALPHA_MIN = 1.0f / 255.0f;
+constexpr float BLEND_LOG_T_EPS = -9.210340371976182f;  // log(1e-4)
+
+struct BlendSample {
+  float dx, dy;    // pixel -> mean offset (tile-centre relative)
+  float e;         // exp(power)
+  float ealpha;    // opacity * e, before the 0.99 clamp
+  float alpha;     // min(0.99, ealpha)
+};
+
+// The per-pixel recurrence of the forward (K1) and the backward (K2), in
+// log space. Each (pair, pixel) runs, in both kernels:
+//   power = blend_power(row, cx, cy, vx, vy, s);
+//   if (power > 0) skip the pair;
+//   blend_alpha(row[5], power, s);
+//   if (s.alpha < BLEND_ALPHA_MIN) skip the pair;
+//   next = blend_log_t_next(log_t, s.alpha);
+//   if (next < BLEND_LOG_T_EPS) the pixel is done, the pair excluded;
+//   else the pair is included with T_excl = exp(log_t); log_t = next.
+// The tests stay in the callers' loops: returned from a helper they cost
+// a reconvergence and a second branch on every (pair, pixel), most of
+// which skip. The arithmetic is written with round-to-nearest intrinsics,
+// the falloff with explicit FMAs, so the compiler neither fuses nor
+// splits anything differently in the two kernels: the forward and the
+// backward then take bit-identical decisions at the 1/255 gate and at the
+// T < 1e-4 stop.
+
+// power = -1/2 (a dx^2 + c dy^2) - b dx dy of one (pair, pixel): ``row``
+// is the pair's payload row, (cx, cy) the tile centre and (vx, vy) the
+// pixel's offset from it; sets s.dx, s.dy.
+__device__ __forceinline__ float blend_power(const float* row, float cx,
+                                             float cy, float vx, float vy,
+                                             BlendSample& s) {
+  s.dx = __fsub_rn(__fsub_rn(row[0], cx), vx);
+  s.dy = __fsub_rn(__fsub_rn(row[1], cy), vy);
+  const float q = __fmaf_rn(__fmul_rn(row[2], s.dx), s.dx,
+                            __fmul_rn(__fmul_rn(row[4], s.dy), s.dy));
+  return __fmaf_rn(-0.5f, q, -__fmul_rn(row[3], __fmul_rn(s.dx, s.dy)));
+}
+
+// s.e, s.ealpha and s.alpha of a pair with this opacity and power.
+__device__ __forceinline__ void blend_alpha(float opacity, float power,
+                                            BlendSample& s) {
+  s.e = expf(power);
+  s.ealpha = __fmul_rn(opacity, s.e);
+  s.alpha = fminf(BLEND_ALPHA_MAX, s.ealpha);
+}
+
+// log T after a pair of this alpha is included.
+__device__ __forceinline__ float blend_log_t_next(float log_t, float alpha) {
+  return __fadd_rn(log_t, log1pf(-alpha));
+}
+
+// Stage ``nb`` pairs of a tile into shared memory: their splat ids and
+// payload rows (stride BLEND_MAX_ROW). A sentinel id (>= n_splats, a pair
+// dropped by the budget) stages a zero row, which never touches a pixel.
+// Called by every thread of the block; the caller synchronises.
+__device__ __forceinline__ void stage_rows(const int* point_list, int first,
+                                           int nb, const float* payload,
+                                           int row_stride, int n_splats,
+                                           int* s_sid, float* s_row) {
+  const int nthreads = blockDim.x;
+  for (int i = threadIdx.x; i < nb; i += nthreads) {
+    s_sid[i] = point_list[first + i];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < nb * row_stride; e += nthreads) {
+    const int i = e / row_stride;
+    const int r = e - i * row_stride;
+    const int sid = s_sid[i];
+    s_row[i * BLEND_MAX_ROW + r] =
+        sid < n_splats ? payload[(size_t)sid * row_stride + r] : 0.0f;
+  }
+}
 
 __device__ __forceinline__ unsigned warp_inclusive_scan(unsigned v) {
   const int lane = threadIdx.x & 31;

@@ -1,13 +1,16 @@
-"""Tile-based Gaussian rasterization (forward), port of the JAX
+"""Tile-based differentiable Gaussian rasterization, port of the JAX
 ``ops/rasterize.py``.
 
 ``rasterize`` runs preprocess -> binning -> blend -> untile and assembles
-the full :class:`RenderOutput`. On CUDA tensors binning goes through
-kernels K3 (compaction) and K4 (radix sort) and the blend through kernel
-K1; on CPU tensors every wrapper runs its plain version.
-``RasterConfig(use_pallas=False)`` selects the plain path on any device
-(the JAX package's ``use_pallas=False`` XLA path), which is how the
-kernels are held against the reference on the card.
+the full :class:`RenderOutput`. Gradients flow by autograd through
+preprocess, the blend (a ``torch.autograd.Function``, see
+:mod:`.rasterize_cuda`) and the assembly; binning is discrete and runs
+outside the graph, on detached inputs. On CUDA tensors binning goes
+through kernels K3 (compaction) and K4 (radix sort) and the blend through
+kernels K1 (forward) and K2 (backward); on CPU tensors every wrapper runs
+its plain version. ``RasterConfig(use_pallas=False)`` selects the plain
+path on any device, which is how the kernels are held against the
+reference on the card.
 
 Channel layout (config.h:15-20): 3 RGB + 3 language + 3 instance + 5
 all_map (local normal xyz, alpha-constant 1, plane distance).
@@ -21,7 +24,7 @@ import torch
 
 from .binning import CullSpec, TileLists, build_tile_lists
 from .projection import ProcessedSplats, RasterCamera, preprocess
-from .rasterize_cuda import blend_tiles, blend_tiles_plain
+from .rasterize_cuda import blend_tiles
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,15 +139,15 @@ def prepare_blend(means3d, scales, quats, opacity, cam: RasterCamera,
                         conic=proc.conic.detach(), qmax=qmax,
                         tile_w=cfg.tile_w, tile_h=cfg.tile_h)
 
-    lists = build_tile_lists(proc, grid_x, grid_y, cfg.max_tiles_per_splat,
-                             max_pairs=cfg.max_pairs,
-                             big_splats=cfg.big_splats, cull=cull,
-                             extra_tiers=cfg.extra_tiers,
-                             rank_key=cfg.rank_key_sort,
-                             key_only=cfg.key_only_sort,
-                             compact=cfg.compact_sort,
-                             pallas_sort=cfg.pallas_sort,
-                             kernels=cfg.use_kernels())
+    # binning is discrete: keep it out of the autograd graph (the JAX code
+    # stop_gradients its inputs)
+    with torch.no_grad():
+        lists = build_tile_lists(
+            proc, grid_x, grid_y, cfg.max_tiles_per_splat,
+            max_pairs=cfg.max_pairs, big_splats=cfg.big_splats, cull=cull,
+            extra_tiers=cfg.extra_tiers, rank_key=cfg.rank_key_sort,
+            key_only=cfg.key_only_sort, compact=cfg.compact_sort,
+            pallas_sort=cfg.pallas_sort, kernels=cfg.use_kernels())
 
     parts = [proc.rgb]
     for extra in (language_feature, instance_feature, all_map):
@@ -173,12 +176,15 @@ def rasterize(
     cov3d_precomp: Optional[torch.Tensor] = None,
     scale_modifier: float = 1.0,
     mean2d_offset: Optional[torch.Tensor] = None,
+    mean2d_abs_hook: Optional[torch.Tensor] = None,
     cfg: RasterConfig = RasterConfig(),
 ) -> RenderOutput:
-    """Full rasterization pass (forward). Mirrors
+    """Full differentiable rasterization pass. Mirrors
     diff_LangSurf_rasterization.GaussianRasterizer: include_feature is
     implied by language_feature/instance_feature being given, render_geo
-    by all_map being given."""
+    by all_map being given. ``mean2d_abs_hook``: an optional zero [P, 2]
+    tensor whose gradient receives each splat's sum over pixels of
+    |dL/d mean2d| (pixel units), on the kernel and the plain path alike."""
     H, W = cam.height, cam.width
     bi = prepare_blend(means3d, scales, quats, opacity, cam, shs=shs,
                        sh_degree=sh_degree, colors_precomp=colors_precomp,
@@ -188,14 +194,9 @@ def rasterize(
                        scale_modifier=scale_modifier,
                        mean2d_offset=mean2d_offset, cfg=cfg)
     proc, lists, grid_x, grid_y = bi.proc, bi.lists, bi.grid_x, bi.grid_y
-    if cfg.use_kernels():
-        accum, T, observe = blend_tiles(lists, proc.mean2d, proc.conic,
-                                        bi.opacity, bi.channels, grid_x,
-                                        grid_y, cfg)
-    else:
-        accum, T, observe = blend_tiles_plain(
-            lists, proc.mean2d, proc.conic, bi.opacity, bi.channels, grid_x,
-            grid_y, cfg.tile_w, cfg.tile_h, cfg.chunk)
+    accum, T, observe = blend_tiles(lists, proc.mean2d, proc.conic,
+                                    bi.opacity, bi.channels, grid_x, grid_y,
+                                    cfg, mean2d_abs_hook=mean2d_abs_hook)
 
     imgs = _untile(accum, grid_x, grid_y, cfg.tile_h, cfg.tile_w, H, W)
     final_T = _untile(T[:, None, :], grid_x, grid_y, cfg.tile_h, cfg.tile_w,

@@ -18,7 +18,11 @@ from langscenex_tpu_torch.convert import raster_camera_from_numpy
 from langscenex_tpu_torch.ops.compaction import (compact_pairs,
                                                  compact_pairs_plain)
 from langscenex_tpu_torch.ops.rasterize import RasterConfig, rasterize
-from langscenex_tpu_torch.ops.rasterize_cuda import blend_tiles
+from langscenex_tpu_torch import _build
+from langscenex_tpu_torch.ops.rasterize import prepare_blend
+from langscenex_tpu_torch.ops.rasterize_cuda import (blend_backward,
+                                                     blend_backward_plain,
+                                                     blend_tiles)
 from langscenex_tpu_torch.ops.sort_engine import sort_pairs, sort_pairs_plain
 from langscenex_tpu_torch.ops.transforms import (focal2fov, fov2focal,
                                                  projection_matrix)
@@ -55,6 +59,8 @@ def test_wrappers_refuse_other_devices():
     f = torch.empty(4, 2, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         blend_tiles(None, f, f, f, f, 1, 1, RasterConfig())
+    with pytest.raises(ValueError, match="unsupported device"):
+        blend_backward(None, f, f, f, f, f, f, f, f, 1, 1, RasterConfig())
 
 
 @pytest.mark.gpu
@@ -123,3 +129,67 @@ def test_rasterize_kernels_match_plain_path(cuda, tile, tiers):
     torch.testing.assert_close(k.final_T, r.final_T, atol=1e-4, rtol=0)
     od = (k.out_observe.long() - r.out_observe.long()).abs()
     assert int(od.max()) <= 2 and float((od > 0).float().mean()) < 0.02
+
+
+def _k2_scene(rng, P, W, H, dense, device):
+    means = np.stack([rng.uniform(-1.5, 1.5, P), rng.uniform(-1, 1, P),
+                      rng.uniform(2, 6, P)], -1).astype(np.float32)
+    scales = np.exp(rng.uniform(-3.5, -1.8, (P, 3))).astype(np.float32)
+    quats = rng.normal(size=(P, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    opac = (np.full(P, 0.97) if dense else rng.uniform(0.2, 0.95, P)
+            ).astype(np.float32)
+    feats = rng.uniform(0, 1, (P, 14)).astype(np.float32)
+    fovy = focal2fov(fov2focal(1.0, W), H)
+    cam = raster_camera_from_numpy(np.eye(4), projection_matrix(
+        0.01, 100.0, 1.0, fovy), W, H, math.tan(0.5), math.tan(fovy / 2),
+        device)
+    t = [torch.from_numpy(v).to(device) for v in (means, scales, quats,
+                                                   opac, feats)]
+    return cam, t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dense,tile", [(False, (32, 32)), (True, (32, 32)),
+                                        (False, (128, 8))])
+def test_blend_backward_kernel_matches_plain(cuda, dense, tile):
+    # K2 against the plain backward on the same lists, forward outputs and
+    # upstream gradients. Float atomics sum pairs in a varying order, so
+    # each per-splat row is held to 2e-3 of its column's largest magnitude
+    # plus 5e-3 relative (the JAX package's Pallas-vs-XLA gradient
+    # bounds). The kernel takes dx, dy from the tile centre where the
+    # plain version uses global pixel coordinates, so a pair at the
+    # alpha >= 1/255 gate or the T < 1e-4 stop may flip at a pixel (as
+    # observe does in the forward): the bound holds for all but 1% of
+    # splats.
+    rng = np.random.default_rng(11)
+    P, W, H = 3000, 160, 96
+    cam, (means, scales, quats, opac, feats) = _k2_scene(rng, P, W, H, dense,
+                                                        cuda)
+    cfg = RasterConfig(tile_w=tile[0], tile_h=tile[1], max_pairs=200_000)
+    bi = prepare_blend(means, scales, quats, opac, cam,
+                       colors_precomp=feats[:, :3],
+                       language_feature=feats[:, 3:], cfg=cfg)
+    n_tiles = bi.grid_x * bi.grid_y
+    npx = tile[0] * tile[1]
+    args = (bi.lists, bi.proc.mean2d, bi.proc.conic, bi.opacity,
+            bi.channels)
+    from langscenex_tpu_torch.ops.rasterize_cuda import blend_forward
+    accum, T, _ = blend_forward(*args, bi.grid_x, bi.grid_y, cfg)
+    g_accum = torch.from_numpy(rng.normal(size=(n_tiles, 14, npx)).astype(
+        np.float32)).to(cuda)
+    g_T = torch.from_numpy(rng.normal(size=(n_tiles, npx)).astype(
+        np.float32)).to(cuda)
+    _build.reset_launch_counts()
+    got = blend_backward(*args, accum, T, g_accum, g_T, bi.grid_x,
+                         bi.grid_y, cfg)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["blend_backward"] == 1
+    ref = blend_backward_plain(*args, accum, T, g_accum, g_T, bi.grid_x,
+                               bi.grid_y, cfg.tile_w, cfg.tile_h, cfg.chunk)
+    assert got.shape == ref.shape == (P, 22)
+    assert bool(torch.isfinite(got).all())
+    scale = ref.abs().amax(0, keepdim=True).clamp(min=1e-3)
+    bad = ((got - ref).abs() > 2e-3 * scale + 5e-3 * ref.abs()).any(1)
+    assert float(bad.float().mean()) <= 0.01
+    assert bool((got[:, 20:] >= 0).all())

@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 from langscenex_tpu.ops import covariance as jcov
 from langscenex_tpu.ops import projection as jproj

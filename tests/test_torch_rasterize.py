@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import few_torch_threads  # noqa: F401
 from jax.experimental.pallas import tpu as pltpu
 
 from langscenex_tpu.ops import transforms as jtf

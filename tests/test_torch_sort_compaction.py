@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 from langscenex_tpu.ops.binning import _depth_perm as jax_depth_perm
 from langscenex_tpu.ops.compaction import compact_pairs as jax_compact
@@ -122,7 +123,7 @@ def test_wrappers_run_plain_on_cpu_and_check_inputs():
     assert sort_pairs(k, v)[1].tolist() == [1, 2, 0]
     assert compact_pairs(k, v, 3, 3, 9, 9)[0].tolist() == [1, 2, 9]
     assert _build.launch_counts == {"sort_pairs": 0, "compact_pairs": 0,
-                                    "blend_forward": 0}
+                                    "blend_forward": 0, "blend_backward": 0}
     with pytest.raises(TypeError):
         sort_pairs(k.long(), v)
     with pytest.raises(ValueError):
