@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's render and training paths once on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's render, training and video-diffusion
+paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -36,7 +36,26 @@ Phases (any failure raises, so the exit code is non-zero):
      through the plain path (use_pallas=False) on the same state, batch
      and draws: loss and per-group gradients within stated bounds;
   8. train profile: host wall time, device busy time and idle share of
-     that step.
+     that step;
+  9. configuration trimap-dit-5b-49x480x720 (the JAX package's full-scale
+     TransformerConfig, VAEConfig and PipelineConfig; build_pipeline's
+     random bf16 weights from seed 42): build_pipeline on the card, then
+     K5 and K8 against
+     their plain versions on the real layer-0 inputs (q, k, v
+     [2, 17776, 48, 64], x [2, 17776, 3072]), with CUDA-event times of
+     kernel, plain and (K5) scaled_dot_product_attention;
+ 10. the full-width DiT through the kernels and through the plain path on
+     the same weights and inputs: the residual stream after 2 blocks and
+     the 42-layer noise prediction, within stated bounds;
+ 11. the request: two random 480x720 keyframes and the stub prompts
+     through InterpolationPipeline with 2 DDIM steps and the tiled decode;
+     a finite [1, 49, 3, 480, 720] video, exactly 84 K5 and 168 K8
+     launches, the times of encode, each step and decode, peak memory;
+ 12. profile of one denoise step (host wall, device busy, idle share, top
+     device ops).
+Every kernel's bound is computed from this run's shapes: the larger of
+its operations over the bf16 tensor-core peak and its bytes (each input
+read once, each output written once) over the HBM rate.
 Prints a JSON line of per-kernel results, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -56,8 +75,13 @@ import torch
 
 from langscenex_tpu_torch import _build
 from langscenex_tpu_torch.ops.binning import enumerate_pairs
+from langscenex_tpu_torch.models.cogvideox.pipeline import guided_prediction
 from langscenex_tpu_torch.ops.compaction import (compact_pairs,
                                                  compact_pairs_plain)
+from langscenex_tpu_torch.ops.flash_attention import (attention_bthd_kernel,
+                                                      attention_bthd_plain)
+from langscenex_tpu_torch.ops.ln_modulate import (ln_modulate,
+                                                  ln_modulate_plain)
 from langscenex_tpu_torch.ops.rasterize import RasterConfig, prepare_blend
 from langscenex_tpu_torch.ops.rasterize_cuda import (blend_backward,
                                                      blend_backward_plain,
@@ -74,6 +98,7 @@ from langscenex_tpu_torch.train.field import (GaussianFieldTrainer,
                                               render_view)
 from langscenex_tpu_torch.train.render_mode import render_all_views
 from langscenex_tpu_torch.utils.config import OptimizationConfig
+from langscenex_tpu_torch.video_inference import build_pipeline
 
 P = 100_000
 W, H = 720, 480
@@ -113,6 +138,43 @@ FIELD_EXTENT = 4.0
 TRAIN_WINDOWS = ((1, 20), (599, 601), (1299, 1301), (1999, 2001))
 N_SEGMENTS = 4
 
+# the configuration trimap-dit-5b-49x480x720 (see PERF.md): the JAX
+# package's full-scale defaults with build_pipeline's random weights
+# (seed 42); noise and DiT inputs from DIT_SEED; 2 steps
+DIT_SEED = 0
+DIT_STEPS = 2
+PROMPT = "a living room with a grey sofa, a lamp and a window"
+# K5 vs its plain version (same rounding points): the f32 sums run in
+# another order and exp2 differs in its last bits, which can move a p
+# across a bf16 rounding boundary and an output by one bf16 ulp: each o
+# within 2^-7 relative + 1e-3. Only outputs next to a rounding midpoint
+# move at all, so o's relative RMS difference stays far below the 2^-7.5
+# that every output one ulp off would give: within 2^-8. That RMS bound
+# fails a kernel that mishandles V or drops a kv tile, which the
+# per-element bound can miss where |o| is near 1e-3.
+# Each p moves by at most one bf16 ulp (up to 2^-7 of p), so the row's
+# normalizer l moves by at most 2^-7 of l, whatever the number of moves,
+# and l2 = log2(l) by at most log2(1 + 2^-7) < 1.13e-2. A row where one
+# p dominates comes near that (2.15e-3 at p / l of about 0.2 was read on
+# an H100), so each l2 is held to 1.13e-2. In all other rows the moved p
+# are small and l2 differs by f32 rounding, so the mean |l2| difference
+# is held to 1e-4; a dropped or doubled 64-key tile of near-uniform
+# attention moves every l2 of its rows by about 64 / 17776 / ln 2 = 5e-3.
+ATTN_RTOL, ATTN_ATOL, L2_ATOL, L2_MEAN_ATOL = 2 ** -7, 1e-3, 1.13e-2, 1e-4
+ATTN_REL_RMS = 2 ** -8
+# K8 vs its plain version: one bf16 ulp (2^-7 relative) + 1e-4
+LNZ_RTOL, LNZ_ATOL = 2 ** -7, 1e-4
+# the DiT through the kernels vs the plain path: each K5/K8 output may
+# differ from the plain one by a bf16 ulp (2^-8 relative), and the
+# differences pass on through the linears and the residual stream. After
+# 2 blocks (4 kernel calls) the residual stream's relative RMS difference
+# stays under 1e-2; over 42 blocks (126 calls) the noise prediction's
+# under 5e-2.
+DIT2_REL_RMS, DIT_REL_RMS = 1e-2, 5e-2
+# the card's published peaks (H100 SXM): bf16 dense tensor cores, HBM3
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
+
 TPU_KERNELS = {
     "sort_pairs": "langscenex_tpu/ops/sort_engine.py:92 _local_kernel, "
                   "langscenex_tpu/ops/sort_engine.py:104 _cross_kernel",
@@ -120,13 +182,21 @@ TPU_KERNELS = {
     "blend_forward": "langscenex_tpu/ops/rasterize_pallas.py:299 _fwd_kernel",
     "blend_backward": "langscenex_tpu/ops/rasterize_pallas.py:447 "
                       "_bwd_kernel",
+    "flash_attention": "langscenex_tpu/ops/flash_attention.py:991 "
+                       "_attn_kernel_nomax_t4",
+    "ln_modulate": "langscenex_tpu/ops/ln_modulate.py:31 _lnz_kernel",
 }
 SOURCES = {
     "sort_pairs": "langscenex_tpu_torch/csrc/sort.cu",
     "compact_pairs": "langscenex_tpu_torch/csrc/compaction.cu",
     "blend_forward": "langscenex_tpu_torch/csrc/blend.cu",
     "blend_backward": "langscenex_tpu_torch/csrc/blend_backward.cu",
+    "flash_attention": "langscenex_tpu_torch/csrc/flash_attention.cu",
+    "ln_modulate": "langscenex_tpu_torch/csrc/ln_modulate.cu",
 }
+RENDER_TRAIN_KERNELS = ("blend_forward", "blend_backward", "compact_pairs",
+                        "sort_pairs")
+DIT_KERNELS = ("flash_attention", "ln_modulate")
 
 
 def scene(n: int, seed: int = 0):
@@ -200,6 +270,19 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops: float = 0.0, moved: int = 0) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the bf16 tensor-core peak and the bytes over the HBM rate."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = moved / PEAK_HBM_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops > t_bytes else "bytes")
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -256,8 +339,12 @@ def phase_kernels(dev, state_gpu, results) -> None:
     sort_err = pair_err(got, ref)
     ms = cuda_ms(lambda: sort_pairs(key, val), 20)
     plain_ms = cuda_ms(lambda: sort_pairs_plain(key, val), 20)
+    lib_ms = cuda_ms(lambda: torch.sort(key, stable=True), 20)
+    sort_bound = bound(moved=2 * nbytes(key, val))
     print(f"K4 sort_pairs 2^19 pairs: exact; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
+          f"plain {plain_ms:.4f} ms, torch.sort(stable=True) {lib_ms:.4f} "
+          f"ms, bound {sort_bound['bound_ms']:.4f} ms "
+          f"({sort_bound['bound_by']})")
     # ---- K4 on 100k depth keys with ties and +inf rows ------------------
     depth = rng.uniform(2.0, 10.0, P).astype(np.float32)
     depth[rng.integers(0, P, P // 10)] = np.float32(5.25)
@@ -273,7 +360,8 @@ def phase_kernels(dev, state_gpu, results) -> None:
     print(f"K4 sort_pairs 100k depth keys (ties, +inf): exact; kernel "
           f"{dms:.4f} ms, plain {dplain:.4f} ms")
     results["sort_pairs"] = dict(max_abs_err=sort_err, ms=ms,
-                                 plain_ms=plain_ms)
+                                 plain_ms=plain_ms, **sort_bound,
+                                 library_ms=lib_ms)
 
     # ---- slice scene, identity view: the real K3 and K1 inputs ----------
     cam = cameras()[0]
@@ -309,8 +397,9 @@ def phase_kernels(dev, state_gpu, results) -> None:
     print(f"K3 compact_pairs {ps.key.numel()} slots -> {ps.out_len} "
           f"({n_valid} valid): exact; kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms")
-    results["compact_pairs"] = dict(max_abs_err=compact_err, ms=ms,
-                                    plain_ms=plain_ms)
+    results["compact_pairs"] = dict(
+        max_abs_err=compact_err, ms=ms, plain_ms=plain_ms,
+        **bound(moved=nbytes(ps.key, ps.sid, *got)), library_ms=None)
 
     # ---- K1 on the slice scene's lists (14 channels) ---------------------
     bargs = (bi.lists, proc.mean2d, proc.conic, bi.opacity, bi.channels,
@@ -326,8 +415,10 @@ def phase_kernels(dev, state_gpu, results) -> None:
           f"{int(counts.sum())} pairs (max {int(counts.max())}/tile), "
           f"{bi.channels.shape[1]} channels: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms")
-    results["blend_forward"] = dict(max_abs_err=err, ms=ms,
-                                    plain_ms=plain_ms)
+    lists = (bi.lists.point_list, bi.lists.tile_starts, counts)
+    results["blend_forward"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        **bound(moved=nbytes(*lists, *bargs[1:5], *got)), library_ms=None)
 
     # ---- K2 on the same lists, K1's outputs, random upstream gradients --
     accum, T, _ = got
@@ -352,8 +443,10 @@ def phase_kernels(dev, state_gpu, results) -> None:
           f"per-column bound; kernel {ms2:.4f} ms, plain {plain_ms2:.4f} ms")
     require(bad <= K2_MAX_BAD, "K2 differs from the plain backward beyond "
             "bounds")
-    results["blend_backward"] = dict(max_abs_err=err2, ms=ms2,
-                                     plain_ms=plain_ms2)
+    results["blend_backward"] = dict(
+        max_abs_err=err2, ms=ms2, plain_ms=plain_ms2,
+        **bound(moved=nbytes(*lists, *bargs[1:5], accum, T, g_accum, g_T,
+                             got2)), library_ms=None)
 
 
 def phase_main_path(dev, cams, path) -> dict:
@@ -572,9 +665,9 @@ def phase_train(dev, cams, lang_dir: str) -> dict:
             f"{k}={v:.5g}" for k, v in ws[-1][2].items()))
     launches = dict(_build.launch_counts)
     print(f"launch counts over the training-path run: {launches}")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the training "
-                f"path")
+    for name in RENDER_TRAIN_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the "
+                f"training path")
     first = [m["total"] for _, _, m in steps[:5]]
     last = [m["total"] for _, _, m in steps[15:20]]
     print(f"window 1-20 loss: first 5 steps mean {np.mean(first):.5f}, "
@@ -630,6 +723,232 @@ def phase_train_profile(tr, step_in: dict, n: int = 3) -> dict:
     return profile(one, n, "train step, geometry + multi-view")
 
 
+def ms_list(seconds) -> str:
+    return " ".join("%.1f" % (t * 1e3) for t in seconds)
+
+
+def rel_rms(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """RMS of the difference over the RMS of ``ref``."""
+    d = (got.float() - ref.float()).pow(2).mean().sqrt()
+    return float(d / ref.float().pow(2).mean().sqrt().clamp(min=1e-30))
+
+
+def dit_inputs(dev, text, pcfg, dtype):
+    """One DiT call of the request's shapes (at full scale [uncond; cond]
+    latents [2, 13, 32, 60, 90]: seeded noise and image latents; the stub
+    prompts' embeddings [2, 226, 4096]; timestep 999), in ``dtype``."""
+    gen = torch.Generator(device=dev).manual_seed(DIT_SEED + 1)
+    shape = (1, pcfg.latent_frames, pcfg.latent_channels, pcfg.latent_height,
+             pcfg.latent_width)
+    lat = torch.randn(shape, generator=gen, device=dev)
+    img = 0.5 * torch.randn(shape, generator=gen, device=dev)
+    model_in = torch.cat([lat, img], dim=2).expand(2, -1, -1, -1, -1)
+    txt = torch.from_numpy(np.concatenate([text.encode([""]),
+                                           text.encode([PROMPT])])).to(dev)
+    tt = torch.full((2,), 999, dtype=torch.int32, device=dev)
+    return model_in.to(dtype).contiguous(), txt.to(dtype), tt
+
+
+@torch.inference_mode()
+def phase_dit_kernels(dev, dit, model_in, txt, tt, results) -> None:
+    """K8 and K5 against their plain versions on the real inputs of the
+    first block."""
+    blk = dit.transformer_blocks[0]
+    Tt = txt.shape[1]
+    joint, temb, rope = dit.embed(model_in, txt, tt)
+    emb = blk.norm1.linear(torch.nn.functional.silu(temb))
+    shift, scale, _, t_shift, t_scale, _ = emb.chunk(6, dim=-1)
+    mods = [m.contiguous() for m in (scale, shift, t_scale, t_shift)]
+    largs = (joint, blk.norm1.norm.weight, blk.norm1.norm.bias, *mods, Tt)
+    y, ry = ln_modulate(*largs), ln_modulate_plain(*largs)
+    require(bool(torch.isfinite(y.float()).all()), "K8: non-finite output")
+    torch.testing.assert_close(y.float(), ry.float(), atol=LNZ_ATOL,
+                               rtol=LNZ_RTOL)
+    ms = cuda_ms(lambda: ln_modulate(*largs), 20)
+    plain_ms = cuda_ms(lambda: ln_modulate_plain(*largs), 5)
+    lnz_bound = bound(moved=nbytes(*largs[:7], y))
+    print(f"K8 ln_modulate x {list(joint.shape)} {joint.dtype}, text_len "
+          f"{Tt}: max abs err {max_abs(y, ry):.3e} (bound {LNZ_RTOL:.3g} "
+          f"rel + {LNZ_ATOL:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {lnz_bound['bound_ms']:.4f} ms ({lnz_bound['bound_by']})")
+    results["ln_modulate"] = dict(max_abs_err=max_abs(y, ry), ms=ms,
+                                  plain_ms=plain_ms, **lnz_bound,
+                                  library_ms=None)
+
+    q, k, v = blk.attn1.qkv(y, rope)
+    sc = 1.0 / math.sqrt(q.shape[-1])
+    o, l2 = attention_bthd_kernel(q, k, v, sc)
+    ro, rl2 = attention_bthd_plain(q, k, v, sc)
+    o_rms = rel_rms(o, ro)
+    l2_mean = float((l2 - rl2).abs().mean())
+    print(f"K5 vs plain: max|o| err {max_abs(o, ro):.3e} (max|o| "
+          f"{float(ro.float().abs().max()):.3e}, bound {ATTN_RTOL:.3g} rel + "
+          f"{ATTN_ATOL:g}), o rel RMS {o_rms:.3e} (RMS|o| "
+          f"{float(ro.float().pow(2).mean().sqrt()):.3e}, bound "
+          f"{ATTN_REL_RMS:.3g}), max|l2| err {max_abs(l2, rl2):.3e} (bound "
+          f"{L2_ATOL:g}), mean|l2| err {l2_mean:.3e} (bound {L2_MEAN_ATOL:g})")
+    require(bool(torch.isfinite(o.float()).all()), "K5: non-finite output")
+    torch.testing.assert_close(o.float(), ro.float(), atol=ATTN_ATOL,
+                               rtol=ATTN_RTOL)
+    require(o_rms <= ATTN_REL_RMS, f"K5: o's relative RMS difference "
+            f"{o_rms:.3e} above {ATTN_REL_RMS:.3g}")
+    torch.testing.assert_close(l2, rl2, atol=L2_ATOL, rtol=0.0)
+    require(l2_mean <= L2_MEAN_ATOL, f"K5: mean |l2| difference "
+            f"{l2_mean:.3e} above {L2_MEAN_ATOL:g}")
+    err = max(max_abs(o, ro), max_abs(l2, rl2))
+    ms = cuda_ms(lambda: attention_bthd_kernel(q, k, v, sc), 5)
+    plain_ms = cuda_ms(lambda: attention_bthd_plain(q, k, v, sc), 1,
+                       warmup=1)
+    bhtd = [t.transpose(1, 2) for t in (q, k, v)]
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        *bhtd), 5)
+    B, T, H, D = q.shape
+    attn_bound = bound(flops=4.0 * B * H * T * T * D,
+                       moved=nbytes(q, k, v, o, l2))
+    n_exp = B * H * T * T
+    sfu_cycles = n_exp / (16 * torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    print(f"K5 flash_attention q,k,v {list(q.shape)} {q.dtype}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+          f"{lib_ms:.4f} ms, bound {attn_bound['bound_ms']:.4f} ms "
+          f"({attn_bound['bound_by']}, {4.0 * B * H * T * T * D / 1e12:.3f} "
+          f"TFLOP); {n_exp:.4g} exp2 = {sfu_cycles:.4g} SFU cycles per SM "
+          f"at 16 ex2/clk")
+    results["flash_attention"] = dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms, **attn_bound,
+                                      library_ms=lib_ms)
+
+
+@torch.inference_mode()
+def phase_dit_compare(dit, model_in, txt, tt) -> None:
+    """The full-width DiT through the kernels and through the plain path
+    on the same weights and inputs."""
+    Tt = txt.shape[1]
+    joint, temb, rope = dit.embed(model_in, txt, tt)
+
+    def two_blocks(kernels: bool):
+        dit.set_use_kernels(kernels)
+        x = joint
+        for blk in dit.transformer_blocks[:2]:
+            x = blk(x, temb, rope, Tt)
+        return x
+
+    k2, p2 = two_blocks(True), two_blocks(False)
+    e2 = rel_rms(k2, p2)
+    del k2, p2
+    dit.set_use_kernels(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kout = dit(model_in, txt, tt)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    dit.set_use_kernels(False)
+    t0 = time.perf_counter()
+    pout = dit(model_in, txt, tt)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    dit.set_use_kernels(True)
+    require(bool(torch.isfinite(kout.float()).all()
+                 and torch.isfinite(pout.float()).all()),
+            "DiT: non-finite noise prediction")
+    e = rel_rms(kout, pout)
+    n_layers = len(dit.transformer_blocks)
+    print(f"DiT kernels vs plain path: residual stream after 2 blocks rel "
+          f"RMS {e2:.3e} (bound {DIT2_REL_RMS:g}); {n_layers}-layer noise "
+          f"prediction {list(kout.shape)} rel RMS {e:.3e} "
+          f"(bound {DIT_REL_RMS:g}), max abs {max_abs(kout, pout):.3e} "
+          f"(max|ref| {float(pout.float().abs().max()):.3e}); forward "
+          f"{t_k * 1e3:.1f} ms through the kernels, {t_p * 1e3:.1f} ms plain "
+          f"(host clock, synchronised)")
+    require(e2 <= DIT2_REL_RMS, "DiT after 2 blocks differs from the plain "
+            "path beyond the bound")
+    require(e <= DIT_REL_RMS, "DiT noise prediction differs from the plain "
+            "path beyond the bound")
+
+
+def phase_request(dev, pipe, text, pcfg, n_layers: int) -> dict:
+    """One trimap-dit-5b-49x480x720 request through the pipeline, with
+    every launch counted."""
+    rng = np.random.default_rng(0)
+    first, last = (torch.from_numpy(rng.uniform(
+        -1, 1, (1, 3, pcfg.height, pcfg.width)).astype(np.float32)).to(dev)
+        for _ in range(2))
+    cond = torch.from_numpy(text.encode([PROMPT])).to(dev)
+    uncond = torch.from_numpy(text.encode([""])).to(dev)
+    times = {"encode": [], "step": [], "decode": []}
+    clock = [0.0]
+    encode, decode = pipe.vae_encode, pipe.vae_decode
+
+    def timed(fn, key):
+        def run(x):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x)
+            torch.cuda.synchronize()
+            clock[0] = time.perf_counter()
+            times[key].append(clock[0] - t0)
+            return out
+        return run
+
+    def step_done(i, t, evaluated, latents):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times["step"].append(now - clock[0])
+        clock[0] = now
+
+    pipe.vae_encode = timed(encode, "encode")
+    pipe.vae_decode = timed(decode, "decode")
+    gen = torch.Generator(device=dev).manual_seed(DIT_SEED)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        video = pipe(first, last, cond, uncond, generator=gen,
+                     callback=step_done)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+    finally:
+        pipe.vae_encode, pipe.vae_decode = encode, decode
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"launch counts over the request: {launches}")
+    print(f"request: video {list(video.shape)} {video.dtype}, wall "
+          f"{wall:.3f} s; encode {ms_list(times['encode'])} ms; denoise "
+          f"steps {ms_list(times['step'])} ms; tiled decode "
+          f"{ms_list(times['decode'])} ms; peak allocated "
+          f"{peak / 2 ** 30:.3f} GiB; video range "
+          f"[{float(video.min()):.4f}, {float(video.max()):.4f}]")
+    require(tuple(video.shape) == (1, pcfg.num_frames, 3, pcfg.height,
+                                   pcfg.width), "request: video shape")
+    require(bool(torch.isfinite(video).all()), "request: non-finite video")
+    steps = pcfg.num_inference_steps
+    require(launches["flash_attention"] == n_layers * steps,
+            f"request: {launches['flash_attention']} K5 launches, expected "
+            f"{n_layers * steps}")
+    require(launches["ln_modulate"] == 2 * n_layers * steps,
+            f"request: {launches['ln_modulate']} K8 launches, expected "
+            f"{2 * n_layers * steps}")
+    return dict(launches=launches, times=times, wall=wall, peak=peak)
+
+
+def phase_dit_profile(pipe, model_in, txt) -> dict:
+    """Profile one denoise step: the guided DiT call at batch 2 and the
+    DDIM update."""
+    C = pipe.cfg.latent_channels
+    lat = model_in[:1, :, :C].float()
+    img = model_in[:1, :, C:].float()
+    sched, cfg = pipe.scheduler, pipe.cfg
+    ts = sched.timesteps(cfg.num_inference_steps)
+
+    @torch.inference_mode()
+    def step():
+        pred = guided_prediction(pipe.denoiser_fn, lat, img, txt, ts[0],
+                                 sched, cfg)
+        sched.step(pred, ts[0], ts[1], lat)
+    return profile(step, 1, "one denoise step, trimap-dit-5b-49x480x720")
+
+
 def main() -> int:
     # ---- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -678,12 +997,34 @@ def main() -> int:
         train = phase_train(dev, tcams, lang_dir)
         step_in = compare_plain_step(train["trainer"])
         phase_train_profile(train["trainer"], step_in)
+    train_launches = train["launches"]
+    del train, step_in, main
+    torch.cuda.empty_cache()
 
+    # ---- 9-12. video diffusion, trimap-dit-5b-49x480x720 ----------------
+    t0 = time.perf_counter()
+    pipe, text, pcfg, aux = build_pipeline(
+        device=dev, pcfg_overrides={"num_inference_steps": DIT_STEPS})
+    dit = aux["dit"]
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in dit.parameters())
+    print(f"build_pipeline: DiT {n_params / 1e9:.3f}B parameters "
+          f"({n_params * 2 / 1e9:.2f} GB bf16), VAE "
+          f"{sum(p.numel() for p in aux['vae'].parameters()) / 1e6:.1f}M, "
+          f"{time.perf_counter() - t0:.2f} s")
+    model_in, txt, tt = dit_inputs(dev, text, pcfg, torch.bfloat16)
+    phase_dit_kernels(dev, dit, model_in, txt, tt, results)
+    phase_dit_compare(dit, model_in, txt, tt)
+    request = phase_request(dev, pipe, text, pcfg,
+                            len(dit.transformer_blocks))
+    phase_dit_profile(pipe, model_in, txt)
+
+    launches = {**{k: train_launches[k] for k in RENDER_TRAIN_KERNELS},
+                **{k: request["launches"][k] for k in DIT_KERNELS}}
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
-                    replaces=TPU_KERNELS[name],
-                    launches=train["launches"][name], **results[name])
-               for name in ("blend_forward", "blend_backward",
-                            "compact_pairs", "sort_pairs")]
+                    replaces=TPU_KERNELS[name], launches=launches[name],
+                    **results[name])
+               for name in RENDER_TRAIN_KERNELS + DIT_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,13 @@ neither nvcc nor a GPU.
 Ported so far: the render path (``ops/{quat,transforms,sh,covariance,
 projection,sort_engine,compaction,binning,rasterize_cuda,rasterize}.py``,
 ``scene/{gaussians,ply_io,cameras}.py``, ``train/field.render_view`` and
-``train/render_mode.render_all_views``) and the field-construction train
+``train/render_mode.render_all_views``), the field-construction train
 step (the blend backward, ``ops/{losses,depth_normal,interp,knn}.py``,
 ``utils/config.OptimizationConfig``, ``train/{optim,multiview,densify,
-field}.py`` with ``GaussianFieldTrainer``).
+field}.py`` with ``GaussianFieldTrainer``) and the TriMap video-diffusion
+request (``ops/{ln_modulate,flash_attention}.py`` over kernels K8 and K5,
+``models/cogvideox/{transformer,scheduler,pipeline,vae}.py``,
+``models/t5.py`` and ``video_inference.py``). Entry points run on the
+first CUDA card unless the caller names another device
+(``utils/device.py``).
 """

@@ -35,7 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 launch_counts = {"sort_pairs": 0, "compact_pairs": 0, "blend_forward": 0,
-                 "blend_backward": 0}
+                 "blend_backward": 0, "flash_attention": 0, "ln_modulate": 0}
 
 # seconds the last nvcc build of this process took (0.0 when only the
 # cached library was loaded); read by chip_smoke.py
@@ -43,6 +43,8 @@ last_build_seconds = 0.0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # keys_in, vals_in, keys_out, vals_out, keys_tmp, vals_tmp, hist, n,
     # n_blocks, stream
@@ -60,6 +62,12 @@ _SIGNATURES = {
     # row_stride, n_splats, stream
     "lsx_blend_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _I, _I, _P],
+    # q, k, v, o, l2, B, T, H, (b, t, h) element strides of q, k, v and o,
+    # scale2, stream
+    "lsx_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, *[_L] * 12,
+                                _F, _P],
+    # x, gamma, beta, sc, sh, tsc, tsh, y, B, T, H, text_len, stream
+    "lsx_ln_modulate": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -19,6 +19,7 @@ import torch
 
 from ..ops.projection import RasterCamera
 from ..ops.transforms import fov2focal, projection_matrix, world_to_view
+from ..utils.device import resolve_device
 
 ZNEAR = 0.01
 ZFAR = 100.0
@@ -73,7 +74,9 @@ class Camera:
                          [0, 0, 1]], np.float32)
 
     def raster_camera(self, w2c_override: Optional[np.ndarray] = None,
-                      device: torch.device | str = "cpu") -> RasterCamera:
+                      device: torch.device | str | None = None
+                      ) -> RasterCamera:
+        device = resolve_device(device)
         w2c = self.w2c if w2c_override is None else w2c_override
         proj = projection_matrix(ZNEAR, ZFAR, self.fovx, self.fovy)
         return RasterCamera(

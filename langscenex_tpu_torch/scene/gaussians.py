@@ -19,6 +19,7 @@ import torch
 from ..ops.knn import mean_dist3_sq
 from ..ops.quat import quat_normalize, quat_to_rotmat
 from ..ops.sh import rgb_to_sh
+from ..utils.device import resolve_device
 
 
 def inverse_sigmoid(x):
@@ -84,13 +85,15 @@ class GaussianState:
 def create_from_points(points: np.ndarray, colors: np.ndarray,
                        max_sh_degree: int = 3,
                        capacity: Optional[int] = None, seed: int = 0,
-                       device: torch.device | str = "cpu") -> GaussianState:
+                       device: torch.device | str | None = None
+                       ) -> GaussianState:
     """Initialise splats from a point cloud (gaussian_model.create_from_pcd
     :267-301): SH-DC from RGB, log-sqrt-kNN scales (the JAX package's
     morton-window kNN), identity rotations, opacity 0.1, standard-normal
     knn_f, zero language/instance features. knn_f is drawn from a
     ``torch.Generator`` seeded with ``seed``, so it differs from the JAX
     package's draw (same distribution)."""
+    device = resolve_device(device)
     n = points.shape[0]
     cap = capacity or _round_capacity(int(n * 1.5))
     if cap < n:
@@ -135,8 +138,10 @@ class DensifyStats:
     max_radii2D: torch.Tensor             # [CAP]
 
     @classmethod
-    def zeros(cls, cap: int, device: torch.device | str = "cpu"
+    def zeros(cls, cap: int, device: torch.device | str | None = None
               ) -> "DensifyStats":
+        device = resolve_device(device)
+
         def z():
             return torch.zeros(cap, dtype=torch.float32, device=device)
         return cls(xyz_gradient_accum=z(), xyz_gradient_accum_abs=z(),

@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .gaussians import GaussianState, _round_capacity
 
 
@@ -84,9 +85,10 @@ def _read_ply_vertex(path: str):
 
 def load_ply(path: str, max_sh_degree: int = 3,
              capacity: Optional[int] = None,
-             device: torch.device | str = "cpu") -> GaussianState:
+             device: torch.device | str | None = None) -> GaussianState:
     """Load a splat PLY into a capacity-padded GaussianState on
     ``device``. Missing language/instance channels load as zeros."""
+    device = resolve_device(device)
     d, n = _read_ply_vertex(path)
     cap = capacity or _round_capacity(int(n * 1.5))
     R = (max_sh_degree + 1) ** 2 - 1

@@ -167,7 +167,8 @@ def test_preprocess_grads_match_jax():
     w2c[:3, 3] = (0.05, 0.02, 0.1)
     jcam = jproj.RasterCamera(w2c=jnp.asarray(w2c), proj=jnp.asarray(PROJ),
                               width=W, height=H, tan_fovx=TANX, tan_fovy=TANY)
-    tcam = convert.raster_camera_from_numpy(w2c, PROJ, W, H, TANX, TANY)
+    tcam = convert.raster_camera_from_numpy(w2c, PROJ, W, H, TANX, TANY,
+                                            "cpu")
     ins = (means, scales, quats, shs, off)
     vis = np.asarray(jproj.preprocess(*map(jnp.asarray, ins[:3]), jcam,
                                       shs=jnp.asarray(shs), sh_degree=3,
@@ -251,7 +252,7 @@ def test_rasterize_grads_match_jax():
             *map(jnp.asarray, ins))
     leaves = [_t(x).requires_grad_() for x in ins]
     o = rasterize(*leaves[:4], convert.raster_camera_from_numpy(
-        np.eye(4), PROJ, W, H, TANX, TANY), _t(bg), shs=leaves[4],
+        np.eye(4), PROJ, W, H, TANX, TANY, "cpu"), _t(bg), shs=leaves[4],
         sh_degree=3, language_feature=leaves[5], instance_feature=leaves[6],
         all_map=leaves[7], cfg=RasterConfig(**CFG))
     assert not bool(o.pairs_overflowed) and int(o.num_pairs) > 400
@@ -311,14 +312,14 @@ def test_render_view_grads_match_jax(pose_mode):
     with pltpu.force_tpu_interpret_mode():
         jgp, jgpose = jax.jit(jax.grad(jloss, argnums=(0, 1)))(
             jparams, jnp.asarray(pose))
-    tstate = convert.gaussian_state_from_numpy(d)
+    tstate = convert.gaussian_state_from_numpy(d, "cpu")
     leaves = {k: getattr(tstate, k).clone().requires_grad_()
               for k in PARAMS}
     tpose = _t(pose).requires_grad_()
     s = GaussianState(**{**tstate.__dict__, **leaves})
     o = render_view(s, tpose if pose_mode else None, _t(w2c),
                     convert.raster_camera_from_numpy(np.eye(4), PROJ, W, H,
-                                                     TANX, TANY),
+                                                     TANX, TANY, "cpu"),
                     torch.zeros(3), 3, True, True, None, RasterConfig(**CFG))
     assert int(o.num_pairs) > 400
     loss = sum((getattr(o, k) * _t(w)).sum() for k, w in wts.items())

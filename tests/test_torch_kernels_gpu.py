@@ -61,6 +61,15 @@ def test_wrappers_refuse_other_devices():
         blend_tiles(None, f, f, f, f, 1, 1, RasterConfig())
     with pytest.raises(ValueError, match="unsupported device"):
         blend_backward(None, f, f, f, f, f, f, f, f, 1, 1, RasterConfig())
+    from langscenex_tpu_torch.ops.flash_attention import attention_bthd
+    from langscenex_tpu_torch.ops.ln_modulate import ln_modulate
+    x = torch.empty(1, 4, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention_bthd(x, x, x)
+    m = torch.empty(1, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ln_modulate(torch.empty(1, 4, 8, device="meta"), m[0], m[0], m, m, m,
+                    m, 2)
 
 
 @pytest.mark.gpu
@@ -193,3 +202,82 @@ def test_blend_backward_kernel_matches_plain(cuda, dense, tile):
     bad = ((got - ref).abs() > 2e-3 * scale + 5e-3 * ref.abs()).any(1)
     assert float(bad.float().mean()) <= 0.01
     assert bool((got[:, 20:] >= 0).all())
+
+
+def _qkv(rng, B, T, H, device, layout=None):
+    """bf16 q, k, v [B, T, H, 64] with unit-variance rows (as after the
+    DiT's qk-LayerNorm); ``layout="qkv"`` gives strided views of one
+    [B, T, 3, H, 64] tensor, which the kernel reads through its strides."""
+    x = torch.from_numpy(rng.normal(size=(B, T, 3, H, 64)).astype(
+        np.float32)).to(device=device, dtype=torch.bfloat16)
+    if layout == "qkv":
+        return x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    return tuple(x[:, :, i].contiguous() for i in range(3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,layout", [(1, 300, 4, None), (2, 64, 2, None),
+                                          (1, 1, 1, None),
+                                          (2, 200, 3, "qkv")])
+def test_flash_attention_kernel_matches_plain(cuda, B, T, H, layout):
+    # K5 against the plain version with the same rounding points. The f32
+    # sums run in another order (and exp2 differs in its last bits), which
+    # can move a p across a bf16 rounding boundary and an output by one
+    # bf16 ulp: o within 2^-7 relative + 1e-3, l2 (f32) within 1e-4
+    from langscenex_tpu_torch.ops.flash_attention import (
+        attention_bthd_kernel, attention_bthd_plain)
+    q, k, v = _qkv(np.random.default_rng(20), B, T, H, cuda, layout)
+    _build.reset_launch_counts()
+    o, l2 = attention_bthd_kernel(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attention"] == 1
+    ro, rl2 = attention_bthd_plain(q, k, v, 0.125)
+    assert o.shape == (B, T, H, 64) and l2.shape == (B * H, T)
+    assert bool(torch.isfinite(o.float()).all())
+    torch.testing.assert_close(o.float(), ro.float(), atol=1e-3,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(l2, rl2, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_refuses_and_has_no_backward(cuda):
+    from langscenex_tpu_torch.ops.flash_attention import attention_bthd
+    q, k, v = _qkv(np.random.default_rng(21), 1, 16, 2, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention_bthd(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(TypeError, match="bf16"):
+        attention_bthd(q, k, v, dtype=torch.float32)
+    qg = q.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="K7"):
+        attention_bthd(qg, k, v).sum().backward()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [256, 3072])
+def test_ln_modulate_kernel_matches_plain(cuda, H):
+    # K8 against the plain version: the same f32 statistics summed in
+    # another order, and n·A + C against (n·γ + β)(1 + s) + shift, so an
+    # output may differ by one bf16 ulp: 2^-7 relative + 1e-4
+    from langscenex_tpu_torch.ops.ln_modulate import (ln_modulate,
+                                                      ln_modulate_plain)
+    rng = np.random.default_rng(22)
+    B, T = 2, 700
+
+    def t(shape, scale, dtype=torch.bfloat16, shift=0.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale + shift)
+                                .astype(np.float32)).to(cuda, dtype)
+
+    x = t((B, T, H), 2.0, shift=0.5)
+    gamma = t((H,), 0.5, shift=1.0)
+    beta = t((H,), 0.1)
+    mods = [t((B, H), 0.3) for _ in range(4)]
+    _build.reset_launch_counts()
+    y = ln_modulate(x, gamma, beta, *mods, 226)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["ln_modulate"] == 1
+    ref = ln_modulate_plain(x, gamma, beta, *mods, 226)
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    torch.testing.assert_close(y.float(), ref.float(), atol=1e-4,
+                               rtol=2 ** -7)
+    with pytest.raises(TypeError, match="bf16"):
+        ln_modulate(x, gamma.float(), beta, *mods, 226)

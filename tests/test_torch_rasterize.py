@@ -231,7 +231,7 @@ RENDER_T = RasterConfig(tile_w=32, tile_h=32, max_pairs=8000)
 def test_render_view_matches_jax(pose_mode):
     d = _state_numpy(500, 3)
     jstate = JState(**{k: jnp.asarray(v) for k, v in d.items()})
-    tstate = convert.gaussian_state_from_numpy(d)
+    tstate = convert.gaussian_state_from_numpy(d, "cpu")
     jcams, tcams = _cams(2)
     w2c = jcams[1].w2c
     pose = np.array([0.999, 0.02, -0.03, 0.01, 0.1, -0.05, 0.2], np.float32)
@@ -240,7 +240,7 @@ def test_render_view_matches_jax(pose_mode):
         None, RENDER_J))
     a = jf(jstate, jnp.asarray(pose) if pose_mode else None, jnp.asarray(w2c))
     b = render_view(tstate, _t(pose) if pose_mode else None, _t(w2c),
-                    tcams[0].raster_camera(), torch.zeros(3), 3, True, True,
+                    tcams[0].raster_camera(device="cpu"), torch.zeros(3), 3, True, True,
                     None, RENDER_T)
     assert int(np.asarray(a.num_pairs)) > 500
     _compare_outputs(a, b)
@@ -249,7 +249,7 @@ def test_render_view_matches_jax(pose_mode):
 def test_render_all_views_matches_jax():
     d = _state_numpy(500, 4)
     jstate = JState(**{k: jnp.asarray(v) for k, v in d.items()})
-    tstate = convert.gaussian_state_from_numpy(d)
+    tstate = convert.gaussian_state_from_numpy(d, "cpu")
     jcams, tcams = _cams(3)
     ja = list(jax_render_all_views(jstate, jcams, RENDER_J))
     tb = list(render_all_views(tstate, tcams, RENDER_T))
@@ -272,8 +272,9 @@ def test_ply_round_trip_across_packages(tmp_path):
     d = _state_numpy(120, 5)
     jstate = JState(**{k: jnp.asarray(v) for k, v in d.items()})
     jply.save_ply(jstate, str(tmp_path / "jax.ply"))
-    t_loaded = tply.load_ply(str(tmp_path / "jax.ply"), capacity=120)
-    tply.save_ply(convert.gaussian_state_from_numpy(d),
+    t_loaded = tply.load_ply(str(tmp_path / "jax.ply"), capacity=120,
+                              device="cpu")
+    tply.save_ply(convert.gaussian_state_from_numpy(d, "cpu"),
                   str(tmp_path / "torch.ply"))
     j_loaded = jply.load_ply(str(tmp_path / "torch.ply"), capacity=120)
     assert (tmp_path / "jax.ply").read_bytes() == \

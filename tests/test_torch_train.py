@@ -168,7 +168,7 @@ def test_masks_moments_and_stats_match_jax():
         stats={k: np.zeros(cap) for k in ("xyz_gradient_accum",
                                           "xyz_gradient_accum_abs", "denom",
                                           "denom_abs", "max_radii2D")},
-        step=0)).splat_opt
+        step=0), "cpu").splat_opt
     tz = topt.zero_moments_at(ts, _t(mask))
     for k in params:
         np.testing.assert_array_equal(tz.mu[k].numpy(), ja["mu"][k])
@@ -179,7 +179,7 @@ def test_masks_moments_and_stats_match_jax():
     radii = rng.uniform(0, 30, cap).astype(np.float32)
     filt = rng.uniform(size=cap) < 0.6
     js_ = jg.DensifyStats.zeros(cap)
-    ts_ = tg.DensifyStats.zeros(cap)
+    ts_ = tg.DensifyStats.zeros(cap, "cpu")
     for _ in range(2):
         js_ = js_.update(jnp.asarray(g), jnp.asarray(ga), jnp.asarray(radii),
                          jnp.asarray(filt))
@@ -221,7 +221,7 @@ def test_densify_and_prune_matches_jax(case):
         jg.DensifyStats(**{k: jnp.asarray(v) for k, v in stats.items()}),
         jcfg, 2.5, size_th)
     tr = tdens.densify_and_prune(
-        _t(noise), convert.gaussian_state_from_numpy(d),
+        _t(noise), convert.gaussian_state_from_numpy(d, "cpu"),
         tg.DensifyStats(**{k: _t(v) for k, v in stats.items()}), tcfg, 2.5,
         size_th)
     # selections and slot allocation: exact
@@ -246,7 +246,7 @@ def test_create_from_points_matches_jax():
     pts = rng.uniform(-1, 1, (700, 3)).astype(np.float32)
     cols = rng.uniform(0, 1, (700, 3)).astype(np.float32)
     a = jg.create_from_points(pts, cols, capacity=1024)
-    b = tg.create_from_points(pts, cols, capacity=1024)
+    b = tg.create_from_points(pts, cols, capacity=1024, device="cpu")
     for f in convert.GAUSSIAN_FIELDS:
         if f == "knn_f":
             continue        # drawn from each package's own generator
@@ -283,7 +283,7 @@ def test_trainer_runs_phase_windows_across_densification(tmp_path):
     pts = np.stack([rng.uniform(-1, 1, 300), rng.uniform(-0.5, 0.5, 300),
                     rng.uniform(2, 5, 300)], -1).astype(np.float32)
     splats = tg.create_from_points(pts, rng.uniform(0, 1, (300, 3)),
-                                   capacity=512)
+                                   capacity=512, device="cpu")
     cfg = OptimizationConfig(multi_view_sample_num=500)
     tr = GaussianFieldTrainer(cams, splats, cfg, scene_extent=4.0,
                               rcfg=RasterConfig(), lang_dir=str(tmp_path))

@@ -123,7 +123,7 @@ def setup(tmp_path_factory):
         state, _ = step0(jtr.state, jtr._camera_batch(1, flags0),
                          jax.random.PRNGKey(3), sh_degree=SH)
     ttr = tfield.GaussianFieldTrainer(
-        tcams, convert.gaussian_state_from_numpy(_splats()),
+        tcams, convert.gaussian_state_from_numpy(_splats(), "cpu"),
         OptimizationConfig(multi_view_sample_num=600), EXTENT,
         rcfg=RasterConfig(**RCFG), lang_dir=tmp)
     return cfg, jtr, ttr, _state_numpy(state), state
@@ -171,7 +171,7 @@ def test_train_step_matches_jax(setup, phase):
     s_in = jax.tree_util.tree_map(jnp.copy, s0)    # the step donates it
     with pltpu.force_tpu_interpret_mode():
         js, jm = jstep(s_in, jtr._camera_batch(0, flags), key, sh_degree=SH)
-    ts0 = convert.train_state_from_numpy(s0_np)
+    ts0 = convert.train_state_from_numpy(s0_np, "cpu")
     tstep = tfield.make_train_step(ttr.cfg, tflags, ttr.rcfg, ttr.proxy_cam,
                                    EXTENT)
     ts, tm = tstep(ts0, ttr._camera_batch(0, tflags),
