@@ -52,7 +52,25 @@ Phases (any failure raises, so the exit code is non-zero):
      a finite [1, 49, 3, 480, 720] video, exactly 84 K5 and 168 K8
      launches, the times of encode, each step and decode, peak memory;
  12. profile of one denoise step (host wall, device busy, idle share, top
-     device ops).
+     device ops);
+ 13. configuration lora-5b-49x480x720 (experiments/lora_step_real.py: the
+     full-scale TransformerConfig(remat=True), bf16 base with random
+     weights from seed 42, B=1, 17,776 tokens, rank-16 adapters): K7
+     against its plain version on layer-0 q, k, v [1, 17776, 48, 64] and a
+     seeded output gradient (largest error, relative RMS and their bounds
+     for dq, dk, dv; CUDA-event times of kernel, plain and the backward of
+     scaled_dot_product_attention), and K8 in f32 at [1, 17776, 3072];
+ 14. the adapter gradients through the kernels and through the plain path
+     on a 2-block cut at full width, then 4 LoRA train steps: wall time,
+     loss, grad_norm and peak memory per step, the adapters' B still at 0
+     after step 1 (learning rate 0) and moved after step 2, and exactly
+     84 K5, 42 K7 and 168 K8 launches per step;
+ 15. profile of one LoRA step (host wall, device busy, idle share, top
+     device ops);
+ 16. configuration dit-ft-8L-49x480x720: the full fine-tune step with f32
+     parameters and latents (DiTTrainConfig defaults, remat, 8 of 42
+     layers), 3 steps with time, peak memory, finite loss and grad_norm,
+     and exactly 16 K5, 8 K7 and 32 K8 (f32) launches per step.
 Every kernel's bound is computed from this run's shapes: the larger of
 its operations over the bf16 tensor-core peak and its bytes (each input
 read once, each output written once) over the HBM rate.
@@ -76,10 +94,13 @@ import torch
 from langscenex_tpu_torch import _build
 from langscenex_tpu_torch.ops.binning import enumerate_pairs
 from langscenex_tpu_torch.models.cogvideox.pipeline import guided_prediction
+from langscenex_tpu_torch.models.cogvideox.transformer import (
+    CogVideoXTransformer, TransformerConfig)
 from langscenex_tpu_torch.ops.compaction import (compact_pairs,
                                                  compact_pairs_plain)
-from langscenex_tpu_torch.ops.flash_attention import (attention_bthd_kernel,
-                                                      attention_bthd_plain)
+from langscenex_tpu_torch.ops.flash_attention import (
+    attention_bthd_backward_kernel, attention_bthd_backward_plain,
+    attention_bthd_kernel, attention_bthd_plain)
 from langscenex_tpu_torch.ops.ln_modulate import (ln_modulate,
                                                   ln_modulate_plain)
 from langscenex_tpu_torch.ops.rasterize import RasterConfig, prepare_blend
@@ -93,12 +114,17 @@ from langscenex_tpu_torch.scene.cameras import Camera
 from langscenex_tpu_torch.scene.gaussians import (GaussianState,
                                                   create_from_points)
 from langscenex_tpu_torch.scene.ply_io import load_ply, save_ply
+from langscenex_tpu_torch.train.dit import (DiTTrainConfig, _sched_tables,
+                                            make_dit_train_step)
 from langscenex_tpu_torch.train.field import (GaussianFieldTrainer,
                                               loss_and_grads, phase_flags,
                                               render_view)
+from langscenex_tpu_torch.train.lora import (LoRAConfig, init_lora,
+                                             lora_loss_and_grads,
+                                             make_lora_train_step, n_params)
 from langscenex_tpu_torch.train.render_mode import render_all_views
 from langscenex_tpu_torch.utils.config import OptimizationConfig
-from langscenex_tpu_torch.video_inference import build_pipeline
+from langscenex_tpu_torch.video_inference import build_pipeline, materialize
 
 P = 100_000
 W, H = 720, 480
@@ -171,6 +197,37 @@ LNZ_RTOL, LNZ_ATOL = 2 ** -7, 1e-4
 # stays under 1e-2; over 42 blocks (126 calls) the noise prediction's
 # under 5e-2.
 DIT2_REL_RMS, DIT_REL_RMS = 1e-2, 5e-2
+
+# the configurations lora-5b-49x480x720 and dit-ft-8L-49x480x720 (see
+# PERF.md): experiments/lora_step_real.py's shapes (B=1, 13 latent frames
+# of 60x90 with 16 + 16 channels, 226 text tokens: 17,776 tokens) and
+# training configuration; base weights from build_pipeline's seed 42, the
+# batch from numpy seed 0, t and the noise from a torch generator, seed 2
+FT_FRAMES, FT_CH, FT_H, FT_W, FT_TEXT = 13, 16, 60, 90, 226
+LORA_STEPS, FT_STEPS, FT_LAYERS = 4, 3, 8
+LORA_TRAIN = DiTTrainConfig(lr=1e-4, total_steps=100, warmup_steps=10)
+# K7 vs its plain version (same rounding points, same o and l2 from K5):
+# the f32 sums run in another order (dq's through atomics, in an order
+# that varies from run to run), so an output can land one bf16 ulp away
+# (at most 2^-7 relative), and a ds next to a rounding midpoint can round
+# the other way, moving its sum by 2^-8 of that term: each gradient within
+# 2^-7 relative + 2^-8 of the largest of its kind. Only outputs next to a
+# midpoint move, so each relative RMS difference is held to 2^-8: a key
+# tile missing from one head's block moves dk, dv and dq by about
+# sqrt(64 / (T H)) = 8.7e-3, a query tile missing from every block by
+# about sqrt(64 / T) = 0.06.
+BWD_RTOL, BWD_ATOL_FRAC, BWD_REL_RMS = 2 ** -7, 2 ** -8, 2 ** -8
+# K8 in f32 vs its plain version: the f32 statistics summed in another
+# order, and n A + C against (n gamma + beta)(1 + s) + shift, a few f32
+# roundings of values of order 10: 1e-5 absolute + 1e-5 relative
+LNZ32_RTOL, LNZ32_ATOL = 1e-5, 1e-5
+# the LoRA adapters' gradients and the loss through the kernels vs the
+# plain path on 2 blocks: each K5, K7 and K8 output may differ from the
+# plain one by a bf16 ulp (2^-8 relative), and the 2 blocks' forward,
+# recompute and backward pass through 14 kernel calls; the forward alone
+# differed by 1.7e-3 relative RMS after 2 blocks (phase 10). Each adapter
+# gradient's relative RMS difference within 2e-2, the loss within 1e-2
+LORA2_GRAD_REL_RMS, LORA2_LOSS_RTOL = 2e-2, 1e-2
 # the card's published peaks (H100 SXM): bf16 dense tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -185,6 +242,8 @@ TPU_KERNELS = {
     "flash_attention": "langscenex_tpu/ops/flash_attention.py:991 "
                        "_attn_kernel_nomax_t4",
     "ln_modulate": "langscenex_tpu/ops/ln_modulate.py:31 _lnz_kernel",
+    "flash_attention_backward": "langscenex_tpu/ops/flash_attention.py:360 "
+                                "_bwd_fused_kernel_t",
 }
 SOURCES = {
     "sort_pairs": "langscenex_tpu_torch/csrc/sort.cu",
@@ -193,10 +252,13 @@ SOURCES = {
     "blend_backward": "langscenex_tpu_torch/csrc/blend_backward.cu",
     "flash_attention": "langscenex_tpu_torch/csrc/flash_attention.cu",
     "ln_modulate": "langscenex_tpu_torch/csrc/ln_modulate.cu",
+    "flash_attention_backward":
+        "langscenex_tpu_torch/csrc/flash_attention_backward.cu",
 }
 RENDER_TRAIN_KERNELS = ("blend_forward", "blend_backward", "compact_pairs",
                         "sort_pairs")
 DIT_KERNELS = ("flash_attention", "ln_modulate")
+TRAIN_DIT_KERNELS = ("flash_attention_backward",)
 
 
 def scene(n: int, seed: int = 0):
@@ -949,6 +1011,249 @@ def phase_dit_profile(pipe, model_in, txt) -> dict:
     return profile(step, 1, "one denoise step, trimap-dit-5b-49x480x720")
 
 
+def ft_dit(dev, cfg: TransformerConfig, dtype) -> CogVideoXTransformer:
+    """The DiT of cfg with build_pipeline's random weights (seed 42)."""
+    return materialize(CogVideoXTransformer(cfg, device="meta"), dtype, dev,
+                       torch.Generator(device=dev).manual_seed(42))
+
+
+def ft_batch(dev, text_dim: int, dtype) -> dict:
+    """experiments/lora_step_real.py's batch: x0, cond [1, 13, 16, 60, 90]
+    and text [1, 226, text_dim], standard normals from numpy seed 0."""
+    rng = np.random.default_rng(0)
+    lat = (1, FT_FRAMES, FT_CH, FT_H, FT_W)
+    arrays = {"x0": rng.normal(size=lat), "cond": rng.normal(size=lat),
+              "text": rng.normal(size=(1, FT_TEXT, text_dim))}
+    return {k: torch.from_numpy(v.astype(np.float32)).to(dev, dtype)
+            for k, v in arrays.items()}
+
+
+def check_grad(name, got, ref, rtol, atol_frac, rel_bound) -> tuple:
+    """Hold one gradient to rtol + atol_frac of the largest |ref| per
+    element and to rel_bound in relative RMS; returns (max abs error,
+    relative RMS)."""
+    got, ref = got.float(), ref.float()
+    require(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+    biggest = float(ref.abs().max())
+    err, rel = max_abs(got, ref), rel_rms(got, ref)
+    print(f"  {name}: max abs err {err:.3e} (max|ref| {biggest:.3e}, bound "
+          f"{rtol:.3g} rel + {atol_frac:.3g} x max|ref|), rel RMS {rel:.3e} "
+          f"(bound {rel_bound:.3g})")
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=atol_frac * biggest,
+                               msg=name)
+    require(rel <= rel_bound, f"{name}: relative RMS {rel:.3e} above "
+            f"{rel_bound:.3g}")
+    return err, rel
+
+
+def phase_k7(dev, dit, batch, results) -> None:
+    """K7 against its plain version on the LoRA cell's layer-0 q, k, v and
+    a seeded output gradient; K8 in f32 against its plain version on the
+    layer-0 stream."""
+    blk = dit.transformer_blocks[0]
+    Tt = batch["text"].shape[1]
+    with torch.inference_mode():
+        model_in = torch.cat([batch["x0"], batch["cond"]], dim=2)
+        tt = torch.full((1,), 500, dtype=torch.int32, device=dev)
+        joint, temb, rope = dit.embed(model_in, batch["text"], tt)
+        n, _, _ = blk.norm1(joint, temb, Tt)
+        q, k, v = (t.contiguous() for t in blk.attn1.qkv(n, rope))
+        sc = 1.0 / math.sqrt(q.shape[-1])
+        o, l2 = attention_bthd_kernel(q, k, v, sc)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        got = attention_bthd_backward_kernel(q, k, v, o, l2, do, sc)
+        ref = attention_bthd_backward_plain(q, k, v, o, l2, do, sc)
+    print(f"K7 flash_attention_backward q,k,v,do {list(q.shape)} {q.dtype} "
+          f"vs plain (bounds: an output one bf16 ulp away, 2^-7 relative, "
+          f"and a ds rounded the other way, 2^-8 of the largest gradient; "
+          f"relative RMS 2^-8, below the {math.sqrt(64 / (q.shape[1] * q.shape[2])):.2g} "
+          f"of a key tile dropped from one head):")
+    err = max(check_grad(f"d{name}", g, r, BWD_RTOL, BWD_ATOL_FRAC,
+                         BWD_REL_RMS)[0]
+              for name, g, r in zip("qkv", got, ref))
+    del got, ref
+    ms = cuda_ms(lambda: attention_bthd_backward_kernel(q, k, v, o, l2, do,
+                                                        sc), 5)
+    plain_ms = cuda_ms(lambda: attention_bthd_backward_plain(
+        q, k, v, o, l2, do, sc), 1, warmup=1)
+    # the library yardstick: SDPA's backward, as fwd+bwd minus fwd in the
+    # [B, H, T, D] layout
+    bq, bk, bv = (t.transpose(1, 2).clone().requires_grad_()
+                  for t in (q, k, v))
+    bdo = do.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def fwd_bwd():
+        torch.autograd.grad(sdpa(bq, bk, bv), (bq, bk, bv), bdo)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: sdpa(bq, bk, bv), 5)
+    lib_ms = cuda_ms(fwd_bwd, 5) - fwd_ms
+    B, T, H, D = q.shape
+    flops = 10.0 * B * H * T * T * D          # s, dp, dv, dk, dq products
+    k7_bound = bound(flops=flops, moved=nbytes(q, k, v, o, l2, do, q, k, v))
+    n_exp = B * H * T * T
+    sfu = n_exp / (16 * torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    print(f"K7 flash_attention_backward: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, scaled_dot_product_attention backward "
+          f"{lib_ms:.4f} ms (fwd+bwd minus fwd {fwd_ms:.4f}), bound "
+          f"{k7_bound['bound_ms']:.4f} ms ({k7_bound['bound_by']}, "
+          f"{flops / 1e12:.3f} TFLOP); {n_exp:.4g} exp2 = {sfu:.4g} SFU "
+          f"cycles per SM at 16 ex2/clk")
+    results["flash_attention_backward"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, **k7_bound,
+        library_ms=lib_ms)
+    del bq, bk, bv, bdo, q, k, v, o, l2, do
+
+    # K8 in f32 on the layer-0 stream and modulation of this cell
+    with torch.inference_mode():
+        emb = blk.norm1.linear(torch.nn.functional.silu(temb)).float()
+        shift, scale, _, t_shift, t_scale, _ = emb.chunk(6, dim=-1)
+        largs = (joint.float(), blk.norm1.norm.weight.float(),
+                 blk.norm1.norm.bias.float(),
+                 *[m.contiguous() for m in (scale, shift, t_scale, t_shift)],
+                 Tt)
+        y, ry = ln_modulate(*largs), ln_modulate_plain(*largs)
+    require(y.dtype == torch.float32 and bool(torch.isfinite(y).all()),
+            "K8 f32: output")
+    torch.testing.assert_close(y, ry, atol=LNZ32_ATOL, rtol=LNZ32_RTOL)
+    ms = cuda_ms(lambda: ln_modulate(*largs), 20)
+    plain_ms = cuda_ms(lambda: ln_modulate_plain(*largs), 5)
+    b32 = bound(moved=nbytes(*largs[:7], y))
+    print(f"K8 ln_modulate x {list(largs[0].shape)} float32: max abs err "
+          f"{max_abs(y, ry):.3e} (max|y| {float(ry.abs().max()):.3e}, bound "
+          f"{LNZ32_RTOL:g} rel + {LNZ32_ATOL:g}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b32['bound_ms']:.4f} ms "
+          f"({b32['bound_by']})")
+
+
+def compare_lora_grads(dev, dit, batch) -> None:
+    """The adapter gradients and the loss of one LoRA step through the
+    kernels and through the plain path, on the first 2 blocks at full
+    width, with the same adapters (B nonzero, so that A has a gradient),
+    t and noise."""
+    lcfg = LoRAConfig(rank=16)
+    blocks = dit.transformer_blocks
+    dit.transformer_blocks = blocks[:2]
+    try:
+        gen = torch.Generator(device=dev).manual_seed(4)
+        ad = init_lora(dit, lcfg, gen)
+        for ab in ad.values():
+            ab["b"].normal_(0.0, 0.01, generator=gen)
+        t = torch.full((1,), 500, device=dev)
+        noise = torch.randn(batch["x0"].shape, generator=gen, device=dev,
+                            dtype=batch["x0"].dtype)
+        tables = _sched_tables(LORA_TRAIN, dev)
+        out = {}
+        for kernels in (True, False):
+            dit.set_use_kernels(kernels)
+            _build.reset_launch_counts()
+            out[kernels] = lora_loss_and_grads(dit, ad, lcfg, batch, t,
+                                               noise, tables)
+            torch.cuda.synchronize()
+            launches = dict(_build.launch_counts)
+            want = ({"flash_attention": 4, "flash_attention_backward": 2,
+                     "ln_modulate": 8} if kernels else {})
+            got = {k: v for k, v in launches.items() if v}
+            require(got == want, f"2-block LoRA step (kernels={kernels}): "
+                    f"launches {got}, expected {want}")
+    finally:
+        dit.transformer_blocks = blocks
+        dit.set_use_kernels(True)
+    (lk, gk), (lp, gp) = out[True], out[False]
+    worst = max((rel_rms(gk[s][x], gp[s][x]), f"{s}/{x}")
+                for s in gk for x in gk[s])
+    print(f"LoRA step on 2 blocks, kernels vs plain path: loss "
+          f"{float(lk):.6f} vs {float(lp):.6f}; {len(gk)} adapters, worst "
+          f"gradient rel RMS {worst[0]:.3e} at {worst[1]} (bound "
+          f"{LORA2_GRAD_REL_RMS:g})")
+    require(all(bool(torch.isfinite(g).all()) for ab in gk.values()
+                for g in ab.values()), "LoRA: non-finite adapter gradient")
+    require(abs(float(lk) - float(lp)) <= LORA2_LOSS_RTOL * abs(float(lp)),
+            "LoRA 2-block loss differs from the plain path")
+    require(worst[0] <= LORA2_GRAD_REL_RMS,
+            "LoRA adapter gradients differ from the plain path")
+
+
+def run_steps(dev, step, state, batch, n: int, gen, per_step: dict,
+              what: str, first: int = 1) -> list:
+    """n train steps (numbered from ``first``), each timed (host clock,
+    synchronised) with its launch counts and peak memory; every step must
+    launch exactly ``per_step``. Returns one record per step."""
+    recs = []
+    for i in range(first - 1, first - 1 + n):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.launch_counts.items() if v}
+        rec = dict(ms=dt * 1e3, loss=float(m["loss"]),
+                   grad_norm=float(m["grad_norm"]), launches=launches,
+                   peak=torch.cuda.max_memory_allocated(dev))
+        recs.append(rec)
+        print(f"{what} step {i + 1}: {rec['ms']:.1f} ms, loss "
+              f"{rec['loss']:.6f}, grad_norm {rec['grad_norm']:.6f}, peak "
+              f"allocated {rec['peak'] / 2 ** 30:.3f} GiB, launches "
+              f"{launches}")
+        require(math.isfinite(rec["loss"]) and math.isfinite(
+            rec["grad_norm"]), f"{what} step {i + 1}: non-finite metrics")
+        require(launches == per_step, f"{what} step {i + 1}: launches "
+                f"{launches}, expected {per_step}")
+    return recs
+
+
+def phase_lora(dev, dit, batch) -> dict:
+    """lora-5b-49x480x720: 4 train steps of make_lora_train_step."""
+    n_layers = len(dit.transformer_blocks)
+    init_state, step = make_lora_train_step(dit, LORA_TRAIN,
+                                            LoRAConfig(rank=16))
+    state = init_state(torch.Generator(device=dev).manual_seed(1))
+    print(f"LoRA: {len(state['lora'])} adapters, "
+          f"{n_params(state['lora']):,} parameters (rank 16)")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    per_step = {"flash_attention": 2 * n_layers,
+                "flash_attention_backward": n_layers,
+                "ln_modulate": 4 * n_layers}
+    recs = []
+    for i in range(LORA_STEPS):
+        recs += run_steps(dev, step, state, batch, 1, gen, per_step, "LoRA",
+                          first=i + 1)
+        b_max = max(float(ab["b"].abs().max())
+                    for ab in state["lora"].values())
+        print(f"  max |B| over the adapters after step {i + 1}: {b_max:.4e}")
+        if i == 0:
+            require(b_max == 0.0, "adapters' B moved at learning rate 0")
+        if i == 1:
+            require(b_max > 0.0, "adapters' B did not move at step 2")
+    return dict(recs=recs, step=step, state=state, gen=gen,
+                launches=sum(r["launches"].get("flash_attention_backward", 0)
+                             for r in recs))
+
+
+def phase_ft(dev) -> list:
+    """dit-ft-8L-49x480x720: 3 full fine-tune steps with f32 parameters
+    and latents."""
+    model = ft_dit(dev, TransformerConfig(num_layers=FT_LAYERS, remat=True),
+                   torch.float32)
+    n = sum(p.numel() for p in model.parameters())
+    print(f"full fine-tune DiT: {FT_LAYERS} of 42 layers, {n / 1e9:.3f}B "
+          f"f32 parameters ({n * 4 / 1e9:.2f} GB; with gradients and two "
+          f"moments {n * 16 / 1e9:.2f} GB)")
+    batch = ft_batch(dev, model.cfg.text_embed_dim, torch.float32)
+    init_state, step = make_dit_train_step(model, DiTTrainConfig())
+    state = init_state()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    per_step = {"flash_attention": 2 * FT_LAYERS,
+                "flash_attention_backward": FT_LAYERS,
+                "ln_modulate": 4 * FT_LAYERS}
+    return run_steps(dev, step, state, batch, FT_STEPS, gen, per_step,
+                     "full fine-tune")
+
+
 def main() -> int:
     # ---- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1018,13 +1323,35 @@ def main() -> int:
     request = phase_request(dev, pipe, text, pcfg,
                             len(dit.transformer_blocks))
     phase_dit_profile(pipe, model_in, txt)
+    del pipe, text, aux, dit, model_in, txt, tt
+    torch.cuda.empty_cache()
+
+    # ---- 13-15. LoRA fine-tune, lora-5b-49x480x720 ----------------------
+    t0 = time.perf_counter()
+    dit = ft_dit(dev, TransformerConfig(remat=True), torch.bfloat16)
+    batch = ft_batch(dev, dit.cfg.text_embed_dim, torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"LoRA base DiT: {sum(p.numel() for p in dit.parameters()) / 1e9:.3f}"
+          f"B bf16 parameters, remat, {time.perf_counter() - t0:.2f} s")
+    phase_k7(dev, dit, batch, results)
+    compare_lora_grads(dev, dit, batch)
+    lora = phase_lora(dev, dit, batch)
+    profile(lambda: lora["step"](lora["state"], batch, lora["gen"]), 1,
+            "one LoRA step, lora-5b-49x480x720")
+    del dit, batch, lora["state"], lora["step"]
+    torch.cuda.empty_cache()
+
+    # ---- 16. full fine-tune, dit-ft-8L-49x480x720 -----------------------
+    phase_ft(dev)
 
     launches = {**{k: train_launches[k] for k in RENDER_TRAIN_KERNELS},
-                **{k: request["launches"][k] for k in DIT_KERNELS}}
+                **{k: request["launches"][k] for k in DIT_KERNELS},
+                "flash_attention_backward": lora["launches"]}
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=TPU_KERNELS[name], launches=launches[name],
                     **results[name])
-               for name in RENDER_TRAIN_KERNELS + DIT_KERNELS]
+               for name in RENDER_TRAIN_KERNELS + DIT_KERNELS
+               + TRAIN_DIT_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 launch_counts = {"sort_pairs": 0, "compact_pairs": 0, "blend_forward": 0,
-                 "blend_backward": 0, "flash_attention": 0, "ln_modulate": 0}
+                 "blend_backward": 0, "flash_attention": 0,
+                 "flash_attention_backward": 0, "ln_modulate": 0}
 
 # seconds the last nvcc build of this process took (0.0 when only the
 # cached library was loaded); read by chip_smoke.py
@@ -66,8 +67,14 @@ _SIGNATURES = {
     # scale2, stream
     "lsx_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, *[_L] * 12,
                                 _F, _P],
-    # x, gamma, beta, sc, sh, tsc, tsh, y, B, T, H, text_len, stream
-    "lsx_ln_modulate": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q', k, v, do, l2, dvec, dq, dk, dv, B, T, H, (b, t, h) element
+    # strides of q', k, v and do, scale, stream
+    "lsx_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, *[_L] * 12, _F, _P],
+    # x, gamma, beta, sc, sh, tsc, tsh, y, B, T, H, text_len, is_f32,
+    # stream
+    "lsx_ln_modulate": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _P],
 }
 
 

@@ -12,6 +12,10 @@ reads the other's ``save_ply``.
 JAX CogVideoX DiT's and VAE's flax params (numpy leaves) into the port's
 state_dicts, which use diffusers' keys: they invert the JAX package's
 ``convert_cogvideox_dit`` and ``convert_cogvideox_vae``.
+``dit_train_state_from_numpy`` carries a DiT fine-tune state across
+(params, Adam moments and count, EMA, step) and ``lora_from_numpy`` a
+LoRA adapter tree, so both packages can start a train step from one
+state.
 """
 from __future__ import annotations
 
@@ -60,8 +64,7 @@ def raster_camera_from_numpy(w2c: np.ndarray, proj: np.ndarray, width: int,
 
 
 def _f32(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(
-        np.asarray(a, np.float32))).to(device)
+    return torch.from_numpy(np.array(a, np.float32)).to(device)
 
 
 def train_state_from_numpy(d: dict,
@@ -218,3 +221,56 @@ def cogvideox_vae_from_numpy(flax_params: dict,
 
     walk(p, ())
     return _on(sd, device)
+
+
+def dit_train_state_from_numpy(d: dict, head_dim: int = 64,
+                               device: torch.device | str | None = None
+                               ) -> dict:
+    """A JAX DiT fine-tune state as numpy leaves::
+
+        {"params": flax params, "opt": {"count": int, "mu": flax tree,
+         "nu": flax tree}, "step": int, ["ema": flax params]}
+
+    (``opt`` is the ``ScaleByAdamState`` of the optax chain) -> the state
+    of ``train.dit.make_dit_train_step`` with tensors in diffusers' keys
+    on ``device``. The moments and the EMA take the params' layout
+    changes, which are permutations of their leaves."""
+    def tree(t):
+        return cogvideox_dit_from_numpy(t, head_dim=head_dim, device=device)
+    out = {"params": tree(d["params"]),
+           "opt": {"count": int(d["opt"]["count"]),
+                   "mu": tree(d["opt"]["mu"]), "nu": tree(d["opt"]["nu"])},
+           "step": int(d["step"])}
+    if "ema" in d:
+        out["ema"] = tree(d["ema"])
+    return out
+
+
+# JAX adapter path (after block_<i>/) -> the port's site (after
+# transformer_blocks.<i>.)
+_LORA_SITES = {"attn/to_qkv": "attn1.to_qkv", "attn/to_out": "attn1.to_out.0",
+               "ff/fc1": "ff.net.0.proj", "ff/fc2": "ff.net.2"}
+
+
+def lora_from_numpy(lora: dict, head_dim: int = 64,
+                    device: torch.device | str | None = None) -> dict:
+    """JAX LoRA adapters ``{"block_<i>/<path>": {"a": [in, r], "b": [r,
+    out]}}`` (numpy) -> the port's ``{site: {"a", "b"}}`` f32 on
+    ``device``. The fused q/k/v adapter keeps its shared A; its B
+    [r, nh·3·hd], interleaved per head, is de-interleaved into the port's
+    [q | k | v] columns, as ``cogvideox_dit_from_numpy`` splits the fused
+    kernel."""
+    dev = resolve_device(device)
+    out = {}
+    for path, ab in lora.items():
+        blk, rest = path.split("/", 1)
+        site = f"transformer_blocks.{int(blk[len('block_'):])}." \
+               f"{_LORA_SITES[rest]}"
+        a, b = np.asarray(ab["a"], np.float32), np.asarray(ab["b"],
+                                                            np.float32)
+        if rest == "attn/to_qkv":
+            r = b.shape[0]
+            b = b.reshape(r, -1, 3, head_dim).transpose(0, 2, 1, 3).reshape(
+                r, -1)
+        out[site] = {"a": _f32(a, dev), "b": _f32(b, dev)}
+    return out

@@ -34,93 +34,17 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+using namespace lsx;
 
 constexpr int FA_D = 64;        // head dim
 constexpr int FA_BQ = 64;       // queries per block
 constexpr int FA_BK = 64;       // kv rows per tile
 constexpr int FA_WARPS = 4;     // 16 query rows each
 constexpr int FA_THREADS = FA_WARPS * 32;
-
-// element offset of (row, col) in a [64][64] bf16 tile whose 16-byte
-// chunks are XOR-swizzled by row
-__device__ __forceinline__ int swz(int row, int col) {
-  return row * FA_D + ((((col >> 3) ^ (row & 7))) << 3) + (col & 7);
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-struct Strides {
-  long long b, t, h;  // in elements; the head-dim stride is 1
-};
-
-// Stage kv rows [row0, row0 + 64) of one head into a swizzled tile;
-// rows >= T are zero-filled.
-__device__ __forceinline__ void load_kv_tile(__nv_bfloat16* dst,
-                                             const __nv_bfloat16* head,
-                                             long long stride_t, int row0,
-                                             int T) {
-#pragma unroll
-  for (int i = 0; i < (FA_BK * FA_D / 8) / FA_THREADS; ++i) {
-    const int cid = threadIdx.x + i * FA_THREADS;
-    const int r = cid >> 3;
-    const int c = (cid & 7) << 3;
-    const bool ok = row0 + r < T;
-    const __nv_bfloat16* src = ok ? head + (long long)(row0 + r) * stride_t + c
-                                  : head;
-    cp_async16(dst + swz(r, c), src, ok);
-  }
-}
 
 __global__ void __launch_bounds__(FA_THREADS)
 flash_fwd_bthd(const __nv_bfloat16* __restrict__ q,
@@ -143,8 +67,8 @@ flash_fwd_bthd(const __nv_bfloat16* __restrict__ q,
   const int n_kv = (T + FA_BK - 1) / FA_BK;
 
   // first kv tile in flight while q is staged
-  load_kv_tile(sK[0], kh, ks.t, 0, T);
-  load_kv_tile(sV[0], vh, vs.t, 0, T);
+  load_rows64<FA_THREADS>(sK[0], kh, ks.t, 0, T);
+  load_rows64<FA_THREADS>(sV[0], vh, vs.t, 0, T);
   cp_async_commit();
 
   // q' = bf16(q * bf16(scale log2 e)); rows past T are zero
@@ -193,8 +117,8 @@ flash_fwd_bthd(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < n_kv; ++j) {
     const int buf = j & 1;
     if (j + 1 < n_kv) {
-      load_kv_tile(sK[buf ^ 1], kh, ks.t, (j + 1) * FA_BK, T);
-      load_kv_tile(sV[buf ^ 1], vh, vs.t, (j + 1) * FA_BK, T);
+      load_rows64<FA_THREADS>(sK[buf ^ 1], kh, ks.t, (j + 1) * FA_BK, T);
+      load_rows64<FA_THREADS>(sV[buf ^ 1], vh, vs.t, (j + 1) * FA_BK, T);
     }
     cp_async_commit();
     cp_async_wait<1>();

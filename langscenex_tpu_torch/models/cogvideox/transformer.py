@@ -16,10 +16,14 @@ head; here they stay separate). ``proj_out`` rows are in diffusers'
 (c, ph, pw) order and the unpatchify reads them so.
 
 Kernels: LayerNormZero runs K8 (``ops/ln_modulate``) and the joint
-attention K5 (``ops/flash_attention``) on CUDA tensors;
+attention K5 forward and K7 backward (``ops/flash_attention``) on CUDA
+tensors;
 ``CogVideoXTransformer.set_use_kernels(False)`` runs their plain versions
 on any device (the reference the kernels are held against on the
-card).
+card). ``TransformerConfig.remat`` recomputes each block in the
+backward (``torch.utils.checkpoint``), as the JAX ``nn.remat`` does for
+training: only the residual stream between blocks is kept, and K5 and K8
+run twice per block and step.
 Shapes: latents [B, F, C, H, W], text [B, L, text_dim], timestep [B].
 """
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.flash_attention import attention_bthd
 from ...ops.ln_modulate import ln_modulate, ln_modulate_plain
@@ -51,6 +56,7 @@ class TransformerConfig:
     use_rotary: bool = True
     rope_base: float = 10000.0
     attn_dtype: torch.dtype = torch.bfloat16
+    remat: bool = False   # recompute each block in the backward (training)
 
     @property
     def hidden(self) -> int:
@@ -314,8 +320,13 @@ class CogVideoXTransformer(nn.Module):
         """latents [B,F,C,H,W], text [B,L,text_dim], timestep [B] ->
         noise prediction [B,F,out_channels,H,W]."""
         joint, temb, rope = self.embed(latents, text, timestep)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.transformer_blocks:
-            joint = blk(joint, temb, rope, text.shape[1])
+            if remat:
+                joint = checkpoint(blk, joint, temb, rope, text.shape[1],
+                                   use_reentrant=False)
+            else:
+                joint = blk(joint, temb, rope, text.shape[1])
         return self.head(joint, temb, text.shape[1], latents.shape)
 
     def set_use_kernels(self, flag: bool) -> None:

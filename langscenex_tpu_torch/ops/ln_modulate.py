@@ -8,9 +8,12 @@ text (scale, shift), later rows the video pair:
 y = (n·γ + β)(1 + scale) + shift.
 
 :func:`ln_modulate` launches ``csrc/ln_modulate.cu`` on CUDA tensors
-(one read of x, one write of y) and runs :func:`ln_modulate_plain` on
-CPU tensors. It is an autograd function whose backward differentiates
-the plain formula, as the JAX ``custom_vjp`` does.
+(one read of x, one write of y; bf16 or f32, one type for every
+operand, as the JAX kernel reads each operand in its own type: the bf16
+DiT serves and LoRA-trains in bf16, the full fine-tune runs f32) and
+runs :func:`ln_modulate_plain` on CPU tensors. It is an autograd function
+whose backward differentiates the plain formula, as the JAX
+``custom_vjp`` does.
 """
 from __future__ import annotations
 
@@ -19,8 +22,10 @@ import torch
 from .. import _build
 
 EPS = 1e-5
-THREADS = 128            # csrc/ln_modulate.cu
-MAX_VEC_PER_THREAD = 4   # 16-byte vectors each thread holds in registers
+# csrc/ln_modulate.cu holds a row in registers as 16-byte vectors: 4 per
+# thread of its 128 in bf16, 8 in f32, so rows up to 4096 wide
+MAX_WIDTH = 4096
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def ln_modulate_plain(x, gamma, beta, sc, sh, tsc, tsh, text_len: int):
@@ -55,15 +60,18 @@ def _check(x, gamma, beta, mods) -> None:
 
 
 def _ln_modulate_cuda(x, gamma, beta, sc, sh, tsc, tsh, text_len: int):
-    """Launch K8: bf16 x, gamma, beta and mods -> bf16 y."""
+    """Launch K8: x, gamma, beta and mods of one dtype, bf16 or f32 -> y
+    in that dtype."""
     B, T, H = x.shape
-    if any(t.dtype != torch.bfloat16 for t in (x, gamma, beta, sc, sh, tsc,
-                                               tsh)):
-        raise TypeError(f"ln_modulate kernel wants bf16 operands, got "
-                        f"{[str(t.dtype) for t in (x, gamma, sc)]}")
-    if H % 8 or H > 8 * THREADS * MAX_VEC_PER_THREAD:
-        raise ValueError(f"ln_modulate kernel wants H % 8 == 0 and "
-                         f"H <= {8 * THREADS * MAX_VEC_PER_THREAD}, got {H}")
+    ops = (x, gamma, beta, sc, sh, tsc, tsh)
+    if x.dtype not in KERNEL_DTYPES or any(t.dtype != x.dtype for t in ops):
+        raise TypeError(f"ln_modulate kernel wants every operand bf16 or "
+                        f"every operand f32, got "
+                        f"{sorted({str(t.dtype) for t in ops})}")
+    vec = 16 // x.element_size()
+    if H % vec or H > MAX_WIDTH:
+        raise ValueError(f"ln_modulate kernel wants H % {vec} == 0 and "
+                         f"H <= {MAX_WIDTH}, got {H}")
     x = x.contiguous()
     mods = [m.contiguous() for m in (sc, sh, tsc, tsh)]
     gamma, beta = gamma.contiguous(), beta.contiguous()
@@ -74,7 +82,7 @@ def _ln_modulate_cuda(x, gamma, beta, sc, sh, tsc, tsh, text_len: int):
     code = lib.lsx_ln_modulate(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         *[m.data_ptr() for m in mods], y.data_ptr(), B, T, H, int(text_len),
-        _build.stream_ptr(x.device))
+        int(x.dtype == torch.float32), _build.stream_ptr(x.device))
     _build.launch_counts["ln_modulate"] += 1
     _build.check(code, "ln_modulate")
     return y

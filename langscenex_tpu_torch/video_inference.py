@@ -31,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .models.cogvideox.datasets import load_image
 from .models.cogvideox.pipeline import InterpolationPipeline, PipelineConfig
 from .models.cogvideox.scheduler import DDIMScheduler
 from .models.cogvideox.transformer import (CogVideoXTransformer,
@@ -50,14 +51,6 @@ TINY_VAE = VAEConfig(block_out_channels=(8, 16, 16, 32), layers_per_block=1,
 TINY_PIPELINE = PipelineConfig(num_frames=9, height=64, width=96,
                                num_inference_steps=4, latent_channels=4,
                                vae_scaling_factor=1.0)
-
-
-def load_image(path: str, hw) -> np.ndarray:
-    """An image file as [3, H, W] float32 in [-1, 1]."""
-    from PIL import Image
-    H, W = hw
-    im = Image.open(path).convert("RGB").resize((W, H))
-    return np.asarray(im, np.float32).transpose(2, 0, 1) / 127.5 - 1.0
 
 
 def save_video_frames(video: np.ndarray, out_dir: str, fps: int = 8) -> None:
@@ -80,8 +73,8 @@ def save_video_frames(video: np.ndarray, out_dir: str, fps: int = 8) -> None:
             check=False, capture_output=True)
 
 
-def _materialize(module: torch.nn.Module, dtype: torch.dtype,
-                 device: torch.device, generator: torch.Generator):
+def materialize(module: torch.nn.Module, dtype: torch.dtype,
+                device: torch.device, generator: torch.Generator):
     """A module built on the meta device, allocated in ``dtype`` on
     ``device`` and given seeded random weights."""
     module = module.to(dtype=dtype).to_empty(device=device)
@@ -117,10 +110,10 @@ def build_pipeline(checkpoint: Optional[str] = None,
         pcfg = dataclasses.replace(pcfg, **pcfg_overrides)
 
     gen = torch.Generator(device=dev).manual_seed(42)
-    dit = _materialize(CogVideoXTransformer(tcfg, device="meta"), act_dt,
-                       dev, gen)
-    vae = _materialize(AutoencoderKL3D(vcfg, device="meta"), act_dt, dev,
-                       gen)
+    dit = materialize(CogVideoXTransformer(tcfg, device="meta"), act_dt,
+                      dev, gen)
+    vae = materialize(AutoencoderKL3D(vcfg, device="meta"), act_dt, dev,
+                      gen)
     if checkpoint:
         state = torch.load(checkpoint, map_location=dev, weights_only=True)
         unknown = set(state) - {"transformer", "vae"}

@@ -240,30 +240,91 @@ def test_flash_attention_kernel_matches_plain(cuda, B, T, H, layout):
 
 
 @pytest.mark.gpu
-def test_flash_attention_kernel_refuses_and_has_no_backward(cuda):
-    from langscenex_tpu_torch.ops.flash_attention import attention_bthd
+@pytest.mark.parametrize("B,T,H,layout", [(1, 300, 4, None),
+                                          (2, 128, 2, None),
+                                          (2, 200, 3, "qkv")])
+def test_flash_attention_backward_kernel_matches_plain(cuda, B, T, H,
+                                                       layout):
+    # K7 against the plain backward on K5's o and l2 and a random do, with
+    # the same rounding points (q' in bf16, ds and the p of the dv product
+    # rounded to bf16). The f32 sums run in another order (dq's through
+    # atomics, in an order that varies from run to run), so an output can
+    # land one bf16 ulp away (at most 2^-7 relative), and a ds next to a
+    # rounding midpoint can round the other way, moving its sum by 2^-8 of
+    # that one term: 2^-7 relative + 2^-8 of the largest gradient of each
+    # kind. Only outputs next to a midpoint move, so each relative RMS
+    # difference stays under 2^-9 (a dropped 64-row tile moves it by more
+    # than sqrt(64 / 600) = 0.33)
+    from langscenex_tpu_torch.ops.flash_attention import (
+        attention_bthd_backward_kernel, attention_bthd_backward_plain,
+        attention_bthd_kernel)
+    rng = np.random.default_rng(23)
+    q, k, v = _qkv(rng, B, T, H, cuda, layout)
+    do = torch.from_numpy(rng.normal(size=(B, T, H, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    o, l2 = attention_bthd_kernel(q, k, v, 0.125)
+    _build.reset_launch_counts()
+    got = attention_bthd_backward_kernel(q, k, v, o, l2, do, 0.125)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attention_backward"] == 1
+    ref = attention_bthd_backward_plain(q, k, v, o, l2, do, 0.125)
+    for name, g, r in zip("qkv", got, ref):
+        assert g.shape == (B, T, H, 64) and g.dtype == torch.bfloat16
+        assert bool(torch.isfinite(g.float()).all()), name
+        g, r = g.float(), r.float()
+        torch.testing.assert_close(g, r, rtol=2 ** -7,
+                                   atol=2 ** -8 * float(r.abs().max()),
+                                   msg=f"d{name}")
+        rel = float((g - r).pow(2).mean().sqrt() / r.pow(2).mean().sqrt())
+        assert rel < 2 ** -9, (name, rel)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_and_backward_is_finite(cuda):
+    from langscenex_tpu_torch.ops.flash_attention import (
+        attention_bthd, attention_bthd_backward_kernel)
     q, k, v = _qkv(np.random.default_rng(21), 1, 16, 2, cuda)
     with pytest.raises(ValueError, match="head_dim"):
         attention_bthd(q[..., :32], k[..., :32], v[..., :32])
     with pytest.raises(TypeError, match="bf16"):
         attention_bthd(q, k, v, dtype=torch.float32)
-    qg = q.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="K7"):
-        attention_bthd(qg, k, v).sum().backward()
+    l2 = torch.zeros(2, 16, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        attention_bthd_backward_kernel(q.float(), k, v, q, l2, q, 0.125)
+    with pytest.raises(ValueError, match="l2"):
+        attention_bthd_backward_kernel(q, k, v, q, None, q, 0.125)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention_bthd_backward_kernel(q[..., :32], k[..., :32], v[..., :32],
+                                       q[..., :32], l2, q[..., :32], 0.125)
+    # the autograd path: K5 forward, K7 backward, gradients of every input
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    _build.reset_launch_counts()
+    attention_bthd(*leaves).float().sum().backward()
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attention"] == 1
+    assert _build.launch_counts["flash_attention_backward"] == 1
+    for t in leaves:
+        assert t.grad is not None and bool(torch.isfinite(
+            t.grad.float()).all())
+    assert float(leaves[2].grad.float().abs().sum()) > 0
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("H", [256, 3072])
-def test_ln_modulate_kernel_matches_plain(cuda, H):
+@pytest.mark.parametrize("H,dtype", [(256, torch.bfloat16),
+                                     (3072, torch.bfloat16),
+                                     (3072, torch.float32),
+                                     (4096, torch.float32)])
+def test_ln_modulate_kernel_matches_plain(cuda, H, dtype):
     # K8 against the plain version: the same f32 statistics summed in
-    # another order, and n·A + C against (n·γ + β)(1 + s) + shift, so an
-    # output may differ by one bf16 ulp: 2^-7 relative + 1e-4
+    # another order, and n·A + C against (n·γ + β)(1 + s) + shift, so a bf16
+    # output may differ by one bf16 ulp: 2^-7 relative + 1e-4; in f32 the
+    # two differ by a few f32 roundings of values of order 10: 1e-5
     from langscenex_tpu_torch.ops.ln_modulate import (ln_modulate,
                                                       ln_modulate_plain)
     rng = np.random.default_rng(22)
     B, T = 2, 700
 
-    def t(shape, scale, dtype=torch.bfloat16, shift=0.0):
+    def t(shape, scale, shift=0.0):
         return torch.from_numpy((rng.normal(size=shape) * scale + shift)
                                 .astype(np.float32)).to(cuda, dtype)
 
@@ -276,8 +337,10 @@ def test_ln_modulate_kernel_matches_plain(cuda, H):
     torch.cuda.synchronize()
     assert _build.launch_counts["ln_modulate"] == 1
     ref = ln_modulate_plain(x, gamma, beta, *mods, 226)
-    assert y.dtype == torch.bfloat16 and y.shape == x.shape
-    torch.testing.assert_close(y.float(), ref.float(), atol=1e-4,
-                               rtol=2 ** -7)
+    assert y.dtype == dtype and y.shape == x.shape
+    tol = (dict(atol=1e-4, rtol=2 ** -7) if dtype == torch.bfloat16
+           else dict(atol=1e-5, rtol=1e-5))
+    torch.testing.assert_close(y.float(), ref.float(), **tol)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
     with pytest.raises(TypeError, match="bf16"):
-        ln_modulate(x, gamma.float(), beta, *mods, 226)
+        ln_modulate(x, gamma.to(other), beta, *mods, 226)

@@ -124,7 +124,9 @@ def test_wrappers_run_plain_on_cpu_and_check_inputs():
     assert compact_pairs(k, v, 3, 3, 9, 9)[0].tolist() == [1, 2, 9]
     assert _build.launch_counts == {"sort_pairs": 0, "compact_pairs": 0,
                                     "blend_forward": 0, "blend_backward": 0,
-                                    "flash_attention": 0, "ln_modulate": 0}
+                                    "flash_attention": 0,
+                                    "flash_attention_backward": 0,
+                                    "ln_modulate": 0}
     with pytest.raises(TypeError):
         sort_pairs(k.long(), v)
     with pytest.raises(ValueError):
