@@ -70,7 +70,29 @@ Phases (any failure raises, so the exit code is non-zero):
  16. configuration dit-ft-8L-49x480x720: the full fine-tune step with f32
      parameters and latents (DiTTrainConfig defaults, remat, 8 of 42
      layers), 3 steps with time, peak memory, finite loss and grad_norm,
-     and exactly 16 K5, 8 K7 and 32 K8 (f32) launches per step.
+     and exactly 16 K5, 8 K7 and 32 K8 (f32) launches per step;
+ 17. K6, the [B, H, T, D] bounded attention forward, on seeded unit-normal
+     q, k, v: against K5 on the same tensors at the request's
+     [2, 48, 17776, 64] (one device function: bit-identical o and l2),
+     against its plain version at a TP=2 shard's [2, 24, 17776, 64] and at
+     1,000 queries over 17,776 keys (K5's bounds), CUDA-event times of K6,
+     the plain version and scaled_dot_product_attention with the bound;
+     and K7 reading [B, H, T, D] views of a LoRA shard [1, 24, 17776, 64]
+     against its plain version, with its time;
+ 18. configuration trimap-dit-5b-49x480x720-tp2: two ranks on cuda:0 over
+     gloo, a (data=1, model=2) mesh, each building its shard of the seed-42
+     DiT layer by layer (parallel.mesh.materialize_sharded_dit); a 2-step
+     DDIM loop through dit_sharded_apply from phase 9's DiT inputs, each
+     DiT call of the CFG pair (the first at t = 999; each later one also
+     on the single process's inputs of that call) and its latents against
+     the single-process ones that phases 9-12 saved: exactly 42 K6, 0 K5 and
+     84 K8 launches per rank per DiT call, per-rank times and peak memory;
+ 19. configuration lora-5b-49x480x720-tp2, in the same two ranks: the
+     2-block adapter gradients of phase 14's inputs, gathered from the
+     ranks, against the single-process ones, then 1 TP LoRA step at 42
+     layers (loss against phase 14's), exactly 84 K6, 42 K7, 168 K8 and
+     0 K5 launches per rank per step, per-rank times and peak memory.
+     Every TP time is of two ranks on one card over gloo, not a TP speed.
 Every kernel's bound is computed from this run's shapes: the larger of
 its operations over the bf16 tensor-core peak and its bytes (each input
 read once, each output written once) over the HBM rate.
@@ -92,15 +114,21 @@ import numpy as np
 import torch
 
 from langscenex_tpu_torch import _build
+from langscenex_tpu_torch.convert import gather_lora, shard_lora
 from langscenex_tpu_torch.ops.binning import enumerate_pairs
-from langscenex_tpu_torch.models.cogvideox.pipeline import guided_prediction
+from langscenex_tpu_torch.models.cogvideox.pipeline import (PipelineConfig,
+                                                           denoise_loop,
+                                                           guided_prediction)
+from langscenex_tpu_torch.models.cogvideox.scheduler import DDIMScheduler
 from langscenex_tpu_torch.models.cogvideox.transformer import (
     CogVideoXTransformer, TransformerConfig)
 from langscenex_tpu_torch.ops.compaction import (compact_pairs,
                                                  compact_pairs_plain)
 from langscenex_tpu_torch.ops.flash_attention import (
     attention_bthd_backward_kernel, attention_bthd_backward_plain,
-    attention_bthd_kernel, attention_bthd_plain)
+    attention_bthd_kernel, attention_bthd_plain,
+    flash_attention_backward_kernel, flash_attention_backward_plain,
+    flash_attention_kernel, flash_attention_plain)
 from langscenex_tpu_torch.ops.ln_modulate import (ln_modulate,
                                                   ln_modulate_plain)
 from langscenex_tpu_torch.ops.rasterize import RasterConfig, prepare_blend
@@ -110,6 +138,11 @@ from langscenex_tpu_torch.ops.rasterize_cuda import (blend_backward,
                                                      blend_tiles_plain)
 from langscenex_tpu_torch.ops.sort_engine import sort_pairs, sort_pairs_plain
 from langscenex_tpu_torch.ops.transforms import focal2fov, fov2focal
+from langscenex_tpu_torch.parallel.dryrun import rank_mesh, spawn
+from langscenex_tpu_torch.parallel.mesh import (dit_sharded_apply,
+                                                lora_kind,
+                                                materialize_sharded_dit,
+                                                reduce_gradients_)
 from langscenex_tpu_torch.scene.cameras import Camera
 from langscenex_tpu_torch.scene.gaussians import (GaussianState,
                                                   create_from_points)
@@ -228,6 +261,34 @@ LNZ32_RTOL, LNZ32_ATOL = 1e-5, 1e-5
 # differed by 1.7e-3 relative RMS after 2 blocks (phase 10). Each adapter
 # gradient's relative RMS difference within 2e-2, the loss within 1e-2
 LORA2_GRAD_REL_RMS, LORA2_LOSS_RTOL = 2e-2, 1e-2
+# the configurations trimap-dit-5b-49x480x720-tp2 and lora-5b-49x480x720-tp2
+# (see PERF.md): the two cells above on a (data=1, model=2) mesh of two
+# ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one device).
+# The TP DiT differs from the single-process one only in rounding: K6 is
+# bit-identical to K5, and each block's two row-parallel linears sum two
+# bf16 partial products (and then the bias) where the single-process GEMM
+# rounds once, about one bf16 ulp per output, as K5/K8 against their plain
+# versions differ per block. Phase 10 bounds that over 42 layers (126 calls)
+# by 5e-2 relative RMS of the noise prediction (DIT_REL_RMS), and the
+# 2-block LoRA gradients by the LORA2_* bounds. Every DiT call of the
+# 2-step loop is held at DIT_REL_RMS: the first on the loop's own inputs,
+# which both sides share; each later one, whose own inputs already differ
+# by the earlier guided predictions' difference, also on the single
+# process's inputs of that call, with its timestep checked to be the same.
+# The guided prediction uncond + 6 (cond - uncond) weighs the branches'
+# differences by up to 13, so the latents after the loop are held to a
+# constant taken from sound runs: 9.210e-2 and 9.218e-2 relative RMS on
+# an H100 (the same inputs and kernels; the single process's cuBLAS
+# choices vary a little), with 30% to spare: TP_LATENTS_REL_RMS.
+# Cut to stay near 2 minutes: the loop's first call is the compared call,
+# and 1 TP LoRA step (a TP DiT call took 29 s and a TP LoRA step 44 s per
+# rank in the first whole run, almost all of it gloo's all-reduces)
+TP_RANKS, TP_LORA_STEPS, TP_TIMEOUT = 2, 1, 900.0
+TP_LATENTS_REL_RMS = 0.12
+TP_NOTE = "two ranks on one card over gloo, not a TP speed"
+# K6 at the request's full width: 17,776 tokens (13 latent frames of
+# 30 x 45 patches and 226 text tokens), 48 heads; a TP=2 shard has 24
+K6_T, K6_H, K6_SHORT_T = 13 * 30 * 45 + 226, 48, 1000
 # the card's published peaks (H100 SXM): bf16 dense tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -241,6 +302,8 @@ TPU_KERNELS = {
                       "_bwd_kernel",
     "flash_attention": "langscenex_tpu/ops/flash_attention.py:991 "
                        "_attn_kernel_nomax_t4",
+    "flash_attention_bhtd": "langscenex_tpu/ops/flash_attention.py:796 "
+                            "_attn_kernel_nomax_t",
     "ln_modulate": "langscenex_tpu/ops/ln_modulate.py:31 _lnz_kernel",
     "flash_attention_backward": "langscenex_tpu/ops/flash_attention.py:360 "
                                 "_bwd_fused_kernel_t",
@@ -251,6 +314,7 @@ SOURCES = {
     "blend_forward": "langscenex_tpu_torch/csrc/blend.cu",
     "blend_backward": "langscenex_tpu_torch/csrc/blend_backward.cu",
     "flash_attention": "langscenex_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bhtd": "langscenex_tpu_torch/csrc/flash_attention.cu",
     "ln_modulate": "langscenex_tpu_torch/csrc/ln_modulate.cu",
     "flash_attention_backward":
         "langscenex_tpu_torch/csrc/flash_attention_backward.cu",
@@ -259,6 +323,7 @@ RENDER_TRAIN_KERNELS = ("blend_forward", "blend_backward", "compact_pairs",
                         "sort_pairs")
 DIT_KERNELS = ("flash_attention", "ln_modulate")
 TRAIN_DIT_KERNELS = ("flash_attention_backward",)
+TP_KERNELS = ("flash_attention_bhtd",)
 
 
 def scene(n: int, seed: int = 0):
@@ -1174,6 +1239,12 @@ def compare_lora_grads(dev, dit, batch) -> None:
             "LoRA 2-block loss differs from the plain path")
     require(worst[0] <= LORA2_GRAD_REL_RMS,
             "LoRA adapter gradients differ from the plain path")
+    return dict(adapters={s: {k: v.cpu().numpy() for k, v in ab.items()}
+                          for s, ab in ad.items()},
+                t=t.cpu().numpy(), noise=noise.float().cpu().numpy(),
+                loss=float(lk), grads={s: {k: v.float().cpu()
+                                           for k, v in ab.items()}
+                                       for s, ab in gk.items()})
 
 
 def run_steps(dev, step, state, batch, n: int, gen, per_step: dict,
@@ -1254,6 +1325,331 @@ def phase_ft(dev) -> list:
                      "full fine-tune")
 
 
+def phase_k6(dev, results) -> None:
+    """K6 against K5 on the same tensors at the request's full width,
+    against its plain version at a TP=2 shard and at a Tk != T shape, with
+    times; K7 on [B, H, T, D] views of a LoRA shard."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, T, H, D = 2, K6_T, K6_H, 64
+    sc = 1.0 / math.sqrt(D)
+    with torch.inference_mode():
+        q, k, v = (torch.randn((B, T, H, D), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(3))
+        o5, l5 = attention_bthd_kernel(q, k, v, sc)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        o6, l6 = flash_attention_kernel(qh, kh, vh, sc)
+        same = torch.equal(o6.transpose(1, 2), o5) and torch.equal(l6, l5)
+        print(f"K6 vs K5 on q,k,v {list(qh.shape)} (K6 on [B, H, T, D] "
+              f"views of K5's [B, T, H, D] operands, one device function): "
+              f"o and l2 bit-identical {same} (max|o| diff "
+              f"{max_abs(o6.transpose(1, 2), o5):.3e}, max|l2| diff "
+              f"{max_abs(l6, l5):.3e})")
+        require(same, "K6 and K5 share their device code but differ")
+        del o5, l5
+        full_ms = cuda_ms(lambda: flash_attention_kernel(qh, kh, vh, sc), 5)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        full_lib = cuda_ms(lambda: sdpa(qh, kh, vh), 5)
+        full_bound = bound(flops=4.0 * B * H * T * T * D,
+                           moved=nbytes(q, k, v, o6, l6))
+        print(f"K6 flash_attention_bhtd at the request's {list(qh.shape)}: "
+              f"kernel {full_ms:.4f} ms, scaled_dot_product_attention "
+              f"{full_lib:.4f} ms, bound {full_bound['bound_ms']:.4f} ms "
+              f"({full_bound['bound_by']}, {4.0 * B * H * T * T * D / 1e12:.3f}"
+              f" TFLOP at 989 TFLOP/s)")
+        del o6, l6
+        # a TP=2 shard's heads, and 1,000 queries over all keys
+        qs, ks, vs = (t[:, :H // 2] for t in (qh, kh, vh))
+        err = 0.0
+        for what, qq in (("TP=2 shard", qs), ("Tk != T", qs[:, :, :K6_SHORT_T])):
+            o, l2 = flash_attention_kernel(qq, ks, vs, sc)
+            ro, rl2 = flash_attention_plain(qq, ks, vs, sc)
+            o_rms = rel_rms(o, ro)
+            l2_mean = float((l2 - rl2).abs().mean())
+            print(f"K6 vs plain, {what}: q {list(qq.shape)}, k, v "
+                  f"{list(ks.shape)}: max|o| err {max_abs(o, ro):.3e} (bound "
+                  f"{ATTN_RTOL:.3g} rel + {ATTN_ATOL:g}), o rel RMS "
+                  f"{o_rms:.3e} (bound {ATTN_REL_RMS:.3g}), max|l2| err "
+                  f"{max_abs(l2, rl2):.3e} (bound {L2_ATOL:g}), mean|l2| err "
+                  f"{l2_mean:.3e} (bound {L2_MEAN_ATOL:g})")
+            require(bool(torch.isfinite(o.float()).all()),
+                    f"K6 {what}: non-finite output")
+            torch.testing.assert_close(o.float(), ro.float(), atol=ATTN_ATOL,
+                                       rtol=ATTN_RTOL)
+            require(o_rms <= ATTN_REL_RMS, f"K6 {what}: o's relative RMS "
+                    f"difference {o_rms:.3e} above {ATTN_REL_RMS:.3g}")
+            torch.testing.assert_close(l2, rl2, atol=L2_ATOL, rtol=0.0)
+            require(l2_mean <= L2_MEAN_ATOL, f"K6 {what}: mean |l2| "
+                    f"difference {l2_mean:.3e} above {L2_MEAN_ATOL:g}")
+            err = max(err, max_abs(o, ro), max_abs(l2, rl2))
+            if what == "TP=2 shard":
+                shard_out = (o, l2)
+            del ro, rl2
+        o, l2 = shard_out
+        ms = cuda_ms(lambda: flash_attention_kernel(qs, ks, vs, sc), 5)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(qs, ks, vs, sc), 1,
+                           warmup=1)
+        lib_ms = cuda_ms(lambda: sdpa(qs, ks, vs), 5)
+        Hs = H // 2
+        k6_bound = bound(flops=4.0 * B * Hs * T * T * D,
+                         moved=nbytes(qs, ks, vs, o, l2))
+        print(f"K6 flash_attention_bhtd at a TP=2 shard's {list(qs.shape)}: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+              f"{k6_bound['bound_ms']:.4f} ms ({k6_bound['bound_by']}, "
+              f"{4.0 * B * Hs * T * T * D / 1e12:.3f} TFLOP)")
+        results["flash_attention_bhtd"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, **k6_bound,
+            library_ms=lib_ms)
+        # K7 reading [B, H, T, D] views: a TP LoRA shard's q, k, v
+        q1, k1, v1 = (t[:1] for t in (qs, ks, vs))
+        o1, l21 = flash_attention_kernel(q1, k1, v1, sc)
+        do = torch.randn(q1.shape, generator=gen, device=dev).to(q1.dtype)
+        got = flash_attention_backward_kernel(q1, k1, v1, o1, l21, do, sc)
+        ref = flash_attention_backward_plain(q1, k1, v1, o1, l21, do, sc)
+    print(f"K7 on [B, H, T, D] views {list(q1.shape)} vs plain (K7's "
+          f"bounds):")
+    for name, g, r in zip("qkv", got, ref):
+        check_grad(f"d{name}", g, r, BWD_RTOL, BWD_ATOL_FRAC, BWD_REL_RMS)
+    del got, ref
+    ms7 = cuda_ms(lambda: flash_attention_backward_kernel(
+        q1, k1, v1, o1, l21, do, sc), 5)
+    k7_bound = bound(flops=10.0 * Hs * T * T * D,
+                     moved=nbytes(q1, k1, v1, o1, l21, do, q1, k1, v1))
+    print(f"K7 flash_attention_backward on [B, H, T, D] views "
+          f"{list(q1.shape)}: kernel {ms7:.4f} ms, bound "
+          f"{k7_bound['bound_ms']:.4f} ms ({k7_bound['bound_by']})")
+
+
+def call_recorder(denoiser, on_call):
+    """``denoiser`` that hands every call's inputs and output to
+    ``on_call(lat, txt, t, out)``."""
+    def run(lat, txt, t):
+        out = denoiser(lat, txt, t)
+        on_call(lat, txt, t, out)
+        return out
+    return run
+
+
+def tp_request_reference(pipe, model_in, txt) -> dict:
+    """The single-process outputs the TP request is held against: the
+    2-step DDIM loop from phase 9's DiT inputs, every DiT call of the CFG
+    pair recorded with its inputs (the first at t = 999), on the host."""
+    C = pipe.cfg.latent_channels
+    noise, img = model_in[:1, :, :C].float(), model_in[:1, :, C:].float()
+    host = lambda t: t.float().cpu().numpy()      # noqa: E731
+    calls = []
+    with torch.inference_mode():
+        lat = denoise_loop(call_recorder(
+            pipe.denoiser_fn, lambda lat, txt, t, out: calls.append(dict(
+                lat=host(lat), t=t.cpu().numpy(), out=out.float().cpu()))),
+            noise, img, txt[1:], txt[:1], pipe.scheduler, pipe.cfg)
+    torch.cuda.synchronize()
+    return dict(loop=(host(noise), host(img), host(txt[1:]), host(txt[:1])),
+                calls=calls, latents=lat.float().cpu())
+
+
+def tp_rank(rank, world, store, dev, req, lora_in):
+    """One rank of phases 18 and 19 on ``dev``, the card all ranks share
+    (spawned; gloo mesh (data=1, model=2)): its shard of the seed-42 DiT,
+    the TP request and the TP LoRA steps. Returns outputs on the host,
+    launches, times and peak memory."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = rank_mesh(rank, world, store, 1, world, device=dev,
+                     backend="gloo")
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+    dit = materialize_sharded_dit(TransformerConfig(remat=True), mesh, bf,
+                                  torch.Generator(device=dev).manual_seed(42))
+    torch.cuda.synchronize()
+    res = dict(build_s=time.perf_counter() - t0,
+               params=sum(p.numel() for p in dit.parameters()))
+    apply = dit_sharded_apply(dit, mesh)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {
+            k: v for k, v in _build.launch_counts.items() if v}
+
+    # ---- 18. the TP request -------------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    loop = [torch.from_numpy(a).to(dev) for a in req["loop"]]
+    step_s, clock = [], [0.0]
+
+    def step_done(i, t, evaluated, latents):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_s.append(now - clock[0])
+        clock[0] = now
+
+    calls = []
+
+    def on_call(lat, txt, t, out):
+        torch.cuda.synchronize()
+        calls.append(dict(t=t.cpu().numpy(), out=out.float().cpu()))
+        if len(calls) == 1:
+            # the loop starts with the DiT call: the counts so far are its own
+            res.update(call_launches={
+                k: v for k, v in _build.launch_counts.items() if v},
+                call_ms=(time.perf_counter() - clock[0]) * 1e3)
+
+    def tp_call(lat, txt, t):
+        return apply(lat.to(bf), txt.to(bf), t)
+
+    def run_loop():
+        clock[0] = time.perf_counter()
+        return denoise_loop(call_recorder(tp_call, on_call), *loop,
+                            DDIMScheduler(),
+                            PipelineConfig(num_inference_steps=DIT_STEPS),
+                            step_done)
+    with torch.inference_mode():
+        lat, _, res["loop_launches"] = counted(run_loop)
+        # the later calls again on the single process's inputs of each
+        text = torch.cat([loop[3], loop[2]])
+        for c, ref in zip(calls[1:], req["calls"][1:]):
+            c["forced"] = tp_call(
+                torch.from_numpy(ref["lat"]).to(dev), text,
+                torch.from_numpy(ref["t"]).to(dev)).float().cpu()
+    res.update(latents=lat.float().cpu(), calls=calls,
+               step_ms=[t * 1e3 for t in step_s],
+               request_peak=torch.cuda.max_memory_allocated(dev))
+    del lat, loop
+
+    # ---- 19. the TP LoRA step -----------------------------------------
+    batch = ft_batch(dev, dit.cfg.text_embed_dim, bf)
+    lcfg = LoRAConfig(rank=16)
+    blocks = dit.transformer_blocks
+    dit.transformer_blocks = blocks[:2]
+    try:
+        ad = shard_lora({s: {k: torch.from_numpy(v).to(dev)
+                             for k, v in ab.items()}
+                         for s, ab in lora_in["adapters"].items()},
+                        mesh.model_rank, mesh.n_model)
+        t = torch.from_numpy(lora_in["t"]).to(dev)
+        noise = torch.from_numpy(lora_in["noise"]).to(dev, bf)
+        tables = _sched_tables(LORA_TRAIN, dev)
+        dit.requires_grad_(False)
+        (loss, grads), _, launches = counted(
+            lambda: lora_loss_and_grads(dit, ad, lcfg, batch, t, noise,
+                                        tables))
+        # the whole adapter factors' partial gradients summed over model
+        reduce_gradients_({f"{s}/{k}": g for s, ab in grads.items()
+                           for k, g in ab.items()},
+                          {f"{s}/{k}": lora_kind(s, k) for s, ab in
+                           grads.items() for k in ab}, dit.tp, None)
+        want = {"flash_attention_bhtd": 4, "flash_attention_backward": 2,
+                "ln_modulate": 8}
+        require(launches == want, f"rank {rank}: 2-block TP LoRA launches "
+                f"{launches}, expected {want}")
+    finally:
+        dit.transformer_blocks = blocks
+    res.update(lora2_loss=float(loss),
+               lora2_grads={s: {k: v.float().cpu() for k, v in ab.items()}
+                            for s, ab in grads.items()})
+    del ad, grads
+    init_state, step = make_lora_train_step(dit, LORA_TRAIN, lcfg)
+    state = init_state(torch.Generator(device=dev).manual_seed(1))
+    n_layers = len(dit.transformer_blocks)
+    per_step = {"flash_attention_bhtd": 2 * n_layers,
+                "flash_attention_backward": n_layers,
+                "ln_modulate": 4 * n_layers}
+    res["lora_steps"] = run_steps(
+        dev, step, state, batch, TP_LORA_STEPS,
+        torch.Generator(device=dev).manual_seed(2), per_step,
+        f"TP LoRA rank {rank} ({TP_NOTE})")
+    return res
+
+
+def phase_tp(dev, req: dict, lora_ref: dict, lora_losses: list) -> dict:
+    """Phases 18 and 19: two ranks on cuda:0 over gloo, held against the
+    single-process outputs. Returns rank 0's K6 launches over the TP
+    request's loop."""
+    t0 = time.perf_counter()
+    ranks = spawn(tp_rank, TP_RANKS,
+                  (dev, {"loop": req["loop"], "calls": [
+                      {k: c[k] for k in ("lat", "t")} for c in req["calls"]]},
+                   {k: lora_ref[k] for k in ("adapters", "t", "noise")}),
+                  timeout=TP_TIMEOUT)
+    print(f"TP phases 18-19: {TP_RANKS} ranks on "
+          f"{torch.cuda.get_device_name(0)} over gloo, spawn to join "
+          f"{time.perf_counter() - t0:.1f} s ({TP_NOTE})")
+    per_call = {"flash_attention_bhtd": 42, "ln_modulate": 84}
+    for r, res in enumerate(ranks):
+        print(f"rank {r}: shard of {res['params'] / 1e9:.3f}B parameters built "
+              f"in {res['build_s']:.2f} s; DiT call {res['call_ms']:.1f} ms, "
+              f"launches {res['call_launches']}; denoise steps "
+              f"{ms_list([t / 1e3 for t in res['step_ms']])} ms, launches "
+              f"{res['loop_launches']}; request peak allocated "
+              f"{res['request_peak'] / 2 ** 30:.3f} GiB ({TP_NOTE})")
+        require(res["call_launches"] == per_call, f"rank {r}: TP DiT call "
+                f"launches {res['call_launches']}, expected {per_call}")
+        loop_want = {k: DIT_STEPS * v for k, v in per_call.items()}
+        require(res["loop_launches"] == loop_want, f"rank {r}: TP loop "
+                f"launches {res['loop_launches']}, expected {loop_want}")
+    calls, refs = ranks[0]["calls"], req["calls"]
+    require(len(calls) == len(refs) == DIT_STEPS, f"TP loop made "
+            f"{len(calls)} DiT calls, the single process {len(refs)}, "
+            f"expected {DIT_STEPS}")
+    g = PipelineConfig().guidance_scale
+    for i, (c, ref) in enumerate(zip(calls, refs)):
+        out = c["forced"] if i else c["out"]
+        e = rel_rms(out, ref["out"])
+        guided = [o[:1] + g * (o[1:] - o[:1]) for o in (c["out"],
+                                                        ref["out"])]
+        where = " on the single process's inputs" if i else ""
+        print(f"TP request vs single process: DiT call {i + 1} "
+              f"{list(ref['out'].shape)} at t = {c['t'].tolist()}{where} "
+              f"rel RMS {e:.3e} (bound {DIT_REL_RMS:g}), max abs "
+              f"{max_abs(out, ref['out']):.3e}; in the loop, its guided "
+              f"prediction rel RMS {rel_rms(*guided):.3e}")
+        require(np.array_equal(c["t"], ref["t"]), f"TP DiT call {i + 1} "
+                f"at t {c['t'].tolist()}, the single process at "
+                f"{ref['t'].tolist()}")
+        require(bool(torch.isfinite(c["out"]).all()),
+                f"TP DiT call {i + 1}: non-finite output")
+        require(e <= DIT_REL_RMS, f"TP DiT call {i + 1} differs from the "
+                f"single process beyond the bound")
+    e_loop = rel_rms(ranks[0]["latents"], req["latents"])
+    same = all(all(torch.equal(a["out"], b["out"])
+                   for a, b in zip(res["calls"], calls))
+               and torch.equal(res["latents"], ranks[0]["latents"])
+               for res in ranks)
+    print(f"TP request vs single process: latents after {DIT_STEPS} DDIM "
+          f"steps rel RMS {e_loop:.3e} (bound {TP_LATENTS_REL_RMS:g}); "
+          f"ranks' outputs identical {same}")
+    require(same, "TP request: the ranks' outputs differ")
+    require(e_loop <= TP_LATENTS_REL_RMS, "TP latents differ from the "
+            "single process beyond the bound")
+    # ---- 19 -----------------------------------------------------------
+    got = gather_lora([res["lora2_grads"] for res in ranks])
+    worst = max((rel_rms(got[s][x], lora_ref["grads"][s][x]), f"{s}/{x}")
+                for s in got for x in got[s])
+    lk, lr = ranks[0]["lora2_loss"], lora_ref["loss"]
+    print(f"TP LoRA on 2 blocks vs single process: loss {lk:.6f} vs "
+          f"{lr:.6f}; {len(got)} adapters gathered, worst gradient rel RMS "
+          f"{worst[0]:.3e} at {worst[1]} (bound {LORA2_GRAD_REL_RMS:g})")
+    require(abs(lk - lr) <= LORA2_LOSS_RTOL * abs(lr),
+            "TP LoRA 2-block loss differs from the single process")
+    require(worst[0] <= LORA2_GRAD_REL_RMS,
+            "TP LoRA adapter gradients differ from the single process")
+    for r, res in enumerate(ranks):
+        recs = res["lora_steps"]
+        print(f"rank {r}: TP LoRA steps {' '.join('%.1f' % x['ms'] for x in recs)}"
+              f" ms, losses {' '.join('%.6f' % x['loss'] for x in recs)} "
+              f"(single process {' '.join('%.6f' % x for x in lora_losses[:len(recs)])}),"
+              f" peak allocated {max(x['peak'] for x in recs) / 2 ** 30:.3f} GiB "
+              f"({TP_NOTE})")
+        for x, ref in zip(recs, lora_losses):
+            require(abs(x["loss"] - ref) <= LORA2_LOSS_RTOL * abs(ref),
+                    f"rank {r}: TP LoRA loss {x['loss']} differs from the "
+                    f"single process's {ref}")
+    return dict(launches=ranks[0]["loop_launches"]["flash_attention_bhtd"])
+
+
 def main() -> int:
     # ---- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1323,6 +1719,7 @@ def main() -> int:
     request = phase_request(dev, pipe, text, pcfg,
                             len(dit.transformer_blocks))
     phase_dit_profile(pipe, model_in, txt)
+    tp_req = tp_request_reference(pipe, model_in, txt)
     del pipe, text, aux, dit, model_in, txt, tt
     torch.cuda.empty_cache()
 
@@ -1334,7 +1731,7 @@ def main() -> int:
     print(f"LoRA base DiT: {sum(p.numel() for p in dit.parameters()) / 1e9:.3f}"
           f"B bf16 parameters, remat, {time.perf_counter() - t0:.2f} s")
     phase_k7(dev, dit, batch, results)
-    compare_lora_grads(dev, dit, batch)
+    lora_ref = compare_lora_grads(dev, dit, batch)
     lora = phase_lora(dev, dit, batch)
     profile(lambda: lora["step"](lora["state"], batch, lora["gen"]), 1,
             "one LoRA step, lora-5b-49x480x720")
@@ -1343,15 +1740,24 @@ def main() -> int:
 
     # ---- 16. full fine-tune, dit-ft-8L-49x480x720 -----------------------
     phase_ft(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 17. K6 ---------------------------------------------------------
+    phase_k6(dev, results)
+    torch.cuda.empty_cache()
+
+    # ---- 18-19. TP=2 request and LoRA step, two ranks on the card -------
+    tp = phase_tp(dev, tp_req, lora_ref, [r["loss"] for r in lora["recs"]])
 
     launches = {**{k: train_launches[k] for k in RENDER_TRAIN_KERNELS},
                 **{k: request["launches"][k] for k in DIT_KERNELS},
-                "flash_attention_backward": lora["launches"]}
+                "flash_attention_backward": lora["launches"],
+                "flash_attention_bhtd": tp["launches"]}
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=TPU_KERNELS[name], launches=launches[name],
                     **results[name])
                for name in RENDER_TRAIN_KERNELS + DIT_KERNELS
-               + TRAIN_DIT_KERNELS]
+               + TRAIN_DIT_KERNELS + TP_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,8 @@ import numpy as np
 import torch
 
 from .ops.projection import RasterCamera
+from .parallel.mesh import (lora_split_dim, shard_lora_tensor, shard_tensor,
+                            tp_split_dim)
 from .scene.gaussians import DensifyStats, GaussianState
 from .train.field import TrainState
 from .train.optim import AdamState
@@ -273,4 +275,54 @@ def lora_from_numpy(lora: dict, head_dim: int = 64,
             b = b.reshape(r, -1, 3, head_dim).transpose(0, 2, 1, 3).reshape(
                 r, -1)
         out[site] = {"a": _f32(a, dev), "b": _f32(b, dev)}
+    return out
+
+
+def shard_dit_state_dict(sd: dict, rank: int, n_model: int) -> dict:
+    """Model rank ``rank``'s shard of a full DiT state_dict (diffusers'
+    keys, as ``cogvideox_dit_from_numpy`` or a seeded model gives it):
+    its heads of to_q/to_k/to_v, its rows of ff.net.0.proj, its input
+    columns of attn1.to_out.0 and ff.net.2; everything else whole. The
+    shards are views of ``sd``'s tensors."""
+    return {k: shard_tensor(v, tp_split_dim(k), rank, n_model)
+            for k, v in sd.items()}
+
+
+def gather_dit_state_dict(shards: list) -> dict:
+    """The full state_dict from every model rank's shard, in rank order
+    (the inverse of :func:`shard_dit_state_dict`)."""
+    out = {}
+    for k, v in shards[0].items():
+        dim = tp_split_dim(k)
+        out[k] = v if dim is None or len(shards) == 1 else torch.cat(
+            [s[k] for s in shards], dim=dim)
+    return out
+
+
+def shard_lora(lora: dict, rank: int, n_model: int) -> dict:
+    """Model rank ``rank``'s shard of a full adapter tree ``{site: {"a",
+    "b"}}``: B's columns of the column-parallel sites (for the fused q/k/v
+    adapter the rank's heads of each of q, k and v), A's rows of the
+    row-parallel ones; the other factor whole."""
+    return {site: {k: shard_lora_tensor(site, k, t, rank, n_model)
+                   for k, t in ab.items()} for site, ab in lora.items()}
+
+
+def gather_lora(shards: list) -> dict:
+    """The full adapter tree from every model rank's shard, in rank order
+    (the inverse of :func:`shard_lora`)."""
+    out = {}
+    for site, ab in shards[0].items():
+        out[site] = {}
+        for k, t in ab.items():
+            dim = lora_split_dim(site, k)
+            parts = [s[site][k] for s in shards]
+            if dim is None or len(shards) == 1:
+                out[site][k] = t
+            elif site.endswith(".attn1.to_qkv"):
+                r = t.shape[0]
+                out[site][k] = torch.cat([p.reshape(r, 3, -1) for p in parts],
+                                         dim=2).reshape(r, -1)
+            else:
+                out[site][k] = torch.cat(parts, dim=dim)
     return out

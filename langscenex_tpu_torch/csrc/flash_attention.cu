@@ -1,9 +1,19 @@
-// Bounded-logit flash-attention forward in the [B, T, H, D] layout,
-// kernel K5.
+// Bounded-logit flash-attention forward, kernels K5 ([B, T, H, D]) and K6
+// ([B, H, T, D], key length Tk that may differ from T): one device
+// function read through element strides, two entry points.
 //
-// Replaces: langscenex_tpu/ops/flash_attention.py:991
+// K5 replaces: langscenex_tpu/ops/flash_attention.py:991
 // _attn_kernel_nomax_t4 (reached via _flash_fwd_impl_bthd, :1043, from
-// attention_bthd, :1128). Non-causal attention over the joint [text;
+// attention_bthd, :1128). K6 replaces :796 _attn_kernel_nomax_t (called at
+// :960 from _flash_fwd_impl_t, reached through flash_attention(
+// bounded_logits=True) and attention_auto, :1189, on every shard of the
+// tensor-parallel DiT); its split-kv forms _t2 and _t3 (:838, :873)
+// compute the same function and differ only in MXU scheduling, so this
+// kernel serves them too. The transposed accumulator of the TPU kernel
+// exists to keep the MXU's output lanes full; on Hopper the mma tiles
+// below have no such padding, so only the function carries over. In
+// [B, H, T, D] one head's rows are contiguous: a 64-row k or v tile is one
+// 8 KB read. Non-causal attention over the joint [text;
 // video] sequence of the CogVideoX DiT, whose qk-LayerNorm bounds the
 // logits, so there is no running max. The rounding points are the TPU
 // kernel's:
@@ -11,12 +21,14 @@
 //   s  = k . q'   in f32;   p = exp2(s)
 //   P  = bf16(p)  before the PV product; the normalizer l = sum of P
 //   l  = max(l, 1e-30);  o = bf16(acc / l);  l2 = log2(l)  (kept for K7)
-// kv rows past T contribute nothing (p is set to 0 there and the staged
-// k/v rows are zero, so no garbage or NaN enters the sums).
+// kv rows past Tk contribute nothing (p is set to 0 there and the staged
+// k/v rows are zero, so no garbage or NaN enters the sums), as the TPU
+// kernel's zero v columns and zero valid row do.
 //
 // Bound on the H100: operations. At the DiT's shape (q, k, v [2, 17776,
-// 48, 64] bf16) one call does 4 B H T^2 D = 7.77 TFLOP: 7.85 ms at
-// 989 TFLOP/s, against 874 MB of q, k, v, o (0.26 ms at 3.35 TB/s). Its
+// 48, 64] bf16) one call does 4 B H T Tk D = 7.77 TFLOP: 7.85 ms at
+// 989 TFLOP/s, against 874 MB of q, k, v, o (0.26 ms at 3.35 TB/s); a
+// tensor-parallel shard of 24 heads does half of both. Its
 // B H T^2 = 3.03e10 exp2s take about as long again on the SFU
 // (16 ex2/clk/SM).
 //
@@ -51,7 +63,7 @@ flash_fwd_bthd(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
                __nv_bfloat16* __restrict__ o, float* __restrict__ l2, int T,
-               int H, Strides qs, Strides ks, Strides vs, Strides os,
+               int Tk, int H, Strides qs, Strides ks, Strides vs, Strides os,
                float scale2) {
   __shared__ __align__(128) __nv_bfloat16 sQ[FA_BQ * FA_D];
   __shared__ __align__(128) __nv_bfloat16 sK[2][FA_BK * FA_D];
@@ -64,11 +76,11 @@ flash_fwd_bthd(const __nv_bfloat16* __restrict__ q,
   const int lane = threadIdx.x & 31;
   const __nv_bfloat16* kh = k + b * ks.b + h * ks.h;
   const __nv_bfloat16* vh = v + b * vs.b + h * vs.h;
-  const int n_kv = (T + FA_BK - 1) / FA_BK;
+  const int n_kv = (Tk + FA_BK - 1) / FA_BK;
 
   // first kv tile in flight while q is staged
-  load_rows64<FA_THREADS>(sK[0], kh, ks.t, 0, T);
-  load_rows64<FA_THREADS>(sV[0], vh, vs.t, 0, T);
+  load_rows64<FA_THREADS>(sK[0], kh, ks.t, 0, Tk);
+  load_rows64<FA_THREADS>(sV[0], vh, vs.t, 0, Tk);
   cp_async_commit();
 
   // q' = bf16(q * bf16(scale log2 e)); rows past T are zero
@@ -117,8 +129,8 @@ flash_fwd_bthd(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < n_kv; ++j) {
     const int buf = j & 1;
     if (j + 1 < n_kv) {
-      load_rows64<FA_THREADS>(sK[buf ^ 1], kh, ks.t, (j + 1) * FA_BK, T);
-      load_rows64<FA_THREADS>(sV[buf ^ 1], vh, vs.t, (j + 1) * FA_BK, T);
+      load_rows64<FA_THREADS>(sK[buf ^ 1], kh, ks.t, (j + 1) * FA_BK, Tk);
+      load_rows64<FA_THREADS>(sV[buf ^ 1], vh, vs.t, (j + 1) * FA_BK, Tk);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -141,9 +153,9 @@ flash_fwd_bthd(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // P = bf16(exp2(S)), zero past T; the normalizer sums P itself
+    // P = bf16(exp2(S)), zero past Tk; the normalizer sums P itself
     const int kv0 = j * FA_BK;
-    const bool tail = kv0 + FA_BK > T;
+    const bool tail = kv0 + FA_BK > Tk;
     unsigned pa[4][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
@@ -151,7 +163,7 @@ flash_fwd_bthd(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         p[e] = exp2f(s[n][e]);
-        if (tail && kv0 + n * 8 + 2 * tq + (e & 1) >= T) p[e] = 0.f;
+        if (tail && kv0 + n * 8 + 2 * tq + (e & 1) >= Tk) p[e] = 0.f;
       }
       const unsigned lo = pack_bf16(p[0], p[1]);
       const unsigned hi = pack_bf16(p[2], p[3]);
@@ -231,7 +243,30 @@ extern "C" int lsx_flash_attention_fwd(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(l2), T, H, Strides{qsb, qst, qsh},
+      static_cast<float*>(l2), T, T, H, Strides{qsb, qst, qsh},
+      Strides{ksb, kst, ksh}, Strides{vsb, vst, vsh}, Strides{osb, ost, osh},
+      scale2);
+  LSX_CHECK_LAUNCH();
+  return 0;
+}
+
+// K6: o [B, H, T, 64] bf16 and l2 [B*H, T] f32 from q [B, H, T, 64] and
+// k, v [B, H, Tk, 64] bf16, each given by its (b, h, t) element strides
+// (head-dim stride 1, rows 16-byte aligned; the wrapper checks), so a
+// transpose(1, 2) view of [B, T, H, 64] tensors is read in place.
+extern "C" int lsx_flash_attention_bhtd_fwd(
+    const void* q, const void* k, const void* v, void* o, void* l2, int B,
+    int H, int T, int Tk, long long qsb, long long qsh, long long qst,
+    long long ksb, long long ksh, long long kst, long long vsb, long long vsh,
+    long long vst, long long osb, long long osh, long long ost, float scale2,
+    cudaStream_t stream) {
+  if (B == 0 || T == 0 || H == 0) return 0;
+  const dim3 grid((T + FA_BQ - 1) / FA_BQ, H, B);
+  flash_fwd_bthd<<<grid, FA_THREADS, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(l2), T, Tk, H, Strides{qsb, qst, qsh},
       Strides{ksb, kst, ksh}, Strides{vsb, vst, vsh}, Strides{osb, ost, osh},
       scale2);
   LSX_CHECK_LAUNCH();

@@ -17,7 +17,7 @@ head; here they stay separate). ``proj_out`` rows are in diffusers'
 
 Kernels: LayerNormZero runs K8 (``ops/ln_modulate``) and the joint
 attention K5 forward and K7 backward (``ops/flash_attention``) on CUDA
-tensors;
+tensors (K6 forward in a tensor-parallel shard, below);
 ``CogVideoXTransformer.set_use_kernels(False)`` runs their plain versions
 on any device (the reference the kernels are held against on the
 card). ``TransformerConfig.remat`` recomputes each block in the
@@ -25,6 +25,18 @@ backward (``torch.utils.checkpoint``), as the JAX ``nn.remat`` does for
 training: only the residual stream between blocks is kept, and K5 and K8
 run twice per block and step.
 Shapes: latents [B, F, C, H, W], text [B, L, text_dim], timestep [B].
+
+Tensor parallelism: built with ``tp`` (a ``parallel.mesh.Mesh``), the
+model is one rank's shard of the same network over the mesh's ``model``
+axis (``parallel.mesh.DIT_TP_PLAN``): ``to_q``/``to_k``/``to_v`` and
+``ff.net.0.proj`` are column-parallel (the rank's heads and MLP
+columns), ``attn1.to_out.0`` and ``ff.net.2`` row-parallel
+(:class:`RowParallelLinear`: one all-reduce of the partial products, the
+bias added once), and ``tp.copy_to_model`` before the column-parallel
+projections sums their input gradients over the axis in the backward.
+``norm_q``/``norm_k`` act on the local heads; everything else runs
+replicated on the full residual stream. Without ``tp`` the model is the
+unsharded network.
 """
 from __future__ import annotations
 
@@ -153,30 +165,66 @@ class LayerNormZero(nn.Module):
         return out, gate[:, None], t_gate[:, None]
 
 
+class RowParallelLinear(nn.Linear):
+    """One rank's rows of a linear whose input is split over the mesh's
+    ``model`` axis: y = Σ_model (x_local·W_localᵀ + Σ partial terms) + b,
+    with one all-reduce and the bias added once. ``partial_terms`` holds
+    callables x_local -> partial output (a LoRA adapter's (x_local·A_local)
+    ·B) summed by the same all-reduce."""
+
+    def __init__(self, in_local: int, out_features: int, tp):
+        super().__init__(in_local, out_features)
+        self.tp = tp
+        self.partial_terms = []
+
+    def forward(self, x):
+        y = F.linear(x, self.weight)
+        for term in self.partial_terms:
+            y = y + term(x)
+        return self.tp.reduce_from_model(y) + self.bias
+
+
+def _local(n: int, tp, what: str) -> int:
+    """n split over the ``model`` axis of ``tp`` (n itself without tp)."""
+    if tp is None:
+        return n
+    if n % tp.n_model:
+        raise ValueError(f"{what} {n} does not split over {tp.n_model} "
+                         f"model ranks")
+    return n // tp.n_model
+
+
 class JointAttention(nn.Module):
     """Joint attention over the [text; video] stream [B, T, hidden] in the
     [B, T, H, D] layout: separate q/k/v projections, qk-LayerNorm, the
-    fused RoPE, K5."""
+    fused RoPE, K5 (K6 under tensor parallelism, on the rank's heads)."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, tp=None):
         super().__init__()
         self.cfg = cfg
-        h = cfg.hidden
-        self.to_q = nn.Linear(h, h)
-        self.to_k = nn.Linear(h, h)
-        self.to_v = nn.Linear(h, h)
+        self.tp = tp
+        self.num_heads = _local(cfg.num_heads, tp, "num_heads")
+        h, hl = cfg.hidden, self.num_heads * cfg.head_dim
+        self.to_q = nn.Linear(h, hl)
+        self.to_k = nn.Linear(h, hl)
+        self.to_v = nn.Linear(h, hl)
         self.norm_q = nn.LayerNorm(cfg.head_dim, eps=1e-6)
         self.norm_k = nn.LayerNorm(cfg.head_dim, eps=1e-6)
-        self.to_out = nn.ModuleList([nn.Linear(h, h), nn.Identity()])
+        self.to_out = nn.ModuleList([
+            nn.Linear(h, h) if tp is None else RowParallelLinear(hl, h, tp),
+            nn.Identity()])
         self.use_kernels = True
 
     def qkv(self, x, rope):
-        """(q, k, v) [B, T, H, D] after qk-norm and RoPE."""
+        """(q, k, v) [B, T, H, D] after qk-norm and RoPE (H the rank's
+        heads under tensor parallelism)."""
         cfg = self.cfg
         B, T, _ = x.shape
+        if self.tp is not None:
+            x = self.tp.copy_to_model(x)
 
         def heads(lin):
-            return lin(x).view(B, T, cfg.num_heads, cfg.head_dim)
+            return lin(x).view(B, T, self.num_heads, cfg.head_dim)
 
         q = self.norm_q(heads(self.to_q))
         k = self.norm_k(heads(self.to_k))
@@ -192,8 +240,10 @@ class JointAttention(nn.Module):
         B, T, _ = x.shape
         q, k, v = self.qkv(x, rope)
         out = attention_bthd(q, k, v, dtype=cfg.attn_dtype,
-                             plain=not self.use_kernels)
-        return self.to_out[0](out.reshape(B, T, cfg.hidden))
+                             plain=not self.use_kernels,
+                             tensor_parallel=self.tp is not None)
+        return self.to_out[0](out.reshape(B, T,
+                                          self.num_heads * cfg.head_dim))
 
 
 class _GELUProj(nn.Module):
@@ -206,15 +256,21 @@ class _GELUProj(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """diffusers FeedForward(gelu-approximate): ``net.0.proj``, ``net.2``."""
+    """diffusers FeedForward(gelu-approximate): ``net.0.proj``, ``net.2``
+    (column- and row-parallel under tensor parallelism)."""
 
-    def __init__(self, hidden: int):
+    def __init__(self, hidden: int, tp=None):
         super().__init__()
-        self.net = nn.ModuleList([_GELUProj(hidden, 4 * hidden),
-                                  nn.Identity(),
-                                  nn.Linear(4 * hidden, hidden)])
+        self.tp = tp
+        inner = _local(4 * hidden, tp, "MLP width")
+        self.net = nn.ModuleList([
+            _GELUProj(hidden, inner), nn.Identity(),
+            nn.Linear(inner, hidden) if tp is None
+            else RowParallelLinear(inner, hidden, tp)])
 
     def forward(self, x):
+        if self.tp is not None:
+            x = self.tp.copy_to_model(x)
         return self.net[2](self.net[0](x))
 
 
@@ -222,12 +278,12 @@ class Block(nn.Module):
     """One DiT block on the joint [text; video] residual stream; the first
     ``text_len`` rows are text."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, tp=None):
         super().__init__()
         self.norm1 = LayerNormZero(cfg.time_embed_dim, cfg.hidden)
-        self.attn1 = JointAttention(cfg)
+        self.attn1 = JointAttention(cfg, tp)
         self.norm2 = LayerNormZero(cfg.time_embed_dim, cfg.hidden)
-        self.ff = FeedForward(cfg.hidden)
+        self.ff = FeedForward(cfg.hidden, tp)
 
     def forward(self, x, temb, rope, text_len: int):
         def gated(y, g, tg):
@@ -264,17 +320,19 @@ class _AdaLayerNorm(nn.Module):
 
 class CogVideoXTransformer(nn.Module):
     """The DiT, its parameters allocated on ``device`` (the GPU unless the
-    caller names another; ``"meta"`` allocates nothing)."""
+    caller names another; ``"meta"`` allocates nothing); with ``tp`` (a
+    ``parallel.mesh.Mesh``) one rank's tensor-parallel shard of it."""
 
     def __init__(self, cfg: TransformerConfig = TransformerConfig(),
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         with torch.device(resolve_device(device)):
             self.patch_embed = _PatchEmbed(cfg)
             self.time_embedding = _TimestepEmbedding(cfg)
             self.transformer_blocks = nn.ModuleList(
-                [Block(cfg) for _ in range(cfg.num_layers)])
+                [Block(cfg, tp) for _ in range(cfg.num_layers)])
             self.norm_final = nn.LayerNorm(cfg.hidden, eps=1e-5)
             self.norm_out = _AdaLayerNorm(cfg)
             self.proj_out = nn.Linear(

@@ -1,34 +1,45 @@
-"""Bounded-logit attention in the [B, T, H, D] layout — kernels K5
-(forward) and K7 (backward).
+"""Bounded-logit attention — kernels K5 and K6 (forward) and K7
+(backward) — and the attention dispatch of the DiT.
 
 Port of what the JAX ``langscenex_tpu/ops/flash_attention.py`` runs for
-the CogVideoX DiT on one device: ``attention_bthd`` → ``_flash_bthd``,
-whose forward is ``_flash_fwd_impl_bthd`` → ``_attn_kernel_nomax_t4``
-and whose backward rule ``_flash_bthd_bwd_rule`` → ``_flash_bwd_core``
-→ ``_bwd_fused_kernel_t`` (the fused branch).
+the CogVideoX DiT:
+
+* on one device, ``attention_bthd`` → ``_flash_bthd``, whose forward is
+  ``_flash_fwd_impl_bthd`` → ``_attn_kernel_nomax_t4`` (K5, [B, T, H, D])
+  and whose backward rule ``_flash_bthd_bwd_rule`` → ``_flash_bwd_core``
+  → ``_bwd_fused_kernel_t`` (K7, the fused branch);
+* for a tensor-parallel shard (``tensor_parallel=True``, the JAX
+  package's ``tensor_parallel`` context, which the shard's attention
+  passes itself), ``attention_bthd`` hands [B, H, T, D] views to
+  ``attention_auto``, which runs ``flash_attention(
+  bounded_logits=True)`` → ``_flash_fwd_impl_t`` →
+  ``_attn_kernel_nomax_t`` (K6, [B, H, T, D], key length Tk that may
+  differ from T) with K7 as its backward.
+
 The logits are bounded by the DiT's qk-LayerNorm, so there is no running
-max, and the rounding points are the TPU kernel's: q is multiplied by
+max, and the rounding points are the TPU kernels': q is multiplied by
 ``scale·log2(e)`` in the working dtype, s = q'·kᵀ in f32, p = exp2(s) is
 rounded to the working dtype before the PV product, the normalizer is the
-sum of those rounded p, then l = max(l, 1e-30), o = acc / l and
-l2 = log2(l) (kept for the backward, K7).
+sum of those rounded p over the valid keys, then l = max(l, 1e-30),
+o = acc / l and l2 = log2(l) (kept for the backward, K7).
 
 The backward recomputes p = exp2(s − l2) from the saved l2 with the TPU
 kernel's rounding points: ds = p·(dp − dvec) rounded to the working
 dtype, dvec = Σ_d do·o in f32, dv = Σ_q p̃·do with p̃ = p in the working
 dtype, dk = Σ_q ds·q' / log2(e), dq = scale·Σ_k ds·k.
 
-:func:`attention_bthd_kernel` launches K5 (``csrc/flash_attention.cu``)
-and :func:`attention_bthd_plain` is its plain version; both return
-``(o, l2)``. :func:`attention_bthd_backward_kernel` launches K7
-(``csrc/flash_attention_backward.cu``) and
-:func:`attention_bthd_backward_plain` is its plain version; both return
-``(dq, dk, dv)``. :func:`attention_bthd` is the model's entry point, an
-autograd function (:class:`FlashBTHDFn`) over K5 and K7 on CUDA tensors
-(it raises on a head dim or dtype they do not take) and over the plain
-versions on CPU tensors or when the caller asks for them. Only these are
-ported: ``attention_auto``, the sequence- and tensor-parallel contexts
-and the other attention kernels are not.
+Each kernel has a wrapper that launches it on CUDA tensors and raises on
+what it does not take, and a plain version that the wrappers never fall
+back to: :func:`attention_bthd_kernel` / :func:`attention_bthd_plain`
+(K5), :func:`flash_attention_kernel` / :func:`flash_attention_plain`
+(K6), :func:`attention_bthd_backward_kernel` /
+:func:`attention_bthd_backward_plain` and, on [B, H, T, D] views of the
+same kernel, :func:`flash_attention_backward_kernel` /
+:func:`flash_attention_backward_plain` (K7). :class:`FlashBTHDFn` and
+:class:`FlashFn` are the autograd functions of the two layouts: the
+kernels on CUDA tensors, the plain versions on CPU tensors or when the
+caller asks for them. The sequence-parallel ring, the online-softmax
+kernels (K9, K11) and the split backward kernels (K12) are not ported.
 """
 from __future__ import annotations
 
@@ -50,28 +61,44 @@ def _scale2(scale: float, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(scale * LOG2E, dtype=dtype)
 
 
-def attention_bthd_plain(q, k, v, scale: float,
-                         q_chunk: int = PLAIN_Q_CHUNK):
-    """(o [B,T,H,D], l2 [B·H, T] f32) in q's dtype with the kernel's
-    rounding points, one chunk of query rows at a time (so the full
-    [B, H, T, T] logits are never held)."""
-    B, T, H, D = q.shape
+def _bthd(t: torch.Tensor) -> torch.Tensor:
+    """The [B, T, H, D] view of a [B, H, T, D] tensor, and back."""
+    return t.transpose(1, 2)
+
+
+def flash_attention_plain(q, k, v, scale: float,
+                          q_chunk: int = PLAIN_Q_CHUNK):
+    """K6's plain version: q [B,H,T,D], k, v [B,H,Tk,D] -> (o [B,H,T,D]
+    in q's dtype, l2 [B·H, T] f32) with the kernel's rounding points, one
+    chunk of query rows at a time (so the full [B, H, T, Tk] logits are
+    never held)."""
+    B, H, T, D = q.shape
     dt = q.dtype
     s2 = _scale2(scale, dt).to(q.device)
-    kf = k.permute(0, 2, 3, 1).float()                 # [B,H,D,Tk]
-    vf = v.permute(0, 2, 1, 3).float()                 # [B,H,Tk,D]
+    kf = k.transpose(-1, -2).float()                   # [B,H,D,Tk]
+    vf = v.float()                                     # [B,H,Tk,D]
     outs, l2s = [], []
     for lo in range(0, T, q_chunk):
-        qc = (q[:, lo:lo + q_chunk] * s2).permute(0, 2, 1, 3).float()
+        qc = (q[:, :, lo:lo + q_chunk] * s2).float()
         p = torch.exp2(torch.matmul(qc, kf)).to(dt).float()   # [B,H,c,Tk]
         l = p.sum(-1).clamp(min=1e-30)                       # [B,H,c]
         acc = torch.matmul(p, vf)                            # [B,H,c,D]
         del p
-        outs.append((acc / l[..., None]).to(dt).permute(0, 2, 1, 3))
+        outs.append((acc / l[..., None]).to(dt))
         l2s.append(torch.log2(l))
-    o = torch.cat(outs, dim=1)
+    o = torch.cat(outs, dim=2)
     l2 = torch.cat(l2s, dim=2).reshape(B * H, T)
     return o, l2
+
+
+def attention_bthd_plain(q, k, v, scale: float,
+                         q_chunk: int = PLAIN_Q_CHUNK):
+    """K5's plain version: (o [B,T,H,D], l2 [B·H, T] f32) in q's dtype
+    from q, k, v [B,T,H,D]; :func:`flash_attention_plain` on the
+    [B, H, T, D] views."""
+    o, l2 = flash_attention_plain(_bthd(q), _bthd(k), _bthd(v), scale,
+                                  q_chunk)
+    return _bthd(o), l2
 
 
 def _check(q, k, v) -> None:
@@ -79,16 +106,29 @@ def _check(q, k, v) -> None:
         raise ValueError(f"attention_bthd wants q, k, v [B,T,H,D] of one "
                          f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
+    _check_devices(q, k, v)
+
+
+def _check_bhtd(q, k, v) -> None:
+    B, H, _, D = q.shape if q.dim() == 4 else (None,) * 4
+    if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
+            or (k.shape[0], k.shape[1], k.shape[3]) != (B, H, D)):
+        raise ValueError(f"flash_attention wants q [B,H,T,D] and k, v "
+                         f"[B,H,Tk,D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    _check_devices(q, k, v)
+
+
+def _check_devices(q, k, v) -> None:
     devs = {q.device, k.device, v.device}
     if len(devs) != 1:
-        raise ValueError(f"attention_bthd: operands on several devices "
-                         f"{devs}")
+        raise ValueError(f"attention: operands on several devices {devs}")
     if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"attention_bthd: unsupported device {q.device}")
+        raise ValueError(f"attention: unsupported device {q.device}")
 
 
 def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
-    """t itself when K5 can read it through its strides (head dim
+    """t itself when K5/K6/K7 can read it through its strides (head dim
     contiguous, 16-byte aligned rows), else a contiguous copy."""
     if (t.stride(3) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
             and t.data_ptr() % 16 == 0):
@@ -96,21 +136,30 @@ def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
+def _kernel_checks(what: str, tensors, head_dim: int) -> None:
+    if head_dim != KERNEL_HEAD_DIM:
+        raise ValueError(f"attention kernel {what} takes head_dim "
+                         f"{KERNEL_HEAD_DIM}, got {head_dim}")
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise TypeError(f"attention kernel {what} takes bf16, got "
+                        f"{[str(t.dtype) for t in tensors]}")
+
+
+def _device_check(what: str, tensors) -> None:
+    if any(t.device.type != "cuda" or t.device != tensors[0].device
+           for t in tensors):
+        raise ValueError(f"attention kernel {what} takes CUDA tensors on "
+                         f"one device, got {tensors[0].device}")
+
+
 def attention_bthd_kernel(q, k, v, scale: float):
     """Launch K5: q, k, v [B,T,H,64] bf16 on one CUDA device ->
     (o [B,T,H,64] bf16, l2 [B·H, T] f32)."""
     _check(q, k, v)
     B, T, H, D = q.shape
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"attention kernel K5 takes head_dim "
-                         f"{KERNEL_HEAD_DIM}, got {D}")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError(f"attention kernel K5 takes bf16, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
-    if q.device.type != "cuda":
-        raise ValueError(f"attention kernel K5 takes CUDA tensors, got "
-                         f"{q.device}")
-    q, k, v =(_kernel_operand(t) for t in (q, k, v))
+    _kernel_checks("K5", (q, k, v), D)
+    _device_check("K5", (q, k, v))
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     l2 = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
@@ -125,26 +174,49 @@ def attention_bthd_kernel(q, k, v, scale: float):
     return o, l2
 
 
-def attention_bthd_backward_plain(q, k, v, o, l2, do, scale: float,
-                                  q_chunk: int = PLAIN_Q_CHUNK):
-    """(dq, dk, dv) [B,T,H,D] in q's dtype from the forward's q, k, v, o,
-    l2 [B·H, T] f32 and the output gradient do, with K7's rounding points,
-    one chunk of query rows at a time (so no [B, H, T, T] array is
-    held)."""
-    B, T, H, D = q.shape
+def flash_attention_kernel(q, k, v, scale: float):
+    """Launch K6: q [B,H,T,64] and k, v [B,H,Tk,64] bf16 on one CUDA device
+    (any strides with the head dim contiguous; a ``transpose(1, 2)`` view
+    of [B,T,H,64] tensors is read in place) -> (o [B,H,T,64] bf16, laid
+    out as a [B,T,H,64] tensor so that its [B,T,H·64] reshape is free,
+    l2 [B·H, T] f32)."""
+    _check_bhtd(q, k, v)
+    B, H, T, D = q.shape
+    Tk = k.shape[2]
+    _kernel_checks("K6", (q, k, v), D)
+    _device_check("K6", (q, k, v))
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
+    o = _bthd(torch.empty((B, T, H, D), dtype=q.dtype, device=q.device))
+    l2 = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
+    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    code = _build.library().lsx_flash_attention_bhtd_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        l2.data_ptr(), B, H, T, Tk, *strides,
+        float(_scale2(scale, torch.bfloat16)), _build.stream_ptr(q.device))
+    _build.launch_counts["flash_attention_bhtd"] += 1
+    _build.check(code, "flash_attention_bhtd")
+    return o, l2
+
+
+def flash_attention_backward_plain(q, k, v, o, l2, do, scale: float,
+                                   q_chunk: int = PLAIN_Q_CHUNK):
+    """K7's plain version in [B, H, T, D]: (dq, dk, dv) in q's dtype from
+    the forward's q [B,H,T,D], k, v [B,H,Tk,D], o, l2 [B·H, T] f32 and the
+    output gradient do, one chunk of query rows at a time (so no
+    [B, H, T, Tk] array is held)."""
+    B, H, T, D = q.shape
     dt = q.dtype
     s2 = _scale2(scale, dt).to(q.device)
-    kf = k.permute(0, 2, 1, 3).float()                 # [B,H,Tk,D]
-    vf = v.permute(0, 2, 1, 3).float()
-    dvec = (do.float() * o.float()).sum(-1).permute(0, 2, 1)   # [B,H,T]
+    kf, vf = k.float(), v.float()                       # [B,H,Tk,D]
+    dvec = (do.float() * o.float()).sum(-1)             # [B,H,T]
     l2 = l2.reshape(B, H, T)
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
     dqs = []
     for lo in range(0, T, q_chunk):
         hi = min(lo + q_chunk, T)
-        qc = (q[:, lo:hi] * s2).permute(0, 2, 1, 3).float()   # [B,H,c,D]
-        doc = do[:, lo:hi].permute(0, 2, 1, 3).float()
+        qc = (q[:, :, lo:hi] * s2).float()                     # [B,H,c,D]
+        doc = do[:, :, lo:hi].float()
         p = torch.exp2(torch.matmul(qc, kf.transpose(-1, -2))
                        - l2[..., lo:hi, None])                 # [B,H,c,Tk]
         dp = torch.matmul(doc, vf.transpose(-1, -2))
@@ -154,36 +226,37 @@ def attention_bthd_backward_plain(q, k, v, o, l2, do, scale: float,
         del p
         dk += torch.matmul(ds.transpose(-1, -2), qc)
         dqs.append((torch.matmul(ds, kf) * scale).to(dt))
-    dq = torch.cat(dqs, dim=2).permute(0, 2, 1, 3)
-    dk = (dk * (1.0 / LOG2E)).to(dt).permute(0, 2, 1, 3)
-    return dq, dk, dv.to(dt).permute(0, 2, 1, 3)
+    dq = torch.cat(dqs, dim=2)
+    return dq, (dk * (1.0 / LOG2E)).to(dt), dv.to(dt)
+
+
+def attention_bthd_backward_plain(q, k, v, o, l2, do, scale: float,
+                                  q_chunk: int = PLAIN_Q_CHUNK):
+    """(dq, dk, dv) [B,T,H,D] in q's dtype from the forward's q, k, v, o,
+    l2 [B·H, T] f32 and the output gradient do, with K7's rounding points:
+    :func:`flash_attention_backward_plain` on the [B, H, T, D] views."""
+    grads = flash_attention_backward_plain(
+        *(_bthd(t) for t in (q, k, v, o)), l2, _bthd(do), scale, q_chunk)
+    return tuple(_bthd(g) for g in grads)
 
 
 def attention_bthd_backward_kernel(q, k, v, o, l2, do, scale: float):
     """Launch K7: q, k, v, o and do [B,T,H,64] bf16 and l2 [B·H, T] f32
-    (from K5) on one CUDA device -> (dq, dk, dv) [B,T,H,64] bf16. dq is
-    summed with f32 atomics into a zeroed scratch that is then cast."""
+    (from K5 or K6) on one CUDA device -> (dq, dk, dv) [B,T,H,64] bf16. dq
+    is summed with f32 atomics into a zeroed scratch that is then cast."""
     _check(q, k, v)
     B, T, H, D = q.shape
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"attention kernel K7 takes head_dim "
-                         f"{KERNEL_HEAD_DIM}, got {D}")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v, o, do)):
-        raise TypeError(f"attention kernel K7 takes bf16, got "
-                        f"{[str(t.dtype) for t in (q, k, v, o, do)]}")
+    _kernel_checks("K7", (q, k, v, o, do), D)
     if l2 is None or l2.dtype != torch.float32 or l2.shape != (B * H, T):
         raise ValueError(f"attention kernel K7 needs the forward's l2 "
                          f"[{B * H}, {T}] f32, got "
                          f"{None if l2 is None else (tuple(l2.shape), l2.dtype)}")
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError("attention kernel K7 wants o and do of q's shape")
-    if any(t.device != q.device for t in (o, l2, do)) or (
-            q.device.type != "cuda"):
-        raise ValueError(f"attention kernel K7 takes CUDA tensors on one "
-                         f"device, got {q.device}")
+    _device_check("K7", (q, k, v, o, l2, do))
     # q' = bf16(q · bf16(scale·log2 e)) and dvec = Σ_d do·o in f32, as the
     # JAX package forms them in XLA around its kernel
-    qs = q * _scale2(scale, q.dtype).to(q.device)
+    qs = _kernel_operand(q * _scale2(scale, q.dtype).to(q.device))
     dvec = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
     k, v, do = (_kernel_operand(t) for t in (k, v, do))
     l2 = l2.contiguous()
@@ -201,40 +274,125 @@ def attention_bthd_backward_kernel(q, k, v, o, l2, do, scale: float):
     return dq.to(q.dtype), dk, dv
 
 
-class FlashBTHDFn(torch.autograd.Function):
-    """Attention with K5 forward and K7 backward on CUDA tensors, the
-    plain versions on CPU tensors or with ``plain=True``. Saves q, k, v,
-    o and l2 for the backward, as the JAX custom_vjp does."""
+def flash_attention_backward_kernel(q, k, v, o, l2, do, scale: float):
+    """K7 on [B, H, T, D] operands (K6's backward): the kernel reads their
+    [B, T, H, D] views in place and its outputs come back as [B, H, T, D]
+    views. It takes Tk == T only."""
+    if k.shape[2] != q.shape[2]:
+        raise ValueError(f"attention kernel K7 takes a key length equal to "
+                         f"the query length, got T={q.shape[2]}, "
+                         f"Tk={k.shape[2]}")
+    grads = attention_bthd_backward_kernel(
+        *(_bthd(t) for t in (q, k, v, o)), l2, _bthd(do), scale)
+    return tuple(_bthd(g) for g in grads)
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale: float, plain: bool):
-        use_plain = plain or q.device.type == "cpu"
-        fwd = attention_bthd_plain if use_plain else attention_bthd_kernel
-        o, l2 = fwd(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, o, l2)
-        ctx.scale, ctx.use_plain = scale, use_plain
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, l2 = ctx.saved_tensors
-        bwd = (attention_bthd_backward_plain if ctx.use_plain
-               else attention_bthd_backward_kernel)
-        dq, dk, dv = bwd(q, k, v, o, l2, do, ctx.scale)
-        return dq, dk, dv, None, None
+def _attention_fn(name: str, fwd_kernel, fwd_plain, bwd_kernel, bwd_plain):
+    """An autograd function over one layout's forward and backward: the
+    kernels on CUDA tensors, the plain versions on CPU tensors or with
+    ``plain=True``. Saves q, k, v, o and l2 for the backward, as the JAX
+    custom_vjp does. ``apply(q, k, v, scale, plain)``."""
+
+    class Fn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, scale: float, plain: bool):
+            use_plain = plain or q.device.type == "cpu"
+            o, l2 = (fwd_plain if use_plain else fwd_kernel)(q, k, v, scale)
+            ctx.save_for_backward(q, k, v, o, l2)
+            ctx.scale, ctx.use_plain = scale, use_plain
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, l2 = ctx.saved_tensors
+            bwd = bwd_plain if ctx.use_plain else bwd_kernel
+            dq, dk, dv = bwd(q, k, v, o, l2, do, ctx.scale)
+            return dq, dk, dv, None, None
+
+    Fn.__name__ = Fn.__qualname__ = name
+    return Fn
+
+
+FlashBTHDFn = _attention_fn("FlashBTHDFn", attention_bthd_kernel,
+                            attention_bthd_plain,
+                            attention_bthd_backward_kernel,
+                            attention_bthd_backward_plain)
+FlashFn = _attention_fn("FlashFn", flash_attention_kernel,
+                        flash_attention_plain,
+                        flash_attention_backward_kernel,
+                        flash_attention_backward_plain)
+
+
+def flash_attention(q, k, v, scale: Optional[float] = None,
+                    bounded_logits: bool = False):
+    """[B,H,T,D] q and [B,H,Tk,D] k, v -> [B,H,T,D], non-causal, in q's
+    dtype: K6 forward and K7 backward on CUDA tensors (they raise on a
+    head dim or dtype they do not take, and K7 on Tk != T), the plain
+    versions on CPU tensors. Only the bounded-logit form is ported:
+    ``bounded_logits=False`` (the online-softmax kernel K9) raises."""
+    if not bounded_logits:
+        raise NotImplementedError(
+            "flash_attention(bounded_logits=False) is the online-softmax "
+            "kernel K9 (langscenex_tpu/ops/flash_attention.py:32 "
+            "_attn_kernel), still to be ported")
+    _check_bhtd(q, k, v)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return FlashFn.apply(q, k, v, float(scale), False)
+
+
+def attention_auto(q, k, v, scale: Optional[float] = None,
+                   dtype: torch.dtype = torch.bfloat16,
+                   flash_threshold: int = 2048,
+                   bounded_logits: bool = False):
+    """[B,H,T,D] attention dispatch, the JAX package's: on CUDA tensors
+    with T >= ``flash_threshold``, :func:`flash_attention` (K6 forward,
+    K7 backward) for bounded logits — the unbounded kernel K9 is not
+    ported and raises; below the threshold or on the CPU, the einsum
+    softmax (logits in f32 from ``dtype`` operands, p in ``dtype``). The
+    output has q's dtype."""
+    T = q.shape[2]
+    out_dtype = q.dtype
+    if q.device.type == "cuda" and T >= flash_threshold:
+        if not bounded_logits:
+            raise NotImplementedError(
+                "attention_auto on the card with bounded_logits=False needs "
+                "the online-softmax kernel K9 (langscenex_tpu/ops/"
+                "flash_attention.py:32 _attn_kernel), still to be ported")
+        return flash_attention(q.to(dtype), k.to(dtype), v.to(dtype), scale,
+                               bounded_logits=True).to(out_dtype)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(dtype).float(),
+                          k.to(dtype).float())
+    p = torch.softmax(logits * scale, dim=-1).to(dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p.float(),
+                        v.to(dtype).float()).to(out_dtype)
 
 
 def attention_bthd(q, k, v, scale: Optional[float] = None,
-                   dtype: torch.dtype = torch.bfloat16, plain: bool = False):
+                   dtype: torch.dtype = torch.bfloat16, plain: bool = False,
+                   tensor_parallel: bool = False):
     """[B, T, H, D] non-causal attention for bounded logits. q, k, v are
     cast to ``dtype``; the output has q's dtype, and its gradient reaches
     the backward in ``dtype``. K5 forward and K7 backward on CUDA tensors
     (they raise on a head dim or dtype they do not take, with no
     fallback), the plain versions on CPU tensors or when the caller asks
-    for them with ``plain=True`` (the DiT's plain path)."""
+    for them with ``plain=True`` (the DiT's plain path). With
+    ``tensor_parallel=True`` (a tensor-parallel shard's attention over its
+    own heads; JAX's ``tensor_parallel`` context) it follows the JAX
+    package instead: the [B, H, T, D] views go to :func:`attention_auto`
+    (or, with ``plain=True``, to K6's plain version), without a copy."""
     _check(q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     out_dtype = q.dtype
+    if tensor_parallel:
+        qh, kh, vh = _bthd(q), _bthd(k), _bthd(v)
+        if plain:
+            o = FlashFn.apply(qh.to(dtype), kh.to(dtype), vh.to(dtype),
+                              float(scale), True)
+        else:
+            o = attention_auto(qh, kh, vh, scale, dtype,
+                               bounded_logits=True)
+        return _bthd(o).to(out_dtype)
     qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
     o = FlashBTHDFn.apply(qd, kd, vd, float(scale), bool(plain))
     return o.to(out_dtype)

@@ -21,8 +21,18 @@ The state is ``{"params": {name: parameter}, "opt": {"count", "mu",
 "nu"}, "step": int}`` plus ``"ema"`` when enabled; its params are the
 model's own parameters. The step draws t and the noise from a
 ``torch.Generator`` (the JAX step from its key) unless they are given.
-``make_parallel_dit_train_step`` (data parallel) waits for the
-multi-device slice (ROADMAP F1).
+
+Parallel steps over a ``parallel.mesh`` (one process per rank):
+``make_dit_train_step`` of a tensor-parallel shard (``parallel.mesh.
+sharded_dit``) sums the partial gradients of ``norm_q``/``norm_k`` over
+``model`` and clips by the norm of the whole model (the sharded leaves'
+squares summed over ``model``, the replicated ones counted once), so
+each rank's update is its part of the unsharded step's.
+``make_parallel_dit_train_step`` adds data parallelism: every rank draws
+t and the noise for the global batch from one generator, takes its rows
+on ``data`` and averages the gradients over ``data`` — the global-batch
+step, as ``jax.random`` over the global batch makes the JAX package's
+sharded step equal its single-device one.
 """
 from __future__ import annotations
 
@@ -33,6 +43,9 @@ import numpy as np
 import torch
 
 from ..models.cogvideox.scheduler import SchedulerConfig, _alphas_cumprod
+from ..parallel.mesh import (Mesh, param_kind, reduce_gradients_,
+                             reduce_mean_, shard_batch_tree,
+                             sharded_global_norm)
 
 _F = np.float32
 
@@ -76,12 +89,15 @@ class AdamW:
                 "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
 
     @torch.no_grad()
-    def update_(self, grads: dict, state: dict, params: dict) -> torch.Tensor:
+    def update_(self, grads: dict, state: dict, params: dict,
+                gnorm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One step in place on ``params`` and ``state``; returns the raw
-        global norm of ``grads`` (which it may scale in place)."""
+        global norm of ``grads`` (which it may scale in place), or clips by
+        ``gnorm`` when given (a sharded model's whole-model norm)."""
         cfg = self.cfg
         b1, b2 = cfg.betas
-        gnorm = global_norm(grads)
+        if gnorm is None:
+            gnorm = global_norm(grads)
         if not bool(gnorm < cfg.max_grad_norm):
             for g in grads.values():
                 g.div_(gnorm).mul_(cfg.max_grad_norm)
@@ -162,8 +178,21 @@ def _bind(model, params: dict) -> dict:
     return own
 
 
+def finish_gradients(grads: dict, kinds: Optional[dict], model,
+                     dp: Optional[Mesh]) -> Optional[torch.Tensor]:
+    """The parallel steps' gradient reductions, in place: partial
+    gradients summed over the sharded ``model``'s ``model`` axis, then all
+    of them averaged over ``dp``'s ``data`` axis. Returns the whole
+    model's global norm for a sharded model, else None (the optimizer
+    then takes the plain one)."""
+    tp = getattr(model, "tp", None)
+    reduce_gradients_(grads, kinds, tp, dp)
+    return sharded_global_norm(grads, kinds, tp) if tp is not None else None
+
+
 def make_dit_train_step(model, cfg: DiTTrainConfig = DiTTrainConfig()):
-    """Returns (init_state, step) for a full fine-tune of ``model``.
+    """Returns (init_state, step) for a full fine-tune of ``model`` (the
+    DiT, or one rank's tensor-parallel shard of it).
 
     ``init_state(params=None)`` loads ``params`` ({name: tensor}) into the
     model when given, and starts the optimizer (and EMA) from the model's
@@ -173,6 +202,24 @@ def make_dit_train_step(model, cfg: DiTTrainConfig = DiTTrainConfig()):
       cond  [B,F,C,H,W]  conditioning latents (first/last-frame pad)
       text  [B,L,text_dim]
     and metrics are ``loss`` and ``grad_norm`` (of the raw gradients)."""
+    return _train_step(model, cfg, None)
+
+
+def make_parallel_dit_train_step(model, mesh: Mesh,
+                                 cfg: DiTTrainConfig = DiTTrainConfig()):
+    """:func:`make_dit_train_step` over ``mesh``'s ``data`` axis (and, for a
+    sharded ``model``, tensor-parallel over its ``model`` axis): ``step``
+    takes the global batch, draws t and the noise for it from
+    ``generator`` (the same on every rank), runs this rank's rows and
+    averages the gradients and the loss over ``data``."""
+    tp = getattr(model, "tp", None)
+    if tp is not None and tp is not mesh:
+        raise ValueError("make_parallel_dit_train_step: the model is "
+                         "another mesh's shard")
+    return _train_step(model, cfg, mesh)
+
+
+def _train_step(model, cfg: DiTTrainConfig, mesh: Optional[Mesh]):
     opt = make_optimizer(cfg)
     model.requires_grad_(True)
     tables = _sched_tables(cfg, next(model.parameters()).device)
@@ -193,11 +240,16 @@ def make_dit_train_step(model, cfg: DiTTrainConfig = DiTTrainConfig()):
         if t is None or noise is None:
             t, noise = draw_t_noise(batch["x0"],
                                     cfg.sched.num_train_timesteps, generator)
+        if mesh is not None:
+            batch, t, noise = shard_batch_tree((batch, t, noise), mesh)
         loss = diffusion_loss(model, batch, t, noise, tables,
                               cfg.min_snr_gamma)
         grads = dict(zip(params, torch.autograd.grad(
             loss, list(params.values()))))
-        gnorm = opt.update_(grads, state["opt"], params)
+        loss = reduce_mean_(loss, mesh)
+        kinds = {k: param_kind(k) for k in grads}
+        gnorm = opt.update_(grads, state["opt"], params,
+                            finish_gradients(grads, kinds, model, mesh))
         del grads
         if cfg.ema_decay is not None:
             d = cfg.ema_decay

@@ -16,6 +16,17 @@ columns are q, k, v in the port's order (``convert.lora_from_numpy``
 applies to B the de-interleave that ``cogvideox_dit_from_numpy`` applies
 to the fused kernel). The adapter count and parameter count match the
 JAX default (33,030,144 at full scale: 42 blocks × 786,432).
+
+Tensor parallelism (a shard from ``parallel.mesh.sharded_dit``, the
+adapters cut by ``convert.shard_lora``): at the column-parallel sites
+(``to_qkv``, ``ff.net.0.proj``) A is whole and B holds the rank's
+columns (for ``to_qkv`` the rank's heads of q, k and v); at the
+row-parallel sites (``to_out.0``, ``ff.net.2``) A holds the rank's rows
+and B is whole, and the partial delta (x_local·A_local)·B joins the
+layer's own all-reduce. The whole factors get partial gradients, summed
+over ``model`` by the step, and the global-norm clip counts the split
+factors' squares over ``model`` and the whole ones once
+(``parallel.mesh.lora_kind``).
 """
 from __future__ import annotations
 
@@ -27,9 +38,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from ..models.cogvideox.transformer import JointAttention
+from ..models.cogvideox.transformer import JointAttention, RowParallelLinear
+from ..parallel.mesh import (Mesh, lora_kind, lora_split_dim,
+                             reduce_mean_, shard_batch_tree,
+                             shard_lora_tensor)
 from .dit import (DiTTrainConfig, _sched_tables, diffusion_loss,
-                  draw_t_noise, make_optimizer)
+                  draw_t_noise, finish_gradients, make_optimizer)
 
 QKV = "to_qkv"      # the fused q/k/v site under each JointAttention
 
@@ -65,14 +79,19 @@ def init_lora(model: nn.Module, cfg: LoRAConfig,
               generator: Optional[torch.Generator] = None) -> Dict:
     """Adapters for every matched site: ``a`` random (normal ×
     init_scale), ``b`` zero, so the adapted model starts exactly at the
-    base. f32, on the model's device."""
+    base. f32, on the model's device. For a tensor-parallel shard each A
+    is drawn at the unsharded model's shape and cut to the rank's part, so
+    the shards together are the unsharded model's adapters."""
     dev = next(model.parameters()).device
+    tp = getattr(model, "tp", None)
+    n, rank = (tp.n_model, tp.model_rank) if tp is not None else (1, 0)
     lora = {}
     for site, (kin, kout) in _sites(model, cfg).items():
-        lora[site] = {
-            "a": torch.randn((kin, cfg.rank), generator=generator,
-                             device=dev) * cfg.init_scale,
-            "b": torch.zeros((cfg.rank, kout), device=dev)}
+        full_in = kin * n if lora_split_dim(site, "a") is not None else kin
+        a = torch.randn((full_in, cfg.rank), generator=generator,
+                        device=dev) * cfg.init_scale
+        lora[site] = {"a": shard_lora_tensor(site, "a", a, rank, n),
+                      "b": torch.zeros((cfg.rank, kout), device=dev)}
     return lora
 
 
@@ -91,10 +110,12 @@ def adapted(model: nn.Module, lora: Dict, cfg: LoRAConfig):
     """While active, every adapted linear of ``model`` adds its adapter's
     delta to its output (forward hooks; they fire again when a remat
     block is recomputed). The fused q/k/v delta is computed once per
-    attention call, before its projections, and split among them."""
+    attention call from the input of ``to_q`` and split among the three
+    projections. A row-parallel linear of a tensor-parallel shard takes
+    its partial delta into its own all-reduce."""
     scale = cfg.alpha / cfg.rank
     modules = dict(model.named_modules())
-    handles = []
+    handles, terms = [], []
 
     def add(ab):
         return lambda mod, args, y: y + _delta(args[0], ab, scale)
@@ -107,20 +128,27 @@ def adapted(model: nn.Module, lora: Dict, cfg: LoRAConfig):
 
         def take(mod, args, y):
             return y + parts["qkv"].pop(0)
-        return [attn.register_forward_pre_hook(pre)] + [
+        return [attn.to_q.register_forward_pre_hook(pre)] + [
             getattr(attn, n).register_forward_hook(take)
             for n in ("to_q", "to_k", "to_v")]
 
     try:
         for site, ab in lora.items():
+            mod = modules.get(site)
             if site.endswith("." + QKV):
                 handles += qkv_hooks(modules[site[:-len(QKV) - 1]], ab)
+            elif isinstance(mod, RowParallelLinear):
+                term = (lambda ab_: lambda x: _delta(x, ab_, scale))(ab)
+                mod.partial_terms.append(term)
+                terms.append((mod, term))
             else:
-                handles.append(modules[site].register_forward_hook(add(ab)))
+                handles.append(mod.register_forward_hook(add(ab)))
         yield model
     finally:
         for h in handles:
             h.remove()
+        for mod, term in terms:
+            mod.partial_terms.remove(term)
 
 
 def lora_apply(model: nn.Module, lora: Dict, cfg: LoRAConfig, *args,
@@ -165,6 +193,11 @@ def _flat(lora: Dict) -> Dict[str, torch.Tensor]:
             for k, t in ab.items()}
 
 
+def _kinds(grads: Dict) -> Dict[str, str]:
+    return {f"{site}/{k}": lora_kind(site, k)
+            for site, ab in grads.items() for k in ab}
+
+
 def lora_loss_and_grads(model, lora: Dict, lora_cfg: LoRAConfig,
                         batch: Dict, t: torch.Tensor, noise: torch.Tensor,
                         tables) -> Tuple[torch.Tensor, Dict]:
@@ -184,14 +217,18 @@ def lora_loss_and_grads(model, lora: Dict, lora_cfg: LoRAConfig,
 
 
 def make_lora_train_step(model, cfg: DiTTrainConfig,
-                         lora_cfg: LoRAConfig = LoRAConfig()):
+                         lora_cfg: LoRAConfig = LoRAConfig(),
+                         mesh: Optional[Mesh] = None):
     """LoRA variant of ``train.dit.make_dit_train_step``: the same batch
     contract and diffusion loss (without the min-SNR weight), with the
     optimizer state and gradients over the adapters only; ``model``'s own
-    weights are the frozen base. Returns (init_state, step):
+    weights are the frozen base (the DiT, or one rank's tensor-parallel
+    shard of it). Returns (init_state, step):
     ``init_state(generator=None)`` -> ``{"lora", "opt", "step"}`` and
     ``step(state, batch, generator=None, t=None, noise=None)`` -> (state,
-    {"loss", "grad_norm"}), updating ``state`` in place."""
+    {"loss", "grad_norm"}), updating ``state`` in place. With ``mesh`` the
+    batch, t and noise are global: each rank takes its rows on ``data``
+    and the gradients and the loss are averaged over ``data``."""
     opt = make_optimizer(cfg)
     model.requires_grad_(False)
     tables = _sched_tables(cfg, next(model.parameters()).device)
@@ -207,9 +244,15 @@ def make_lora_train_step(model, cfg: DiTTrainConfig,
         if t is None or noise is None:
             t, noise = draw_t_noise(batch["x0"],
                                     cfg.sched.num_train_timesteps, generator)
+        if mesh is not None:
+            batch, t, noise = shard_batch_tree((batch, t, noise), mesh)
         loss, grads = lora_loss_and_grads(model, state["lora"], lora_cfg,
                                           batch, t, noise, tables)
-        gnorm = opt.update_(_flat(grads), state["opt"], _flat(state["lora"]))
+        flat = _flat(grads)
+        gnorm = opt.update_(flat, state["opt"], _flat(state["lora"]),
+                            finish_gradients(flat, _kinds(grads), model,
+                                             mesh))
+        loss = reduce_mean_(loss, mesh)
         state["step"] += 1
         return state, {"loss": loss, "grad_norm": gnorm}
 

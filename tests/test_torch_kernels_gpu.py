@@ -310,6 +310,81 @@ def test_flash_attention_refuses_and_backward_is_finite(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,Tk,view", [(1, 4, 300, 300, False),
+                                           (2, 3, 130, 200, True),
+                                           (1, 2, 384, 640, False),
+                                           (2, 2, 200, 70, True),
+                                           (1, 1, 1, 1, False)])
+def test_flash_attention_bhtd_kernel_matches_plain(cuda, B, H, T, Tk, view):
+    # K6 against its plain version in [B, H, T, D], with Tk != T and
+    # lengths that are not multiples of 64, on contiguous tensors and on
+    # transpose(1, 2) views of [B, T, H, D] ones. Bounds as K5's: o within
+    # 2^-7 relative + 1e-3, l2 within 1e-4
+    from langscenex_tpu_torch.ops.flash_attention import (
+        flash_attention_kernel, flash_attention_plain)
+    rng = np.random.default_rng(24)
+
+    def mk(n):
+        shape = (B, n, H, 64) if view else (B, H, n, 64)
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            cuda, torch.bfloat16)
+        return x.transpose(1, 2) if view else x
+    q, k, v = mk(T), mk(Tk), mk(Tk)
+    _build.reset_launch_counts()
+    o, l2 = flash_attention_kernel(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert _build.launch_counts == {**{n: 0 for n in _build.launch_counts},
+                                    "flash_attention_bhtd": 1}
+    ro, rl2 = flash_attention_plain(q, k, v, 0.125)
+    assert o.shape == (B, H, T, 64) and l2.shape == (B * H, T)
+    assert bool(torch.isfinite(o.float()).all())
+    torch.testing.assert_close(o.float(), ro.float(), atol=1e-3,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(l2, rl2, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_flash_attention_bhtd_matches_k5_and_dispatch(cuda):
+    # K6 and K5 share their device code: on the same tensors (K6 on the
+    # [B, H, T, D] views) o and l2 are bit-identical. flash_attention's
+    # autograd runs K6 and K7 (on [B, H, T, D] views) and refuses Tk != T
+    # in the backward; attention_auto takes K6 from the threshold on and
+    # raises for unbounded logits, which need the unported K9
+    from langscenex_tpu_torch.ops.flash_attention import (
+        attention_auto, attention_bthd_kernel, flash_attention,
+        flash_attention_kernel)
+    q, k, v = _qkv(np.random.default_rng(25), 2, 200, 3, cuda, "qkv")
+    o5, l5 = attention_bthd_kernel(q, k, v, 0.125)
+    o6, l6 = flash_attention_kernel(*(t.transpose(1, 2) for t in (q, k, v)),
+                                    0.125)
+    assert torch.equal(o6.transpose(1, 2), o5) and torch.equal(l6, l5)
+    leaves = [t.transpose(1, 2).clone().requires_grad_() for t in (q, k, v)]
+    _build.reset_launch_counts()
+    flash_attention(*leaves, bounded_logits=True).float().sum().backward()
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attention_bhtd"] == 1
+    assert _build.launch_counts["flash_attention_backward"] == 1
+    assert _build.launch_counts["flash_attention"] == 0
+    for t in leaves:
+        assert bool(torch.isfinite(t.grad.float()).all())
+    kv = [t.transpose(1, 2)[:, :, :100].detach().requires_grad_()
+          for t in (k, v)]
+    out = flash_attention(leaves[0], *kv, bounded_logits=True)
+    with pytest.raises(ValueError, match="key length"):
+        out.float().sum().backward()
+    qh = q.transpose(1, 2)
+    _build.reset_launch_counts()
+    attention_auto(qh, qh, qh, bounded_logits=True, flash_threshold=128)
+    assert _build.launch_counts["flash_attention_bhtd"] == 1
+    attention_auto(qh, qh, qh, bounded_logits=True, flash_threshold=256)
+    assert _build.launch_counts["flash_attention_bhtd"] == 1
+    with pytest.raises(NotImplementedError, match="K9"):
+        attention_auto(qh, qh, qh, bounded_logits=False, flash_threshold=128)
+    with pytest.raises(NotImplementedError, match="K9"):
+        flash_attention(qh, qh, qh)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("H,dtype", [(256, torch.bfloat16),
                                      (3072, torch.bfloat16),
                                      (3072, torch.float32),

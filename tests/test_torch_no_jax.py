@@ -39,3 +39,19 @@ def test_port_sources_do_not_name_jax():
     assert len(files) > 15
     bad = [str(f) for f in files if pat.search(f.read_text())]
     assert not bad, bad
+
+
+def test_spawned_ranks_run_without_jax(tmp_path):
+    # the tensor-parallel ranks are fresh interpreters: with a `jax` that
+    # fails on import first on their path, the port's dry run (2 gloo
+    # ranks, one full and one LoRA step) still runs to its end
+    fake = tmp_path / "jax"
+    fake.mkdir()
+    (fake / "__init__.py").write_text('raise ImportError("jax is blocked")\n')
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{ROOT}")
+    code = ("from langscenex_tpu_torch.parallel import dryrun\n"
+            f"dryrun.dryrun(2, 'cpu', workdir={str(tmp_path)!r})\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "dryrun lora (data=1, model=2) OK" in proc.stdout

@@ -125,6 +125,7 @@ def test_wrappers_run_plain_on_cpu_and_check_inputs():
     assert _build.launch_counts == {"sort_pairs": 0, "compact_pairs": 0,
                                     "blend_forward": 0, "blend_backward": 0,
                                     "flash_attention": 0,
+                                    "flash_attention_bhtd": 0,
                                     "flash_attention_backward": 0,
                                     "ln_modulate": 0}
     with pytest.raises(TypeError):
