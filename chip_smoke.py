@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's render, training and video-diffusion
-paths once on one NVIDIA GPU.
+paths and its exact-softmax attention once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -93,6 +93,21 @@ Phases (any failure raises, so the exit code is non-zero):
      layers (loss against phase 14's), exactly 84 K6, 42 K7, 168 K8 and
      0 K5 launches per rank per step, per-rank times and peak memory.
      Every TP time is of two ranks on one card over gloo, not a TP speed.
+ 20. the cell attention-exact-48x17776x64, the exact-softmax attention op
+     at the DiT's shape on seeded unit-normal q, k, v: first the path
+     through its entry points, flash_attention(bounded_logits=False)
+     forward and backward at [1, 48, 17776, 64] with Tk = 17,776 and with
+     the 17,550 video keys, attention_auto(bounded_logits=False) and
+     flash_attention_h2, with exactly 3 K9, 2 K7 and 1 K11 launches and no
+     other; then K9 against its plain version at its 64-key tile at
+     [2, 48, 17776, 64], [1, 48, 17776, 64] and Tk = 17,550 (K5's bounds),
+     the gap to JAX's 1024-key block, a x20-logit input where the bounded
+     softmax overflows, K9 against K6 on LayerNormed q, k, K7's gradients
+     on K9's (o, l2) against the plain backward at both key lengths (K7's
+     bounds), K11 against its plain version and against K9; CUDA-event
+     times of K9, K11 and K7 on K9's l2 beside their plain versions,
+     scaled_dot_product_attention and the bound; and the ported
+     experiments ab_attention and ab_attention4 through their main.
 Every kernel's bound is computed from this run's shapes: the larger of
 its operations over the bf16 tensor-core peak and its bytes (each input
 read once, each output written once) over the HBM rate.
@@ -124,11 +139,15 @@ from langscenex_tpu_torch.models.cogvideox.transformer import (
     CogVideoXTransformer, TransformerConfig)
 from langscenex_tpu_torch.ops.compaction import (compact_pairs,
                                                  compact_pairs_plain)
+from langscenex_tpu_torch.experiments import ab_attention, ab_attention4
 from langscenex_tpu_torch.ops.flash_attention import (
-    attention_bthd_backward_kernel, attention_bthd_backward_plain,
-    attention_bthd_kernel, attention_bthd_plain,
-    flash_attention_backward_kernel, flash_attention_backward_plain,
-    flash_attention_kernel, flash_attention_plain)
+    KERNEL_BLOCK_K, attention_auto, attention_bthd_backward_kernel,
+    attention_bthd_backward_plain, attention_bthd_kernel,
+    attention_bthd_plain, flash_attention, flash_attention_backward_kernel,
+    flash_attention_backward_plain, flash_attention_h2,
+    flash_attention_h2_kernel, flash_attention_h2_plain,
+    flash_attention_kernel, flash_attention_online_kernel,
+    flash_attention_online_plain, flash_attention_plain)
 from langscenex_tpu_torch.ops.ln_modulate import (ln_modulate,
                                                   ln_modulate_plain)
 from langscenex_tpu_torch.ops.rasterize import RasterConfig, prepare_blend
@@ -289,6 +308,27 @@ TP_NOTE = "two ranks on one card over gloo, not a TP speed"
 # K6 at the request's full width: 17,776 tokens (13 latent frames of
 # 30 x 45 patches and 226 text tokens), 48 heads; a TP=2 shard has 24
 K6_T, K6_H, K6_SHORT_T = 13 * 30 * 45 + 226, 48, 1000
+# the cell attention-exact-48x17776x64 (phase 20): the exact-softmax
+# attention op at the DiT's shape, 48 heads over its 17,776 tokens, B = 2
+# as in the request and B = 1 as in experiments/ab_attention4.py, and the
+# keys cut to the 17,550 video tokens (the joint sequence is [text;
+# video]); a x20-logit input at a small shape. K9 and K11 are held to
+# their plain versions at the kernel's 64-key tile (the same rescale
+# points) with K5's bounds. At JAX's 1024-key block every p is rounded at
+# another scale, so it may move by a bf16 ulp (2^-7 of it): o is still
+# held per element to K5's bound (2^-7 relative + 1e-3), l2 to
+# log2(1 + 2^-7). K9 against K6 on LayerNormed q, k (bounded logits):
+# the two round each p at scales 2^-m apart, so each p differs by up to
+# 2^-8 of it and o by up to 2^-8 of max|v - o|, plus a bf16 rounding of
+# each output: |o9 - o6| <= 2^-8 max|v| + 2^-7 |o6|. K11 against K9: K9
+# folds log2 e into q in bf16 (bf16(0.125 log2 e) is 0.18% above it), K11
+# does not, so their logits differ by that factor and by q's rounding at
+# two scales, which moves the softmax weights by about 0.2% of |s - mean
+# s|: o's relative RMS difference within 2^-6.
+EXACT_T, EXACT_TEXT, EXACT_H = 13 * 30 * 45 + 226, 226, 48
+X20_SHAPE = (1, 2, 300, 200)          # B, H, T, Tk of the x20-logit input
+K9_K6_ULP, K11_K9_REL_RMS = 2 ** -8, 2 ** -6
+EXPERIMENT_ITERS = 2
 # the card's published peaks (H100 SXM): bf16 dense tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -303,7 +343,16 @@ TPU_KERNELS = {
     "flash_attention": "langscenex_tpu/ops/flash_attention.py:991 "
                        "_attn_kernel_nomax_t4",
     "flash_attention_bhtd": "langscenex_tpu/ops/flash_attention.py:796 "
-                            "_attn_kernel_nomax_t",
+                            "_attn_kernel_nomax_t (also K10 :82 "
+                            "_attn_kernel_nomax, K12 :838 _t2, :873 _t3)",
+    "flash_attention_online": "langscenex_tpu/ops/flash_attention.py:32 "
+                              "_attn_kernel",
+    "flash_attention_h2": "langscenex_tpu/ops/flash_attention.py:676 "
+                          "_attn_kernel_h2",
+    "flash_attention_backward_split":
+        "langscenex_tpu/ops/flash_attention.py:208 _bwd_dq_kernel, :241 "
+        "_bwd_dkv_kernel, :281 _bwd_dq_kernel_t, :320 _bwd_dkv_kernel_t "
+        "(K12, served by K7's kernel)",
     "ln_modulate": "langscenex_tpu/ops/ln_modulate.py:31 _lnz_kernel",
     "flash_attention_backward": "langscenex_tpu/ops/flash_attention.py:360 "
                                 "_bwd_fused_kernel_t",
@@ -318,12 +367,18 @@ SOURCES = {
     "ln_modulate": "langscenex_tpu_torch/csrc/ln_modulate.cu",
     "flash_attention_backward":
         "langscenex_tpu_torch/csrc/flash_attention_backward.cu",
+    "flash_attention_online": "langscenex_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_h2": "langscenex_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_backward_split":
+        "langscenex_tpu_torch/csrc/flash_attention_backward.cu",
 }
 RENDER_TRAIN_KERNELS = ("blend_forward", "blend_backward", "compact_pairs",
                         "sort_pairs")
 DIT_KERNELS = ("flash_attention", "ln_modulate")
 TRAIN_DIT_KERNELS = ("flash_attention_backward",)
 TP_KERNELS = ("flash_attention_bhtd",)
+EXACT_KERNELS = ("flash_attention_online", "flash_attention_h2",
+                 "flash_attention_backward_split")
 
 
 def scene(n: int, seed: int = 0):
@@ -1111,6 +1166,19 @@ def check_grad(name, got, ref, rtol, atol_frac, rel_bound) -> tuple:
     return err, rel
 
 
+def sdpa_backward_ms(q, k, v, do) -> tuple:
+    """scaled_dot_product_attention's backward on [B, H, T, D] operands, as
+    forward + backward minus forward, and its forward (the library
+    yardstick only)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: sdpa(lq, lk, lv), 5)
+    both = cuda_ms(lambda: torch.autograd.grad(sdpa(lq, lk, lv), (lq, lk, lv),
+                                               do), 5)
+    return both - fwd, fwd
+
+
 def phase_k7(dev, dit, batch, results) -> None:
     """K7 against its plain version on the LoRA cell's layer-0 q, k, v and
     a seeded output gradient; K8 in f32 against its plain version on the
@@ -1142,18 +1210,9 @@ def phase_k7(dev, dit, batch, results) -> None:
                                                         sc), 5)
     plain_ms = cuda_ms(lambda: attention_bthd_backward_plain(
         q, k, v, o, l2, do, sc), 1, warmup=1)
-    # the library yardstick: SDPA's backward, as fwd+bwd minus fwd in the
-    # [B, H, T, D] layout
-    bq, bk, bv = (t.transpose(1, 2).clone().requires_grad_()
-                  for t in (q, k, v))
-    bdo = do.transpose(1, 2)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def fwd_bwd():
-        torch.autograd.grad(sdpa(bq, bk, bv), (bq, bk, bv), bdo)
-    with torch.no_grad():
-        fwd_ms = cuda_ms(lambda: sdpa(bq, bk, bv), 5)
-    lib_ms = cuda_ms(fwd_bwd, 5) - fwd_ms
+    # the library yardstick: SDPA's backward in the [B, H, T, D] layout
+    lib_ms, fwd_ms = sdpa_backward_ms(*(t.transpose(1, 2)
+                                        for t in (q, k, v, do)))
     B, T, H, D = q.shape
     flops = 10.0 * B * H * T * T * D          # s, dp, dv, dk, dq products
     k7_bound = bound(flops=flops, moved=nbytes(q, k, v, o, l2, do, q, k, v))
@@ -1169,7 +1228,7 @@ def phase_k7(dev, dit, batch, results) -> None:
     results["flash_attention_backward"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, **k7_bound,
         library_ms=lib_ms)
-    del bq, bk, bv, bdo, q, k, v, o, l2, do
+    del q, k, v, o, l2, do
 
     # K8 in f32 on the layer-0 stream and modulation of this cell
     with torch.inference_mode():
@@ -1325,6 +1384,34 @@ def phase_ft(dev) -> list:
                      "full fine-tune")
 
 
+def check_attention(what: str, o, l2, ro, rl2, l2_mean: bool = True) -> float:
+    """Hold an attention forward's o and l2 (None for K11) to its plain
+    version's with K5's bounds (o per element and in relative RMS, l2 per
+    element and, with ``l2_mean``, on average); returns the largest
+    error."""
+    o_rms = rel_rms(o, ro)
+    msg = (f"{what}: max|o| err {max_abs(o, ro):.3e} (bound {ATTN_RTOL:.3g} "
+           f"rel + {ATTN_ATOL:g}), o rel RMS {o_rms:.3e} (bound "
+           f"{ATTN_REL_RMS:.3g})")
+    if l2 is not None:
+        l2_err = float((l2 - rl2).abs().mean())
+        msg += (f", max|l2| err {max_abs(l2, rl2):.3e} (bound {L2_ATOL:g}), "
+                f"mean|l2| err {l2_err:.3e} (bound "
+                f"{L2_MEAN_ATOL if l2_mean else 'none'})")
+    print(msg)
+    require(bool(torch.isfinite(o.float()).all()), f"{what}: non-finite o")
+    torch.testing.assert_close(o.float(), ro.float(), atol=ATTN_ATOL,
+                               rtol=ATTN_RTOL, msg=what)
+    require(o_rms <= ATTN_REL_RMS, f"{what}: o's relative RMS difference "
+            f"{o_rms:.3e} above {ATTN_REL_RMS:.3g}")
+    if l2 is None:
+        return max_abs(o, ro)
+    torch.testing.assert_close(l2, rl2, atol=L2_ATOL, rtol=0.0, msg=what)
+    require(not l2_mean or l2_err <= L2_MEAN_ATOL, f"{what}: mean |l2| "
+            f"difference {l2_err:.3e} above {L2_MEAN_ATOL:g}")
+    return max(max_abs(o, ro), max_abs(l2, rl2))
+
+
 def phase_k6(dev, results) -> None:
     """K6 against K5 on the same tensors at the request's full width,
     against its plain version at a TP=2 shard and at a Tk != T shape, with
@@ -1363,24 +1450,10 @@ def phase_k6(dev, results) -> None:
         for what, qq in (("TP=2 shard", qs), ("Tk != T", qs[:, :, :K6_SHORT_T])):
             o, l2 = flash_attention_kernel(qq, ks, vs, sc)
             ro, rl2 = flash_attention_plain(qq, ks, vs, sc)
-            o_rms = rel_rms(o, ro)
-            l2_mean = float((l2 - rl2).abs().mean())
-            print(f"K6 vs plain, {what}: q {list(qq.shape)}, k, v "
-                  f"{list(ks.shape)}: max|o| err {max_abs(o, ro):.3e} (bound "
-                  f"{ATTN_RTOL:.3g} rel + {ATTN_ATOL:g}), o rel RMS "
-                  f"{o_rms:.3e} (bound {ATTN_REL_RMS:.3g}), max|l2| err "
-                  f"{max_abs(l2, rl2):.3e} (bound {L2_ATOL:g}), mean|l2| err "
-                  f"{l2_mean:.3e} (bound {L2_MEAN_ATOL:g})")
-            require(bool(torch.isfinite(o.float()).all()),
-                    f"K6 {what}: non-finite output")
-            torch.testing.assert_close(o.float(), ro.float(), atol=ATTN_ATOL,
-                                       rtol=ATTN_RTOL)
-            require(o_rms <= ATTN_REL_RMS, f"K6 {what}: o's relative RMS "
-                    f"difference {o_rms:.3e} above {ATTN_REL_RMS:.3g}")
-            torch.testing.assert_close(l2, rl2, atol=L2_ATOL, rtol=0.0)
-            require(l2_mean <= L2_MEAN_ATOL, f"K6 {what}: mean |l2| "
-                    f"difference {l2_mean:.3e} above {L2_MEAN_ATOL:g}")
-            err = max(err, max_abs(o, ro), max_abs(l2, rl2))
+            err = max(err, check_attention(f"K6 vs plain, {what}: q "
+                                           f"{list(qq.shape)}, k, v "
+                                           f"{list(ks.shape)}",
+                                           o, l2, ro, rl2))
             if what == "TP=2 shard":
                 shard_out = (o, l2)
             del ro, rl2
@@ -1418,6 +1491,195 @@ def phase_k6(dev, results) -> None:
     print(f"K7 flash_attention_backward on [B, H, T, D] views "
           f"{list(q1.shape)}: kernel {ms7:.4f} ms, bound "
           f"{k7_bound['bound_ms']:.4f} ms ({k7_bound['bound_by']})")
+
+
+def launches_now() -> dict:
+    return {k: v for k, v in _build.launch_counts.items() if v}
+
+
+def phase_exact(dev, results) -> dict:
+    """Phase 20, attention-exact-48x17776x64: the exact-softmax attention
+    through its entry points with exact launch counts, then K9, K11 and K7
+    on K9's (o, l2) against their plain versions, K9 against K6, times and
+    the two ported experiments. Returns the counted run's launches."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    B, T, H, D = 2, EXACT_T, EXACT_H, 64
+    Tv = T - EXACT_TEXT
+    sc = 1.0 / math.sqrt(D)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def randn(*shape, mag=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * mag).to(torch.bfloat16)
+
+    q, k, v = (randn(B, H, T, D) for _ in range(3))
+    q1, k1, v1 = (t[:1] for t in (q, k, v))
+    do = randn(1, H, T, D)
+    shapes = {"Tk = T": (k1, v1),
+              f"Tk = {Tv} (the video keys)": (k1[:, :, EXACT_TEXT:],
+                                              v1[:, :, EXACT_TEXT:])}
+
+    # ---- the path, counted: flash_attention(bounded_logits=False) forward
+    # and backward at both key lengths, attention_auto, flash_attention_h2
+    _build.reset_launch_counts()
+    runs = {}
+    for i, (what, (kk, vv)) in enumerate(shapes.items()):
+        leaves = [t.detach().requires_grad_() for t in (q1, kk, vv)]
+        o = flash_attention(*leaves)
+        o.backward(do)
+        torch.cuda.synchronize()
+        runs[what] = (o.detach(), [t.grad for t in leaves])
+        want = {"flash_attention_online": i + 1,
+                "flash_attention_backward": i + 1}
+        require(launches_now() == want, f"exact attention {what}: launches "
+                f"{launches_now()}, expected {want}")
+    with torch.no_grad():
+        auto = attention_auto(q1, k1, v1, bounded_logits=False)
+        h2 = flash_attention_h2(q1, k1, v1)
+    torch.cuda.synchronize()
+    launches = launches_now()
+    want = {"flash_attention_online": 3, "flash_attention_backward": 2,
+            "flash_attention_h2": 1}
+    print(f"exact attention path, q {list(q1.shape)}: flash_attention("
+          f"bounded_logits=False) forward + backward at Tk = {T} and {Tv}, "
+          f"attention_auto(bounded_logits=False), flash_attention_h2: "
+          f"launches {launches} (expected {want})")
+    require(launches == want, "exact attention path: launch counts")
+    require(torch.equal(auto, runs["Tk = T"][0]),
+            "attention_auto(bounded_logits=False) differs from K9")
+
+    with torch.inference_mode():
+        # ---- K9 against its plain version
+        o9, l9 = flash_attention_online_kernel(q, k, v, sc)
+        ro, rl2 = flash_attention_online_plain(q, k, v, sc,
+                                               block_k=KERNEL_BLOCK_K)
+        err9 = check_attention(f"K9 vs plain at its {KERNEL_BLOCK_K}-key "
+                               f"tile, q, k, v {list(q.shape)}", o9, l9, ro,
+                               rl2)
+        del ro, rl2
+        ro, rl2 = flash_attention_online_plain(q, k, v, sc)
+        print(f"K9 vs plain at JAX's 1024-key block, {list(q.shape)}: "
+              f"max|o| err {max_abs(o9, ro):.3e} (bound {ATTN_RTOL:.3g} rel "
+              f"+ {ATTN_ATOL:g}), o rel RMS {rel_rms(o9, ro):.3e}, max|l2| "
+              f"err {max_abs(l9, rl2):.3e} (bound {L2_ATOL:g})")
+        torch.testing.assert_close(o9.float(), ro.float(), atol=ATTN_ATOL,
+                                   rtol=ATTN_RTOL)
+        torch.testing.assert_close(l9, rl2, atol=L2_ATOL, rtol=0.0)
+        del ro, rl2
+        err7 = 0.0
+        for what, (kk, vv) in shapes.items():
+            o, l2 = flash_attention_online_kernel(q1, kk, vv, sc)
+            require(torch.equal(o, runs[what][0]), f"K9 {what}: the path's "
+                    f"output differs from a second launch")
+            ro, rl2 = flash_attention_online_plain(q1, kk, vv, sc,
+                                                   block_k=KERNEL_BLOCK_K)
+            err9 = max(err9, check_attention(
+                f"K9 vs plain, {what}, q {list(q1.shape)}", o, l2, ro, rl2))
+            ref = flash_attention_backward_plain(q1, kk, vv, o, l2, do, sc)
+            print(f"K7 on K9's (o, l2), {what}: the path's gradients vs "
+                  f"plain (K7's bounds):")
+            err7 = max([err7] + [
+                check_grad(f"d{n}", g, r, BWD_RTOL, BWD_ATOL_FRAC,
+                           BWD_REL_RMS)[0]
+                for n, g, r in zip("qkv", runs[what][1], ref)])
+            del ro, rl2, ref
+        Bx, Hx, Tx, Tkx = X20_SHAPE
+        qx = randn(Bx, Hx, Tx, D, mag=20.0)
+        kx, vx = randn(Bx, Hx, Tkx, D, mag=20.0), randn(Bx, Hx, Tkx, D)
+        ox, lx = flash_attention_online_kernel(qx, kx, vx, sc)
+        rox, rlx = flash_attention_online_plain(qx, kx, vx, sc,
+                                                block_k=KERNEL_BLOCK_K)
+        err9 = max(err9, check_attention(
+            f"K9 vs plain, x20 logits {list(qx.shape)}, Tk {Tkx} (l2 up to "
+            f"{float(lx.abs().max()):.4g})", ox, lx, rox, rlx, l2_mean=False))
+        bounded = flash_attention_plain(qx, kx, vx, sc)[0]
+        print(f"  the bounded softmax (K6's plain version) there: "
+              f"{float((~torch.isfinite(bounded.float())).float().mean()):.2%}"
+              f" of its outputs non-finite")
+        # ---- K9 against K6 on LayerNormed q, k (bounded logits)
+        qn, kn = (torch.nn.functional.layer_norm(t.float(), (D,)).to(
+            torch.bfloat16) for t in (q1, k1))
+        o9n, o6n = (fn(qn, kn, v1, sc)[0] for fn in (
+            flash_attention_online_kernel, flash_attention_kernel))
+        gap = (o9n.float() - o6n.float()).abs()
+        lim = K9_K6_ULP * float(v1.abs().max()) + ATTN_RTOL * o6n.float().abs()
+        print(f"K9 vs K6 on LayerNormed q, k {list(qn.shape)}: max|o| diff "
+              f"{float(gap.max()):.3e}, rel RMS {rel_rms(o9n, o6n):.3e} "
+              f"(bound 2^-8 max|v| + 2^-7 |o|, max|v| "
+              f"{float(v1.abs().max()):.3g})")
+        require(bool((gap <= lim).all()), "K9 and K6 differ beyond bf16 "
+                "rounding on bounded logits")
+        del qn, kn, o9n, o6n, gap, lim
+        # ---- K11 against its plain version and against K9
+        rh = flash_attention_h2_plain(q1, k1, v1, sc, block_k=KERNEL_BLOCK_K)
+        err11 = check_attention(f"K11 vs plain at its {KERNEL_BLOCK_K}-key "
+                                f"tile, q, k, v {list(q1.shape)}", h2, None,
+                                rh, None)
+        e11 = rel_rms(h2, runs["Tk = T"][0])
+        print(f"K11 vs K9, {list(q1.shape)}: o rel RMS {e11:.3e} (bound "
+              f"{K11_K9_REL_RMS:.3g}), max|o| diff "
+              f"{max_abs(h2, runs['Tk = T'][0]):.3e}")
+        require(e11 <= K11_K9_REL_RMS, "K11 differs from K9 beyond bound")
+        del rh
+
+    # ---- times: kernel, plain version, SDPA, bound
+    ms9 = cuda_ms(lambda: flash_attention_online_kernel(q, k, v, sc), 5)
+    plain9 = cuda_ms(lambda: flash_attention_online_plain(
+        q, k, v, sc, block_k=KERNEL_BLOCK_K), 1, warmup=1)
+    with torch.no_grad():
+        lib9 = cuda_ms(lambda: sdpa(q, k, v), 5)
+    b9 = bound(flops=4.0 * B * H * T * T * D, moved=nbytes(q, k, v, o9, l9))
+    results["flash_attention_online"] = dict(
+        max_abs_err=err9, ms=ms9, plain_ms=plain9, **b9, library_ms=lib9)
+    ms11 = cuda_ms(lambda: flash_attention_h2_kernel(q1, k1, v1, sc), 5)
+    plain11 = cuda_ms(lambda: flash_attention_h2_plain(
+        q1, k1, v1, sc, block_k=KERNEL_BLOCK_K), 1, warmup=1)
+    with torch.no_grad():
+        lib11 = cuda_ms(lambda: sdpa(q1, k1, v1), 5)
+    b11 = bound(flops=4.0 * H * T * T * D, moved=nbytes(q1, k1, v1, h2))
+    results["flash_attention_h2"] = dict(
+        max_abs_err=err11, ms=ms11, plain_ms=plain11, **b11,
+        library_ms=lib11)
+    o1, l21 = flash_attention_online_kernel(q1, k1, v1, sc)
+    ms7 = cuda_ms(lambda: flash_attention_backward_kernel(
+        q1, k1, v1, o1, l21, do, sc), 3)
+    plain7 = cuda_ms(lambda: flash_attention_backward_plain(
+        q1, k1, v1, o1, l21, do, sc), 1, warmup=1)
+    lib7 = sdpa_backward_ms(q1, k1, v1, do)[0]
+    b7 = bound(flops=10.0 * H * T * T * D,
+               moved=nbytes(q1, k1, v1, o1, l21, do, q1, k1, v1))
+    results["flash_attention_backward_split"] = dict(
+        max_abs_err=err7, ms=ms7, plain_ms=plain7, **b7, library_ms=lib7)
+    kv, vv = shapes[f"Tk = {Tv} (the video keys)"]
+    ov, l2v = flash_attention_online_kernel(q1, kv, vv, sc)
+    ms7v = cuda_ms(lambda: flash_attention_backward_kernel(
+        q1, kv, vv, ov, l2v, do, sc), 3)
+    b7v = bound(flops=10.0 * H * T * Tv * D,
+                moved=nbytes(q1, kv, vv, ov, l2v, do, q1, kv, vv))
+    for name, ms, plain, lib, bd, what in (
+            ("K9 flash_attention_online", ms9, plain9, lib9, b9, q.shape),
+            ("K11 flash_attention_h2", ms11, plain11, lib11, b11, q1.shape),
+            ("K7 on K9's l2 (K12's split backward)", ms7, plain7, lib7, b7,
+             q1.shape)):
+        print(f"{name} at {list(what)}: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, scaled_dot_product_attention"
+              f"{' backward' if 'K7' in name else ''} {lib:.4f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    print(f"K7 on K9's l2 at Tk = {Tv}: kernel {ms7v:.4f} ms, bound "
+          f"{b7v['bound_ms']:.4f} ms ({b7v['bound_by']})")
+    del q, k, v, q1, k1, v1, do, runs, shapes, o9, l9, o1, l21, ov, l2v, h2
+    torch.cuda.empty_cache()
+
+    # ---- the ported experiments, through their main
+    print(f"langscenex_tpu_torch.experiments.ab_attention, {EXPERIMENT_ITERS} "
+          f"iterations:")
+    ab_attention.main(iters=EXPERIMENT_ITERS, device=dev)
+    print(f"langscenex_tpu_torch.experiments.ab_attention4, "
+          f"{EXPERIMENT_ITERS} iterations:")
+    ab4 = ab_attention4.main(iters=EXPERIMENT_ITERS, device=dev)
+    require(all(math.isfinite(x) for x in ab4.values()),
+            "ab_attention4: non-finite result")
+    return launches
 
 
 def call_recorder(denoiser, on_call):
@@ -1748,16 +2010,24 @@ def main() -> int:
 
     # ---- 18-19. TP=2 request and LoRA step, two ranks on the card -------
     tp = phase_tp(dev, tp_req, lora_ref, [r["loss"] for r in lora["recs"]])
+    torch.cuda.empty_cache()
+
+    # ---- 20. exact attention, attention-exact-48x17776x64 ---------------
+    exact = phase_exact(dev, results)
 
     launches = {**{k: train_launches[k] for k in RENDER_TRAIN_KERNELS},
                 **{k: request["launches"][k] for k in DIT_KERNELS},
                 "flash_attention_backward": lora["launches"],
-                "flash_attention_bhtd": tp["launches"]}
+                "flash_attention_bhtd": tp["launches"],
+                "flash_attention_online": exact["flash_attention_online"],
+                "flash_attention_h2": exact["flash_attention_h2"],
+                "flash_attention_backward_split":
+                    exact["flash_attention_backward"]}
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=TPU_KERNELS[name], launches=launches[name],
                     **results[name])
                for name in RENDER_TRAIN_KERNELS + DIT_KERNELS
-               + TRAIN_DIT_KERNELS + TP_KERNELS]
+               + TRAIN_DIT_KERNELS + TP_KERNELS + EXACT_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

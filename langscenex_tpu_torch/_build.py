@@ -37,7 +37,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launch_counts = {"sort_pairs": 0, "compact_pairs": 0, "blend_forward": 0,
                  "blend_backward": 0, "flash_attention": 0,
                  "flash_attention_bhtd": 0, "flash_attention_backward": 0,
-                 "ln_modulate": 0}
+                 "ln_modulate": 0, "flash_attention_online": 0,
+                 "flash_attention_h2": 0}
 
 # seconds the last nvcc build of this process took (0.0 when only the
 # cached library was loaded); read by chip_smoke.py
@@ -72,10 +73,17 @@ _SIGNATURES = {
     # and o, scale2, stream
     "lsx_flash_attention_bhtd_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      *[_L] * 12, _F, _P],
-    # q', k, v, do, l2, dvec, dq, dk, dv, B, T, H, (b, t, h) element
+    # K9: as K6's
+    "lsx_flash_attention_online_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       *[_L] * 12, _F, _P],
+    # K11: q, k, v, o, B, H, T, Tk, (b, h, t) element strides of q, k, v
+    # and o, bf16(scale), stream
+    "lsx_flash_attention_h2_fwd": [_P, _P, _P, _P, _I, _I, _I, _I,
+                                   *[_L] * 12, _F, _P],
+    # q', k, v, do, l2, dvec, dq, dk, dv, B, T, Tk, H, (b, t, h) element
     # strides of q', k, v and do, scale, stream
     "lsx_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, *[_L] * 12, _F, _P],
+                                _I, _I, *[_L] * 12, _F, _P],
     # x, gamma, beta, sc, sh, tsc, tsh, y, B, T, H, text_len, is_f32,
     # stream
     "lsx_ln_modulate": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -1,13 +1,21 @@
-// Fused bounded-logit attention backward in the [B, T, H, D] layout,
-// kernel K7: dq, dk and dv in one kernel.
+// Fused attention backward in the [B, T, H, D] layout, kernel K7: dq, dk
+// and dv in one kernel, queries q [B, T, H, D] and keys k, v [B, Tk, H, D]
+// with a key length Tk that may differ from T.
 //
 // Replaces: langscenex_tpu/ops/flash_attention.py:360 _bwd_fused_kernel_t
 // (called through _flash_bwd_core, :468, fused branch :486-537, from the
 // backward rule of attention_bthd). It is the gradient of K5 and keeps the
-// TPU kernel's rounding points. With q' = bf16(q * bf16(scale * log2 e))
-// (scaled by the caller, as the JAX package does in XLA), l2 from K5 and
-// dvec = sum_d do * o in f32 (also from the caller):
-//   s  = k . q'  (f32)        p  = exp2(s - l2)   (0 past T on either axis)
+// TPU kernel's rounding points. It also serves K12, the split backward
+// kernels of _flash_bwd_core: :208 _bwd_dq_kernel with :241
+// _bwd_dkv_kernel (calls :581, :638; the backward of the online-softmax
+// forward K9, and of K10) and :281 _bwd_dq_kernel_t with :320
+// _bwd_dkv_kernel_t (calls :546, :599; FUSED_BWD off). Each pair computes
+// this kernel's function from the l2 it is given, recomputing s and dp in
+// both passes; K9's l2 = m + log2 l is taken as K5's is. With q' =
+// bf16(q * bf16(scale * log2 e)) (scaled by the caller, as the JAX package
+// does in XLA), l2 from the forward and dvec = sum_d do * o in f32 (also
+// from the caller):
+//   s  = k . q'  (f32)        p  = exp2(s - l2)   (0 past T or Tk)
 //   dp = v . do  (f32)        ds = bf16(p * (dp - dvec))
 //   dv = sum_q bf16(p) do     dk = (sum_q ds q') / log2 e
 //   dq = scale * sum_k ds k
@@ -15,7 +23,7 @@
 // accumulated in a caller-zeroed f32 [B, T, H, 64] buffer with atomics.
 //
 // Bound on the H100: operations. At the LoRA step's shape (q, k, v
-// [1, 17776, 48, 64] bf16) one call does 5 products of 2 T^2 D H =
+// [1, 17776, 48, 64] bf16) one call does 5 products of 2 T Tk D H =
 // 9.71 TFLOP: 9.8 ms at 989 TFLOP/s, against about 1 GB of operands and
 // results (0.3 ms at 3.35 TB/s). Its 1.52e10 exp2s take about 7 ms of SFU
 // time besides (16 ex2/clk/SM).
@@ -23,7 +31,8 @@
 // Design (simple and right first; wgmma, TMA and warp specialisation are
 // later work). The TPU kernel runs its grid in order and carries dq in
 // HBM from one key block to the next; here blocks run in parallel, so
-// each block owns one (b, h, 64-key tile) and walks all 64-query tiles:
+// each block owns one (b, h, 64-key tile of Tk) and walks all 64-query
+// tiles of T:
 // its k and v stay in shared memory and its dk, dv in registers, and its
 // share of dq goes out through f32 atomicAdd (summation order varies from
 // run to run). Blocks of one head start their walk at different query
@@ -86,8 +95,8 @@ flash_bwd_bthd(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ dout,
                const float* __restrict__ l2, const float* __restrict__ dvec,
                float* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
-               __nv_bfloat16* __restrict__ dv, int T, int H, Strides qs,
-               Strides ks, Strides vs, Strides dos, float scale) {
+               __nv_bfloat16* __restrict__ dv, int T, int Tk, int H,
+               Strides qs, Strides ks, Strides vs, Strides dos, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   BwdSmem& sm = *reinterpret_cast<BwdSmem*>(smem_raw);
 
@@ -111,15 +120,15 @@ flash_bwd_bthd(const __nv_bfloat16* __restrict__ q,
   const int nq = (T + BW_BQ - 1) / BW_BQ;
   const int first = kb % nq;
 
-  load_rows64<BW_THREADS>(sm.k, kh, ks.t, key0, T);
-  load_rows64<BW_THREADS>(sm.v, vh, vs.t, key0, T);
+  load_rows64<BW_THREADS>(sm.k, kh, ks.t, key0, Tk);
+  load_rows64<BW_THREADS>(sm.v, vh, vs.t, key0, Tk);
   load_query_tile(sm, 0, qh, qs.t, doh, dos.t, l2h, dvech, first, T);
   cp_async_commit();
 
   // this thread's key rows (as accumulator rows) and whether they exist
   const int krow = warp * 16 + g;
-  const bool key_ok0 = key0 + krow < T;
-  const bool key_ok1 = key0 + krow + 8 < T;
+  const bool key_ok0 = key0 + krow < Tk;
+  const bool key_ok1 = key0 + krow + 8 < Tk;
 
   float dk_acc[8][4], dv_acc[8][4];
 #pragma unroll
@@ -169,7 +178,8 @@ flash_bwd_bthd(const __nv_bfloat16* __restrict__ q,
     }
 
     // P^T = exp2(S^T - l2), dS^T = bf16(P^T (dP^T - dvec)), both 0 for
-    // keys or queries past T; packed as A fragments over the query axis
+    // keys past Tk or queries past T; packed as A fragments over the
+    // query axis
     const bool q_tail = q0 + BW_BQ > T;
     unsigned pa[4][4], da[4][4];
 #pragma unroll
@@ -250,9 +260,9 @@ flash_bwd_bthd(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // buffers and dS^T free for the next step
   }
 
-  // dk = acc / log2 e and dv, in bf16, into contiguous [B, T, H, 64]
+  // dk = acc / log2 e and dv, in bf16, into contiguous [B, Tk, H, 64]
   const long long row_stride = (long long)H * BW_D;
-  const long long base0 = (((long long)b * T + key0 + krow) * H + h) * BW_D;
+  const long long base0 = (((long long)b * Tk + key0 + krow) * H + h) * BW_D;
   const long long base1 = base0 + 8 * row_stride;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
@@ -275,23 +285,29 @@ flash_bwd_bthd(const __nv_bfloat16* __restrict__ q,
 }  // namespace
 
 // dq [B, T, H, 64] f32 (zeroed by the caller; accumulated), dk and dv
-// [B, T, H, 64] bf16 (contiguous, written) from q' (q already scaled by
-// bf16(scale * log2 e)), k, v and do [B, T, H, 64] bf16 given by their
-// (b, t, h) element strides (head-dim stride 1, rows 16-byte aligned; the
-// wrapper checks), and l2, dvec [B * H, T] f32.
+// [B, Tk, H, 64] bf16 (contiguous, written) from q' (q already scaled by
+// bf16(scale * log2 e)) and do [B, T, H, 64], k and v [B, Tk, H, 64] bf16
+// given by their (b, t, h) element strides (head-dim stride 1, rows
+// 16-byte aligned; the wrapper checks), and l2, dvec [B * H, T] f32.
 extern "C" int lsx_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const void* l2, const void* dvec, void* dq, void* dk, void* dv, int B,
-    int T, int H, long long qsb, long long qst, long long qsh, long long ksb,
-    long long kst, long long ksh, long long vsb, long long vst, long long vsh,
-    long long dsb, long long dst, long long dsh, float scale,
+    int T, int Tk, int H, long long qsb, long long qst, long long qsh,
+    long long ksb, long long kst, long long ksh, long long vsb, long long vst,
+    long long vsh, long long dsb, long long dst, long long dsh, float scale,
     cudaStream_t stream) {
-  if (B == 0 || T == 0 || H == 0) return 0;
+  if (B == 0 || Tk == 0 || H == 0) return 0;
+  if (T == 0) {  // no queries: dk and dv are zero
+    const size_t bytes = (size_t)B * Tk * H * BW_D * sizeof(__nv_bfloat16);
+    cudaError_t err = cudaMemsetAsync(dk, 0, bytes, stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, bytes, stream);
+    return (int)err;
+  }
   const int smem = (int)sizeof(BwdSmem);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_bthd, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + BW_BK - 1) / BW_BK, H, B);
+  const dim3 grid((Tk + BW_BK - 1) / BW_BK, H, B);
   flash_bwd_bthd<<<grid, BW_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
@@ -299,7 +315,7 @@ extern "C" int lsx_flash_attention_bwd(
       static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(l2), static_cast<const float*>(dvec),
       static_cast<float*>(dq), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), T, H, Strides{qsb, qst, qsh},
+      static_cast<__nv_bfloat16*>(dv), T, Tk, H, Strides{qsb, qst, qsh},
       Strides{ksb, kst, ksh}, Strides{vsb, vst, vsh}, Strides{dsb, dst, dsh},
       scale);
   LSX_CHECK_LAUNCH();

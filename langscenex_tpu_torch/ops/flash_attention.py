@@ -1,8 +1,7 @@
-"""Bounded-logit attention — kernels K5 and K6 (forward) and K7
-(backward) — and the attention dispatch of the DiT.
+"""Attention — kernels K5, K6, K9 and K11 (forward) and K7 (backward) —
+and the attention dispatch of the DiT.
 
-Port of what the JAX ``langscenex_tpu/ops/flash_attention.py`` runs for
-the CogVideoX DiT:
+Port of ``langscenex_tpu/ops/flash_attention.py``:
 
 * on one device, ``attention_bthd`` → ``_flash_bthd``, whose forward is
   ``_flash_fwd_impl_bthd`` → ``_attn_kernel_nomax_t4`` (K5, [B, T, H, D])
@@ -14,14 +13,31 @@ the CogVideoX DiT:
   ``attention_auto``, which runs ``flash_attention(
   bounded_logits=True)`` → ``_flash_fwd_impl_t`` →
   ``_attn_kernel_nomax_t`` (K6, [B, H, T, D], key length Tk that may
-  differ from T) with K7 as its backward.
+  differ from T) with K7 as its backward;
+* ``flash_attention(bounded_logits=False)``, the JAX default, and
+  ``attention_auto`` with it → ``_flash_fwd_impl`` → ``_attn_kernel``
+  (K9, the online softmax) with the split backward kernels
+  ``_bwd_dq_kernel``/``_bwd_dkv_kernel`` (K12), which compute K7's
+  function from K9's l2, so K7's kernel serves them;
+* ``flash_attention_h2`` → ``_attn_kernel_h2`` (K11), forward only.
 
-The logits are bounded by the DiT's qk-LayerNorm, so there is no running
-max, and the rounding points are the TPU kernels': q is multiplied by
-``scale·log2(e)`` in the working dtype, s = q'·kᵀ in f32, p = exp2(s) is
-rounded to the working dtype before the PV product, the normalizer is the
-sum of those rounded p over the valid keys, then l = max(l, 1e-30),
-o = acc / l and l2 = log2(l) (kept for the backward, K7).
+The bounded forward (K5, K6): the logits are bounded by the DiT's
+qk-LayerNorm, so there is no running max, and the rounding points are
+the TPU kernels': q is multiplied by ``scale·log2(e)`` in the working
+dtype, s = q'·kᵀ in f32, p = exp2(s) is rounded to the working dtype
+before the PV product, the normalizer is the sum of those rounded p over
+the valid keys, then l = max(l, 1e-30), o = acc / l and l2 = log2(l)
+(kept for the backward, K7).
+
+The online forward (K9) has the same q' and s, and per block of keys a
+running row max m (from -1e30): m' = max(m, rowmax s), p = exp2(s − m'),
+acc = acc·exp2(m − m') + bf16(p)·v and l = l·exp2(m − m') + Σ bf16(p);
+o = acc / max(l, 1e-30) and l2 = m + log2 max(l, 1e-30). Where the
+rescales fall moves bf16(p) at rounding level, so its plain version takes
+the block: JAX's default 1024 on the CPU, the kernel's 64-key tile where
+it is held against the kernel. K11 is the same recurrence in the
+natural-exp domain: q scaled by bf16(scale), p = exp(s − m'), l summed
+from the unrounded p, bf16(p) in the PV product, no l2.
 
 The backward recomputes p = exp2(s − l2) from the saved l2 with the TPU
 kernel's rounding points: ds = p·(dp − dvec) rounded to the working
@@ -32,14 +48,18 @@ Each kernel has a wrapper that launches it on CUDA tensors and raises on
 what it does not take, and a plain version that the wrappers never fall
 back to: :func:`attention_bthd_kernel` / :func:`attention_bthd_plain`
 (K5), :func:`flash_attention_kernel` / :func:`flash_attention_plain`
-(K6), :func:`attention_bthd_backward_kernel` /
+(K6), :func:`flash_attention_online_kernel` /
+:func:`flash_attention_online_plain` (K9),
+:func:`flash_attention_h2_kernel` / :func:`flash_attention_h2_plain`
+(K11), :func:`attention_bthd_backward_kernel` /
 :func:`attention_bthd_backward_plain` and, on [B, H, T, D] views of the
 same kernel, :func:`flash_attention_backward_kernel` /
-:func:`flash_attention_backward_plain` (K7). :class:`FlashBTHDFn` and
-:class:`FlashFn` are the autograd functions of the two layouts: the
-kernels on CUDA tensors, the plain versions on CPU tensors or when the
-caller asks for them. The sequence-parallel ring, the online-softmax
-kernels (K9, K11) and the split backward kernels (K12) are not ported.
+:func:`flash_attention_backward_plain` (K7). :class:`FlashBTHDFn`,
+:class:`FlashFn` and :class:`OnlineFn` are the autograd functions of the
+bounded [B, T, H, D], bounded [B, H, T, D] and online [B, H, T, D]
+attention: the kernels on CUDA tensors, the plain versions on CPU
+tensors or when the caller asks for them. The sequence-parallel ring is
+not ported.
 """
 from __future__ import annotations
 
@@ -51,7 +71,11 @@ import torch
 from .. import _build
 
 LOG2E = 1.4426950408889634
+NEG_INF = -1e30            # the online softmax's initial max (JAX's NEG_INF)
 KERNEL_HEAD_DIM = 64       # csrc/flash_attention.cu
+KERNEL_BLOCK_K = 64        # keys per tile of the forward kernels
+ONLINE_BLOCK_K = 1024      # JAX's default key block of K9
+H2_BLOCK_K = 512           # JAX's default key block of K11
 PLAIN_Q_CHUNK = 256        # query rows per step of the plain version
 
 
@@ -101,10 +125,83 @@ def attention_bthd_plain(q, k, v, scale: float,
     return _bthd(o), l2
 
 
+def _online_plain(q, k, v, q_scale: torch.Tensor, block_k: int, q_chunk: int,
+                  natural: bool):
+    """The online softmax over key blocks of ``block_k``, one chunk of
+    query rows at a time: (o in q's dtype, m [B,H,T], l [B,H,T] f32).
+
+    The running max m_j after block j is the cumulative max of the block
+    maxima (from NEG_INF); block j's p is exp(s − m_j) (exp2 unless
+    ``natural``), and the recurrence acc_j = acc_{j-1}·exp(m_{j-1} − m_j)
+    + p̃_j·v is summed at once as Σ_j exp(m_j − m_last)·p̃_j·v, equal up to
+    f32 rounding. l sums bf16(p) (exp2 domain) or the unrounded p
+    (natural). Keys past Tk (the pad of the last block) take NEG_INF."""
+    B, H, T, D = q.shape
+    Tk = k.shape[2]
+    dt = q.dtype
+    exp = torch.exp if natural else torch.exp2
+    bk = min(block_k, Tk)
+    nb = -(-Tk // bk)
+    kf = k.transpose(-1, -2).float()                   # [B,H,D,Tk]
+    vf = v.float()                                     # [B,H,Tk,D]
+    outs, ms, ls = [], [], []
+    for lo in range(0, T, q_chunk):
+        qc = (q[:, :, lo:lo + q_chunk] * q_scale).float()
+        s = torch.nn.functional.pad(torch.matmul(qc, kf), (0, nb * bk - Tk),
+                                    value=NEG_INF).unflatten(-1, (nb, bk))
+        m = s.amax(-1).clamp(min=NEG_INF).cummax(-1).values   # [B,H,c,nb]
+        p = exp(s - m[..., None])                      # [B,H,c,nb,bk]
+        del s
+        pr = p.to(dt).float()
+        w = exp(m - m[..., -1:])                       # rescale to m_last
+        l = ((p if natural else pr).sum(-1) * w).sum(-1)
+        del p
+        acc = torch.matmul((pr * w[..., None]).flatten(-2)[..., :Tk], vf)
+        del pr
+        outs.append((acc / l.clamp(min=1e-30)[..., None]).to(dt))
+        ms.append(m[..., -1])
+        ls.append(l)
+    return torch.cat(outs, 2), torch.cat(ms, 2), torch.cat(ls, 2)
+
+
+def flash_attention_online_plain(q, k, v, scale: float,
+                                 block_k: int = ONLINE_BLOCK_K,
+                                 q_chunk: int = PLAIN_Q_CHUNK):
+    """K9's plain version: q [B,H,T,D], k, v [B,H,Tk,D] -> (o [B,H,T,D] in
+    q's dtype, l2 [B·H, T] f32 = m + log2 max(l, 1e-30)), with JAX's
+    rounding points and its rescale after every ``block_k`` keys (JAX's
+    default block by default; the kernel's tile is ``KERNEL_BLOCK_K``)."""
+    B, H, T, _ = q.shape
+    o, m, l = _online_plain(q, k, v, _scale2(scale, q.dtype).to(q.device),
+                            block_k, q_chunk, natural=False)
+    return o, (m + torch.log2(l.clamp(min=1e-30))).reshape(B * H, T)
+
+
+def flash_attention_h2_plain(q, k, v, scale: float,
+                             block_k: int = H2_BLOCK_K,
+                             q_chunk: int = PLAIN_Q_CHUNK):
+    """K11's plain version: q [B,H,T,D], k, v [B,H,Tk,D] -> o [B,H,T,D] in
+    q's dtype. q is scaled by ``scale`` in its dtype, p = exp(s − m) per
+    block of ``block_k`` keys (JAX's 512 by default), the normalizer sums
+    the unrounded p and the PV product takes bf16(p)."""
+    q_scale = torch.tensor(scale, dtype=q.dtype, device=q.device)
+    return _online_plain(q, k, v, q_scale, block_k, q_chunk, natural=True)[0]
+
+
 def _check(q, k, v) -> None:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"attention_bthd wants q, k, v [B,T,H,D] of one "
                          f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    _check_devices(q, k, v)
+
+
+def _check_bthd_kv(q, k, v) -> None:
+    B, _, H, D = q.shape if q.dim() == 4 else (None,) * 4
+    if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
+            or (k.shape[0], k.shape[2], k.shape[3]) != (B, H, D)):
+        raise ValueError(f"attention wants q [B,T,H,D] and k, v [B,Tk,H,D], "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     _check_devices(q, k, v)
 
@@ -174,28 +271,60 @@ def attention_bthd_kernel(q, k, v, scale: float):
     return o, l2
 
 
+def _launch_bhtd(what: str, entry: str, counter: str, q, k, v,
+                 q_scale: float, with_l2: bool = True):
+    """Launch one of the [B, H, T, D] forward kernels (K6, K9, K11) through
+    its C entry ``entry``: o laid out as a [B, T, H, 64] tensor and, with
+    ``with_l2``, l2 [B·H, T] f32."""
+    _check_bhtd(q, k, v)
+    B, H, T, D = q.shape
+    Tk = k.shape[2]
+    _kernel_checks(what, (q, k, v), D)
+    _device_check(what, (q, k, v))
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
+    o = _bthd(torch.empty((B, T, H, D), dtype=q.dtype, device=q.device))
+    l2 = (torch.empty((B * H, T), dtype=torch.float32, device=q.device)
+          if with_l2 else None)
+    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    outs = [o.data_ptr()] + ([l2.data_ptr()] if with_l2 else [])
+    code = getattr(_build.library(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *outs, B, H, T, Tk,
+        *strides, q_scale, _build.stream_ptr(q.device))
+    _build.launch_counts[counter] += 1
+    _build.check(code, counter)
+    return o, l2
+
+
 def flash_attention_kernel(q, k, v, scale: float):
     """Launch K6: q [B,H,T,64] and k, v [B,H,Tk,64] bf16 on one CUDA device
     (any strides with the head dim contiguous; a ``transpose(1, 2)`` view
     of [B,T,H,64] tensors is read in place) -> (o [B,H,T,64] bf16, laid
     out as a [B,T,H,64] tensor so that its [B,T,H·64] reshape is free,
     l2 [B·H, T] f32)."""
-    _check_bhtd(q, k, v)
-    B, H, T, D = q.shape
-    Tk = k.shape[2]
-    _kernel_checks("K6", (q, k, v), D)
-    _device_check("K6", (q, k, v))
-    q, k, v = (_kernel_operand(t) for t in (q, k, v))
-    o = _bthd(torch.empty((B, T, H, D), dtype=q.dtype, device=q.device))
-    l2 = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
-    code = _build.library().lsx_flash_attention_bhtd_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        l2.data_ptr(), B, H, T, Tk, *strides,
-        float(_scale2(scale, torch.bfloat16)), _build.stream_ptr(q.device))
-    _build.launch_counts["flash_attention_bhtd"] += 1
-    _build.check(code, "flash_attention_bhtd")
-    return o, l2
+    return _launch_bhtd("K6", "lsx_flash_attention_bhtd_fwd",
+                        "flash_attention_bhtd", q, k, v,
+                        float(_scale2(scale, torch.bfloat16)))
+
+
+def flash_attention_online_kernel(q, k, v, scale: float):
+    """Launch K9, the online softmax, on K6's operands -> (o [B,H,T,64]
+    bf16 laid out as K6's, l2 = m + log2 l [B·H, T] f32). Its rescale falls
+    after every 64-key tile (``KERNEL_BLOCK_K``), where JAX's falls after
+    every ``block_k`` keys; :func:`flash_attention_online_plain` with
+    ``block_k=KERNEL_BLOCK_K`` has its rounding points."""
+    return _launch_bhtd("K9", "lsx_flash_attention_online_fwd",
+                        "flash_attention_online", q, k, v,
+                        float(_scale2(scale, torch.bfloat16)))
+
+
+def flash_attention_h2_kernel(q, k, v, scale: float):
+    """Launch K11, the natural-exp online softmax, on K6's operands -> o
+    [B,H,T,64] bf16 laid out as K6's. One head per block: JAX's head pairs
+    are its MXU layout and carry no function, so B·H may be odd."""
+    return _launch_bhtd("K11", "lsx_flash_attention_h2_fwd",
+                        "flash_attention_h2", q, k, v,
+                        float(torch.tensor(scale, dtype=torch.bfloat16)),
+                        with_l2=False)[0]
 
 
 def flash_attention_backward_plain(q, k, v, o, l2, do, scale: float,
@@ -241,11 +370,13 @@ def attention_bthd_backward_plain(q, k, v, o, l2, do, scale: float,
 
 
 def attention_bthd_backward_kernel(q, k, v, o, l2, do, scale: float):
-    """Launch K7: q, k, v, o and do [B,T,H,64] bf16 and l2 [B·H, T] f32
-    (from K5 or K6) on one CUDA device -> (dq, dk, dv) [B,T,H,64] bf16. dq
-    is summed with f32 atomics into a zeroed scratch that is then cast."""
-    _check(q, k, v)
+    """Launch K7: q, o and do [B,T,H,64], k and v [B,Tk,H,64] bf16 and l2
+    [B·H, T] f32 (from K5, K6 or K9) on one CUDA device -> dq [B,T,H,64],
+    dk, dv [B,Tk,H,64] bf16. dq is summed with f32 atomics into a zeroed
+    scratch that is then cast."""
+    _check_bthd_kv(q, k, v)
     B, T, H, D = q.shape
+    Tk = k.shape[1]
     _kernel_checks("K7", (q, k, v, o, do), D)
     if l2 is None or l2.dtype != torch.float32 or l2.shape != (B * H, T):
         raise ValueError(f"attention kernel K7 needs the forward's l2 "
@@ -261,13 +392,13 @@ def attention_bthd_backward_kernel(q, k, v, o, l2, do, scale: float):
     k, v, do = (_kernel_operand(t) for t in (k, v, do))
     l2 = l2.contiguous()
     dq = torch.zeros((B, T, H, D), dtype=torch.float32, device=q.device)
-    dk = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    dv = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Tk, H, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Tk, H, D), dtype=q.dtype, device=q.device)
     strides = [s for t in (qs, k, v, do) for s in t.stride()[:3]]
     code = _build.library().lsx_flash_attention_bwd(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         l2.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, T, H, *strides, float(scale),
+        dv.data_ptr(), B, T, Tk, H, *strides, float(scale),
         _build.stream_ptr(q.device))
     _build.launch_counts["flash_attention_backward"] += 1
     _build.check(code, "flash_attention_backward")
@@ -275,13 +406,10 @@ def attention_bthd_backward_kernel(q, k, v, o, l2, do, scale: float):
 
 
 def flash_attention_backward_kernel(q, k, v, o, l2, do, scale: float):
-    """K7 on [B, H, T, D] operands (K6's backward): the kernel reads their
-    [B, T, H, D] views in place and its outputs come back as [B, H, T, D]
-    views. It takes Tk == T only."""
-    if k.shape[2] != q.shape[2]:
-        raise ValueError(f"attention kernel K7 takes a key length equal to "
-                         f"the query length, got T={q.shape[2]}, "
-                         f"Tk={k.shape[2]}")
+    """K7 on [B, H, T, D] operands, k and v with their own key length Tk
+    (the backward of K6 and K9, and so K12's split kernels): the kernel
+    reads their [B, T, H, D] views in place and its outputs come back as
+    [B, H, T, D] views."""
     grads = attention_bthd_backward_kernel(
         *(_bthd(t) for t in (q, k, v, o)), l2, _bthd(do), scale)
     return tuple(_bthd(g) for g in grads)
@@ -321,23 +449,46 @@ FlashFn = _attention_fn("FlashFn", flash_attention_kernel,
                         flash_attention_plain,
                         flash_attention_backward_kernel,
                         flash_attention_backward_plain)
+OnlineFn = _attention_fn("OnlineFn", flash_attention_online_kernel,
+                         flash_attention_online_plain,
+                         flash_attention_backward_kernel,
+                         flash_attention_backward_plain)
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None,
                     bounded_logits: bool = False):
     """[B,H,T,D] q and [B,H,Tk,D] k, v -> [B,H,T,D], non-causal, in q's
-    dtype: K6 forward and K7 backward on CUDA tensors (they raise on a
-    head dim or dtype they do not take, and K7 on Tk != T), the plain
-    versions on CPU tensors. Only the bounded-logit form is ported:
-    ``bounded_logits=False`` (the online-softmax kernel K9) raises."""
-    if not bounded_logits:
-        raise NotImplementedError(
-            "flash_attention(bounded_logits=False) is the online-softmax "
-            "kernel K9 (langscenex_tpu/ops/flash_attention.py:32 "
-            "_attn_kernel), still to be ported")
+    dtype, differentiable. On CUDA tensors the kernels (they raise on a
+    head dim or dtype they do not take): K9 forward with the online
+    softmax, or with ``bounded_logits=True`` (|natural logits| well below
+    80, as under the DiT's qk-LayerNorm) K6 with no running max, and K7
+    backward for both. On CPU tensors their plain versions, K9's with
+    JAX's default block of 1024 keys. One difference from a CPU call: on
+    the card K9 rescales after every 64-key tile, so bf16(p), and so o,
+    may round differently, at the 2⁻⁸ level."""
     _check_bhtd(q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    return FlashFn.apply(q, k, v, float(scale), False)
+    fn = FlashFn if bounded_logits else OnlineFn
+    return fn.apply(q, k, v, float(scale), False)
+
+
+def flash_attention_h2(q, k, v, scale: Optional[float] = None):
+    """[B,H,T,D] q and [B,H,Tk,D] k, v -> [B,H,T,D] in q's dtype, the JAX
+    package's head-pair forward in the natural-exp domain: K11 on CUDA
+    tensors (a head dim other than 64 or a dtype other than bf16 raises;
+    the kernel's key tile is 64), the plain version with JAX's default key
+    block of 512 on CPU tensors. Forward only, as in JAX, which has no VJP
+    for it: an input that requires grad raises. Odd B·H is taken (JAX
+    asserts it even for its MXU packing)."""
+    _check_bhtd(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_attention_h2 is forward only (the JAX "
+                         "package has no VJP for it): detach its inputs or "
+                         "use flash_attention")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_h2_plain(q, k, v, float(scale))
+    return flash_attention_h2_kernel(q, k, v, float(scale))
 
 
 def attention_auto(q, k, v, scale: Optional[float] = None,
@@ -345,21 +496,15 @@ def attention_auto(q, k, v, scale: Optional[float] = None,
                    flash_threshold: int = 2048,
                    bounded_logits: bool = False):
     """[B,H,T,D] attention dispatch, the JAX package's: on CUDA tensors
-    with T >= ``flash_threshold``, :func:`flash_attention` (K6 forward,
-    K7 backward) for bounded logits — the unbounded kernel K9 is not
-    ported and raises; below the threshold or on the CPU, the einsum
-    softmax (logits in f32 from ``dtype`` operands, p in ``dtype``). The
-    output has q's dtype."""
+    with T >= ``flash_threshold``, :func:`flash_attention` (K9 forward, or
+    K6 for bounded logits, and K7 backward); below the threshold or on the
+    CPU, the einsum softmax (logits in f32 from ``dtype`` operands, p in
+    ``dtype``). The output has q's dtype."""
     T = q.shape[2]
     out_dtype = q.dtype
     if q.device.type == "cuda" and T >= flash_threshold:
-        if not bounded_logits:
-            raise NotImplementedError(
-                "attention_auto on the card with bounded_logits=False needs "
-                "the online-softmax kernel K9 (langscenex_tpu/ops/"
-                "flash_attention.py:32 _attn_kernel), still to be ported")
         return flash_attention(q.to(dtype), k.to(dtype), v.to(dtype), scale,
-                               bounded_logits=True).to(out_dtype)
+                               bounded_logits=bounded_logits).to(out_dtype)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bhqd,bhkd->bhqk", q.to(dtype).float(),
                           k.to(dtype).float())

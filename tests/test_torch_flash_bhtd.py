@@ -16,7 +16,8 @@ from test_torch_threads import few_torch_threads  # noqa: F401
 
 from langscenex_tpu.ops import flash_attention as jfa
 from langscenex_tpu_torch.ops.flash_attention import (
-    attention_auto, attention_bthd, flash_attention, flash_attention_plain)
+    attention_auto, attention_bthd, flash_attention,
+    flash_attention_online_plain, flash_attention_plain)
 
 SCALE = 0.125
 
@@ -136,8 +137,7 @@ def test_attention_auto_cpu_matches_jax(dtype):
     # f32 from the dtype's operands, p in the dtype). f32: 2e-5; bf16: the
     # same roundings, sums in another order move an output by at most a
     # bf16 ulp: 2^-8 relative + 1e-3. Above the threshold and with
-    # unbounded logits the CPU still takes the einsum (the card would
-    # need K9)
+    # unbounded logits the CPU still takes the einsum (the card runs K9)
     q, k, v = _mk(130, 130, seed=13)
     jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
     tdt = torch.float32 if dtype == "f32" else torch.bfloat16
@@ -172,5 +172,8 @@ def test_attention_bthd_under_tensor_parallel_matches_jax():
     o, _ = flash_attention_plain(*(t.transpose(1, 2) for t in (tq, tk, tv)),
                                  SCALE)
     torch.testing.assert_close(plain, o.transpose(1, 2), atol=0, rtol=0)
-    with pytest.raises(NotImplementedError, match="K9"):
-        flash_attention(tq, tk, tv)
+    # the unbounded flash_attention, the JAX default, runs K9's plain
+    # version on CPU tensors
+    torch.testing.assert_close(
+        flash_attention(tq, tk, tv),
+        flash_attention_online_plain(tq, tk, tv, SCALE)[0], atol=0, rtol=0)

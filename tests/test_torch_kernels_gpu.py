@@ -347,12 +347,12 @@ def test_flash_attention_bhtd_kernel_matches_plain(cuda, B, H, T, Tk, view):
 def test_flash_attention_bhtd_matches_k5_and_dispatch(cuda):
     # K6 and K5 share their device code: on the same tensors (K6 on the
     # [B, H, T, D] views) o and l2 are bit-identical. flash_attention's
-    # autograd runs K6 and K7 (on [B, H, T, D] views) and refuses Tk != T
-    # in the backward; attention_auto takes K6 from the threshold on and
-    # raises for unbounded logits, which need the unported K9
+    # autograd runs K6 and K7 (on [B, H, T, D] views), with Tk != T too;
+    # attention_auto takes K6 from the threshold on, and K9 for unbounded
+    # logits, as flash_attention does
     from langscenex_tpu_torch.ops.flash_attention import (
         attention_auto, attention_bthd_kernel, flash_attention,
-        flash_attention_kernel)
+        flash_attention_kernel, flash_attention_online_kernel)
     q, k, v = _qkv(np.random.default_rng(25), 2, 200, 3, cuda, "qkv")
     o5, l5 = attention_bthd_kernel(q, k, v, 0.125)
     o6, l6 = flash_attention_kernel(*(t.transpose(1, 2) for t in (q, k, v)),
@@ -369,19 +369,143 @@ def test_flash_attention_bhtd_matches_k5_and_dispatch(cuda):
         assert bool(torch.isfinite(t.grad.float()).all())
     kv = [t.transpose(1, 2)[:, :, :100].detach().requires_grad_()
           for t in (k, v)]
-    out = flash_attention(leaves[0], *kv, bounded_logits=True)
-    with pytest.raises(ValueError, match="key length"):
-        out.float().sum().backward()
+    qd = leaves[0].detach().requires_grad_()
+    flash_attention(qd, *kv, bounded_logits=True).float().sum().backward()
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attention_backward"] == 2
+    assert qd.grad.shape == qd.shape
+    for t in kv:
+        assert t.grad.shape == (2, 3, 100, 64)
+        assert bool(torch.isfinite(t.grad.float()).all())
     qh = q.transpose(1, 2)
     _build.reset_launch_counts()
     attention_auto(qh, qh, qh, bounded_logits=True, flash_threshold=128)
     assert _build.launch_counts["flash_attention_bhtd"] == 1
     attention_auto(qh, qh, qh, bounded_logits=True, flash_threshold=256)
     assert _build.launch_counts["flash_attention_bhtd"] == 1
-    with pytest.raises(NotImplementedError, match="K9"):
-        attention_auto(qh, qh, qh, bounded_logits=False, flash_threshold=128)
-    with pytest.raises(NotImplementedError, match="K9"):
-        flash_attention(qh, qh, qh)
+    got = attention_auto(qh, qh, qh, bounded_logits=False,
+                         flash_threshold=128)
+    assert _build.launch_counts["flash_attention_online"] == 1
+    want, _ = flash_attention_online_kernel(qh, qh, qh, 0.125)
+    assert torch.equal(got, want)
+    assert torch.equal(flash_attention(qh, qh, qh), want)
+    assert _build.launch_counts["flash_attention_online"] == 3
+    assert _build.launch_counts["flash_attention_bhtd"] == 1
+
+
+def _bhtd(rng, B, H, n, device, view, mag=1.0):
+    """A seeded [B, H, n, 64] bf16 tensor, or the transpose(1, 2) view of a
+    [B, n, H, 64] one."""
+    shape = (B, n, H, 64) if view else (B, H, n, 64)
+    x = torch.from_numpy((rng.normal(size=shape) * mag).astype(
+        np.float32)).to(device, torch.bfloat16)
+    return x.transpose(1, 2) if view else x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,Tk,view,mag", [(1, 4, 300, 300, False, 1.0),
+                                               (2, 3, 130, 200, True, 1.0),
+                                               (1, 2, 384, 640, False, 1.0),
+                                               (2, 2, 200, 70, True, 1.0),
+                                               (1, 1, 1, 1, False, 1.0),
+                                               (1, 2, 128, 192, False, 20.0)])
+def test_online_kernels_match_plain(cuda, B, H, T, Tk, view, mag):
+    # K9 and K11 against their plain versions at the kernel's 64-key tile
+    # (the same rescale points), Tk != T, tails, views and x20 logits
+    # (where K6's bounded softmax overflows). As K6's bounds: o within
+    # 2^-7 relative + 1e-3; K9's l2 within log2(1 + 2^-7) < 1.13e-2 (a p one
+    # bf16 ulp away moves l by at most 2^-7 of it) and, at unit logits,
+    # within 1e-4 on average over the rows
+    from langscenex_tpu_torch.ops.flash_attention import (
+        KERNEL_BLOCK_K, flash_attention_h2_kernel, flash_attention_h2_plain,
+        flash_attention_online_kernel, flash_attention_online_plain)
+    rng = np.random.default_rng(26)
+    q, k, v = (_bhtd(rng, B, H, n, cuda, view, m)
+               for n, m in ((T, mag), (Tk, mag), (Tk, 1.0)))
+    _build.reset_launch_counts()
+    o, l2 = flash_attention_online_kernel(q, k, v, 0.125)
+    oh = flash_attention_h2_kernel(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert _build.launch_counts == {**{n: 0 for n in _build.launch_counts},
+                                    "flash_attention_online": 1,
+                                    "flash_attention_h2": 1}
+    ro, rl2 = flash_attention_online_plain(q, k, v, 0.125,
+                                           block_k=KERNEL_BLOCK_K)
+    rh = flash_attention_h2_plain(q, k, v, 0.125, block_k=KERNEL_BLOCK_K)
+    assert o.shape == oh.shape == (B, H, T, 64) and l2.shape == (B * H, T)
+    for got, ref in ((o, ro), (oh, rh)):
+        assert bool(torch.isfinite(got.float()).all())
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-3,
+                                   rtol=2 ** -7)
+    torch.testing.assert_close(l2, rl2, atol=1.13e-2, rtol=1e-5)
+    if mag == 1.0:
+        assert float((l2 - rl2).abs().mean()) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,Tk,view", [(1, 3, 300, 130, False),
+                                           (2, 2, 130, 200, True),
+                                           (1, 2, 64, 640, False)])
+def test_backward_kernel_with_own_key_length_matches_plain(cuda, B, H, T, Tk,
+                                                           view):
+    # K7 with Tk != T (K12's split backward, served by K7) on K9's o and
+    # l2, against the plain backward on the same: K7's bounds (see
+    # test_flash_attention_backward_kernel_matches_plain)
+    from langscenex_tpu_torch.ops.flash_attention import (
+        flash_attention_backward_kernel, flash_attention_backward_plain,
+        flash_attention_online_kernel)
+    rng = np.random.default_rng(27)
+    q, do = (_bhtd(rng, B, H, T, cuda, view) for _ in range(2))
+    k, v = (_bhtd(rng, B, H, Tk, cuda, view) for _ in range(2))
+    o, l2 = flash_attention_online_kernel(q, k, v, 0.125)
+    _build.reset_launch_counts()
+    got = flash_attention_backward_kernel(q, k, v, o, l2, do, 0.125)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attention_backward"] == 1
+    ref = flash_attention_backward_plain(q, k, v, o, l2, do, 0.125)
+    for name, g, r, n in zip("qkv", got, ref, (T, Tk, Tk)):
+        assert g.shape == (B, H, n, 64) and g.dtype == torch.bfloat16
+        assert bool(torch.isfinite(g.float()).all()), name
+        g, r = g.float(), r.float()
+        torch.testing.assert_close(g, r, rtol=2 ** -7,
+                                   atol=2 ** -8 * float(r.abs().max()),
+                                   msg=f"d{name}")
+        rel = float((g - r).pow(2).mean().sqrt() / r.pow(2).mean().sqrt())
+        assert rel < 2 ** -9, (name, rel)
+
+
+@pytest.mark.gpu
+def test_unbounded_forward_backward_launches_k9_and_k7(cuda):
+    # one flash_attention(bounded_logits=False) forward + backward: exactly
+    # one K9 and one K7 launch, nothing else, and the gradients of K7 on
+    # K9's (o, l2); flash_attention_h2 runs K11 and refuses inputs that
+    # require grad
+    from langscenex_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_backward_plain, flash_attention_h2,
+        flash_attention_online_kernel)
+    rng = np.random.default_rng(28)
+    q, k, v, do = (_bhtd(rng, 1, 2, n, cuda, False)
+                   for n in (150, 90, 90, 150))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    _build.reset_launch_counts()
+    o = flash_attention(*leaves)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert _build.launch_counts == {**{n: 0 for n in _build.launch_counts},
+                                    "flash_attention_online": 1,
+                                    "flash_attention_backward": 1}
+    ro, rl2 = flash_attention_online_kernel(q, k, v, 0.125)
+    assert torch.equal(o.detach(), ro)
+    ref = flash_attention_backward_plain(q, k, v, ro, rl2, do, 0.125)
+    for leaf, r in zip(leaves, ref):
+        torch.testing.assert_close(leaf.grad.float(), r.float(),
+                                   rtol=2 ** -7,
+                                   atol=2 ** -8 * float(r.abs().max()))
+    _build.reset_launch_counts()
+    assert flash_attention_h2(q, k, v).shape == q.shape
+    assert _build.launch_counts["flash_attention_h2"] == 1
+    with pytest.raises(ValueError, match="forward only"):
+        flash_attention_h2(*leaves)
 
 
 @pytest.mark.gpu
