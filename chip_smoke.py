@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's render, training and video-diffusion
-paths and its exact-softmax attention once on one NVIDIA GPU.
+paths, its exact-softmax attention and its exp2-attention and row-gather
+probes once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -108,6 +109,22 @@ Phases (any failure raises, so the exit code is non-zero):
      times of K9, K11 and K7 on K9's l2 beside their plain versions,
      scaled_dot_product_attention and the bound; and the ported
      experiments ab_attention and ab_attention4 through their main.
+ 21. the cells attention-exp2-48x18432x64 and gather-640k-w24, the probes
+     of K13 through the ported experiments' entry points on seeded
+     inputs: flash_exp2 (K13a) at [1, 48, 17776, 64] (a masked key tail)
+     and [1, 48, 18432, 64], flash_exp2_bf16 (K13b) at 18,432 and its
+     refusal at 17,776, gather_rows (K13c) of 640,000 rows of a
+     [100008, 24] table in f32 and bf16, with exactly 2 K13a, 1 K13b and
+     2 K13c launches and no other; K13b's packed exp alone on every bf16
+     input of [-126, 0] (within one bf16 ulp); K13a and K13b against
+     their plain versions at the kernel's 64-key tile (K5's bounds, and
+     for K13b the packed exp's) and the gap to JAX's 1024-key block, K13a
+     against K9, K13b against K13a; K13c bit
+     for bit against torch.index_select; CUDA-event times of K9, K13a and
+     K13b in turns, their plain versions, scaled_dot_product_attention and
+     the bound, and of K13c queued behind a spin and paced by the host,
+     beside index_select; then ab_attention2 and ab_gather2 through their
+     main.
 Every kernel's bound is computed from this run's shapes: the larger of
 its operations over the bf16 tensor-core peak and its bytes (each input
 read once, each output written once) over the HBM rate.
@@ -139,15 +156,22 @@ from langscenex_tpu_torch.models.cogvideox.transformer import (
     CogVideoXTransformer, TransformerConfig)
 from langscenex_tpu_torch.ops.compaction import (compact_pairs,
                                                  compact_pairs_plain)
-from langscenex_tpu_torch.experiments import ab_attention, ab_attention4
+from langscenex_tpu_torch.experiments import (ab_attention, ab_attention2,
+                                              ab_attention4, ab_gather2,
+                                              time_ms)
 from langscenex_tpu_torch.ops.flash_attention import (
     KERNEL_BLOCK_K, attention_auto, attention_bthd_backward_kernel,
     attention_bthd_backward_plain, attention_bthd_kernel,
     attention_bthd_plain, flash_attention, flash_attention_backward_kernel,
-    flash_attention_backward_plain, flash_attention_h2,
+    flash_attention_backward_plain, flash_attention_exp2_bf16_kernel,
+    flash_attention_exp2_bf16_plain, flash_attention_exp2_kernel,
+    flash_attention_exp2_plain, flash_attention_h2,
     flash_attention_h2_kernel, flash_attention_h2_plain,
     flash_attention_kernel, flash_attention_online_kernel,
-    flash_attention_online_plain, flash_attention_plain)
+    flash_attention_online_plain, flash_attention_plain, exp2_bf16x2_kernel,
+    exp2_bf16x2_plain)
+from langscenex_tpu_torch.ops.gather import (gather_rows, gather_rows_kernel,
+                                             gather_rows_plain)
 from langscenex_tpu_torch.ops.ln_modulate import (ln_modulate,
                                                   ln_modulate_plain)
 from langscenex_tpu_torch.ops.rasterize import RasterConfig, prepare_blend
@@ -329,6 +353,34 @@ EXACT_T, EXACT_TEXT, EXACT_H = 13 * 30 * 45 + 226, 226, 48
 X20_SHAPE = (1, 2, 300, 200)          # B, H, T, Tk of the x20-logit input
 K9_K6_ULP, K11_K9_REL_RMS = 2 ** -8, 2 ** -6
 EXPERIMENT_ITERS = 2
+# the cells attention-exp2-48x18432x64 and gather-640k-w24 (phase 21): the
+# K13 probes of experiments/ab_attention2.py and ab_gather2.py at their
+# shapes, 48 heads at T = 17,776 (the DiT's tokens: a masked key tail) and
+# 18,432 (18 whole 1024-key blocks, no mask, the length where the
+# packed-bf16 probe runs), and 640,000 rows of width 24 from a table of
+# ab_gather2.P + 8 rows. K13a is held to its plain version at the
+# kernel's 64-key tile with K5's bounds: it has K9's rounding points but
+# for l (the sum of the unrounded p). K13b's packed ex2.approx.ftz.bf16x2
+# is measured alone on every bf16 input of [-126, 0] against exp2 rounded
+# to bf16 and must stay within one bf16 ulp (2^-7 of p at most); then each
+# p of K13b may move by a factor 1 + e, |e| <= 2^-7, against its plain
+# version, and o = sum p v / sum p by at most 2^-7 / (1 - 2^-7) max|v - o|,
+# plus a bf16 rounding of each side's o (2^-7 |o| together). Such moves
+# are many and of either sign, so o's relative RMS difference stays near
+# their RMS (2^-7 / sqrt(3) at most): within 2^-7, where a dropped 64-key
+# tile moves it by about sqrt(64 / 18432) = 0.06. K13a against K9 on the
+# same inputs: both form the same q', s, m', bf16(p) and PV product and
+# differ only in l, the sum of p against that of bf16(p), by at most 2^-9
+# of l, so o by 2^-9 of |o| before its bf16 rounding: K5's bounds again.
+# K13b against K13a: bf16(s - m') moves each p by up to 2^-8 ln2 |s - m'|
+# of it, in roundings of either sign, so o's relative RMS difference stays
+# near their RMS: within 2^-5. K13c moves bits: bit for bit against
+# index_select.
+K13_TOKENS, K13_H = (17776, 18432), 48
+GATHER_A, GATHER_W, GATHER_SHORT_A = 640_000, 24, 160_000
+K13_ITERS, GATHER_ITERS = 5, 200
+EXP2_BF16_REL_RMS = 2 ** -5
+PACKED_EXP_ULP, K13B_REL_RMS = 2 ** -7, 2 ** -7
 # the card's published peaks (H100 SXM): bf16 dense tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -356,6 +408,10 @@ TPU_KERNELS = {
     "ln_modulate": "langscenex_tpu/ops/ln_modulate.py:31 _lnz_kernel",
     "flash_attention_backward": "langscenex_tpu/ops/flash_attention.py:360 "
                                 "_bwd_fused_kernel_t",
+    "flash_attention_exp2": "experiments/ab_attention2.py:46 _exp2_kernel",
+    "flash_attention_exp2_bf16": "experiments/ab_attention2.py:129 "
+                                 "_exp2_bf16_kernel",
+    "gather_rows": "experiments/ab_gather2.py:63 kern (pallas_gather)",
 }
 SOURCES = {
     "sort_pairs": "langscenex_tpu_torch/csrc/sort.cu",
@@ -371,6 +427,10 @@ SOURCES = {
     "flash_attention_h2": "langscenex_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_backward_split":
         "langscenex_tpu_torch/csrc/flash_attention_backward.cu",
+    "flash_attention_exp2": "langscenex_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_exp2_bf16":
+        "langscenex_tpu_torch/csrc/flash_attention.cu",
+    "gather_rows": "langscenex_tpu_torch/csrc/gather_rows.cu",
 }
 RENDER_TRAIN_KERNELS = ("blend_forward", "blend_backward", "compact_pairs",
                         "sort_pairs")
@@ -379,6 +439,8 @@ TRAIN_DIT_KERNELS = ("flash_attention_backward",)
 TP_KERNELS = ("flash_attention_bhtd",)
 EXACT_KERNELS = ("flash_attention_online", "flash_attention_h2",
                  "flash_attention_backward_split")
+K13_KERNELS = ("flash_attention_exp2", "flash_attention_exp2_bf16",
+               "gather_rows")
 
 
 def scene(n: int, seed: int = 0):
@@ -1493,6 +1555,26 @@ def phase_k6(dev, results) -> None:
           f"{k7_bound['bound_ms']:.4f} ms ({k7_bound['bound_by']})")
 
 
+def check_packed_exp2(o, ro, v, what: str) -> float:
+    """Hold K13b's o to its plain version's where each p may be one bf16
+    ulp away: |o - ro| <= 2^-7 / (1 - 2^-7) (max|v| + |ro|) + 2^-7 |ro|
+    and o's relative RMS difference within 2^-7; returns the largest
+    error."""
+    o, ro = o.float(), ro.float()
+    err, o_rms = max_abs(o, ro), rel_rms(o, ro)
+    lim = (PACKED_EXP_ULP / (1 - PACKED_EXP_ULP)
+           * (float(v.abs().max()) + ro.abs()) + PACKED_EXP_ULP * ro.abs())
+    print(f"{what}: max|o| err {err:.3e} (bound 2^-7 (max|v| + |o|) + "
+          f"2^-7 |o|, max|v| {float(v.abs().max()):.3g}), o rel RMS "
+          f"{o_rms:.3e} (bound {K13B_REL_RMS:.3g}), "
+          f"{float((o != ro).float().mean()):.4%} of outputs differ")
+    require(bool(torch.isfinite(o).all()), f"{what}: non-finite o")
+    require(bool(((o - ro).abs() <= lim).all()), f"{what}: o beyond bound")
+    require(o_rms <= K13B_REL_RMS, f"{what}: o's relative RMS difference "
+            f"{o_rms:.3e} above {K13B_REL_RMS:.3g}")
+    return err
+
+
 def launches_now() -> dict:
     return {k: v for k, v in _build.launch_counts.items() if v}
 
@@ -1679,6 +1761,199 @@ def phase_exact(dev, results) -> dict:
     ab4 = ab_attention4.main(iters=EXPERIMENT_ITERS, device=dev)
     require(all(math.isfinite(x) for x in ab4.values()),
             "ab_attention4: non-finite result")
+    return launches
+
+
+def phase_k13(dev, results) -> dict:
+    """Phase 21, attention-exp2-48x18432x64 and gather-640k-w24: the K13
+    probes through their entry points with exact launch counts, then K13a
+    and K13b against their plain versions, K9 and each other, K13c
+    against index_select, times and the two ported experiments. Returns
+    the counted run's launches."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    D, sc = 64, 0.125
+    Tm, Tf = K13_TOKENS
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qkv = {T: tuple(torch.randn((1, K13_H, T, D), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                    for _ in range(3)) for T in K13_TOKENS}
+    tabs = {dt: ab_gather2.draws(ab_gather2.P + 8, GATHER_W, GATHER_A, dt,
+                                 dev) for dt in (torch.float32,
+                                                 torch.bfloat16)}
+
+    # ---- the path, counted: flash_exp2 at both lengths, flash_exp2_bf16
+    # where it runs and where it refuses, gather_rows in f32 and bf16
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        path = {T: ab_attention2.flash_exp2(*qkv[T]) for T in K13_TOKENS}
+        path_bf16 = ab_attention2.flash_exp2_bf16(*qkv[Tf])
+        try:
+            ab_attention2.flash_exp2_bf16(*qkv[Tm])
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        rows = {dt: gather_rows(*tabs[dt]) for dt in tabs}
+    torch.cuda.synchronize()
+    launches = launches_now()
+    want = {"flash_attention_exp2": 2, "flash_attention_exp2_bf16": 1,
+            "gather_rows": 2}
+    print(f"K13 probes: flash_exp2 at q, k, v [1, {K13_H}, {Tm} and {Tf}, "
+          f"{D}], flash_exp2_bf16 at {Tf}, gather_rows of {GATHER_A} rows of "
+          f"[{ab_gather2.P + 8}, {GATHER_W}] f32 and bf16: launches "
+          f"{launches} (expected {want}); flash_exp2_bf16 at {Tm}: "
+          f"{refused or 'ran'}")
+    require(bool(refused), f"flash_exp2_bf16 took T = {Tm}, where JAX's grid "
+            f"drops keys")
+    require(launches == want, "K13 probes: launch counts")
+
+    with torch.inference_mode():
+        # ---- K13b's packed exp alone, on every bf16 input of [-126, 0]
+        x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32,
+                         device=dev).to(torch.int16).view(torch.bfloat16)
+        x = x[torch.isfinite(x) & (x <= 0) & (x >= -126)]
+        x = x[:x.numel() // 2 * 2]
+        got, ref = exp2_bf16x2_kernel(x), exp2_bf16x2_plain(x)
+        ulps = (got.view(torch.int16).int() - ref.view(torch.int16).int()
+                ).abs()
+        print(f"K13b's ex2.approx.ftz.bf16x2 on the {x.numel()} bf16 inputs "
+              f"of [-126, 0] against exp2 rounded to bf16: "
+              f"{float((ulps > 0).float().mean()):.4%} differ, by at most "
+              f"{int(ulps.max())} ulp (bound 1), "
+              f"{float((got < ref).float().mean()):.4%} below")
+        require(int(ulps.max()) <= 1, "the packed exp is off by more than "
+                "one bf16 ulp")
+        del x, got, ref, ulps
+        # ---- K13a against its plain version, JAX's block and K9
+        err_a = 0.0
+        for T in K13_TOKENS:
+            q, k, v = qkv[T]
+            o = flash_attention_exp2_kernel(q, k, v, sc)
+            require(torch.equal(o, path[T]), f"K13a T = {T}: the path's "
+                    f"output differs from a second launch")
+            ro = flash_attention_exp2_plain(q, k, v, sc,
+                                            block_k=KERNEL_BLOCK_K)
+            err_a = max(err_a, check_attention(
+                f"K13a vs plain at its {KERNEL_BLOCK_K}-key tile, q, k, v "
+                f"{list(q.shape)}", o, None, ro, None))
+            del ro
+            rj = flash_attention_exp2_plain(q, k, v, sc)
+            print(f"  K13a vs plain at JAX's 1024-key block: max|o| err "
+                  f"{max_abs(o, rj):.3e}, o rel RMS {rel_rms(o, rj):.3e}")
+            del rj
+            o9 = flash_attention_online_kernel(q, k, v, sc)[0]
+            check_attention(f"K13a vs K9 (l from p against bf16(p)), "
+                            f"{list(q.shape)}", o, None, o9, None)
+            del o9
+        # ---- K13b against its plain version, JAX's block and K13a
+        q, k, v = qkv[Tf]
+        ob = flash_attention_exp2_bf16_kernel(q, k, v, sc)
+        require(torch.equal(ob, path_bf16), "K13b: the path's output differs "
+                "from a second launch")
+        rb = flash_attention_exp2_bf16_plain(q, k, v, sc,
+                                             block_k=KERNEL_BLOCK_K)
+        err_b = check_packed_exp2(ob, rb, v, f"K13b vs plain at its "
+                                  f"{KERNEL_BLOCK_K}-key tile, q, k, v "
+                                  f"{list(q.shape)}")
+        del rb
+        rj = flash_attention_exp2_bf16_plain(q, k, v, sc)
+        print(f"  K13b vs plain at JAX's 1024-key block: max|o| err "
+              f"{max_abs(ob, rj):.3e}, o rel RMS {rel_rms(ob, rj):.3e}")
+        del rj
+        gap = rel_rms(ob, path[Tf])
+        print(f"K13b (packed bf16 exp2) vs K13a (f32 exp2), {list(q.shape)}: "
+              f"o rel RMS {gap:.3e} (bound {EXP2_BF16_REL_RMS:.3g}), max|o| "
+              f"diff {max_abs(ob, path[Tf]):.3e}")
+        require(gap <= EXP2_BF16_REL_RMS, "K13b differs from K13a beyond "
+                "bound")
+        # ---- K13c bit for bit against index_select
+        for dt, (tab, idx) in tabs.items():
+            lib = tab.index_select(0, idx)
+            bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+            same = torch.equal(rows[dt].reshape(GATHER_A, GATHER_W).view(bits),
+                               lib.view(bits))
+            print(f"K13c gather_rows {str(dt)[6:]} [{GATHER_A}, {GATHER_W}] "
+                  f"vs index_select: bit-identical {same}")
+            require(same, "K13c differs from index_select")
+            del lib
+
+    # ---- times: K9, K13a, K13b in turns at T = 18,432; plain, SDPA, bound
+    ms, libs, bounds = {}, {}, {}
+    for T in K13_TOKENS:
+        q, k, v = qkv[T]
+        fns = {"K9": lambda: flash_attention_online_kernel(q, k, v, sc),
+               "K13a": lambda: flash_attention_exp2_kernel(q, k, v, sc)}
+        order = ("K9", "K13a", "K13a", "K9")
+        if T == Tf:
+            fns["K13b"] = lambda: flash_attention_exp2_bf16_kernel(q, k, v,
+                                                                   sc)
+            order = ("K9", "K13a", "K13b", "K13b", "K13a", "K9")
+        runs = {n: [] for n in fns}
+        for n in order:
+            runs[n].append(cuda_ms(fns[n], K13_ITERS))
+        with torch.no_grad():
+            libs[T] = lib = cuda_ms(lambda: sdpa(q, k, v), K13_ITERS)
+        bounds[T] = b = bound(flops=4.0 * K13_H * T * T * D,
+                              moved=nbytes(q, k, v, path[T]))
+        ms[T] = {n: sum(r) / len(r) for n, r in runs.items()}
+        print(f"K13 attention at [1, {K13_H}, {T}, {D}] (in turns "
+              f"{' '.join(order)}): "
+              + ", ".join(f"{n} {' / '.join('%.4f' % x for x in runs[n])} "
+                          f"ms" for n in fns)
+              + f"; scaled_dot_product_attention {lib:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}, "
+              f"{4.0 * K13_H * T * T * D / 1e12:.3f} TFLOP at 989 TFLOP/s)")
+    q, k, v = qkv[Tf]
+    plain_a = cuda_ms(lambda: flash_attention_exp2_plain(
+        q, k, v, sc, block_k=KERNEL_BLOCK_K), 1, warmup=1)
+    plain_b = cuda_ms(lambda: flash_attention_exp2_bf16_plain(
+        q, k, v, sc, block_k=KERNEL_BLOCK_K), 1, warmup=1)
+    print(f"K13a plain {plain_a:.4f} ms, K13b plain {plain_b:.4f} ms at "
+          f"[1, {K13_H}, {Tf}, {D}]; K13b / K13a "
+          f"{ms[Tf]['K13b'] / ms[Tf]['K13a']:.4f}, K13a / K9 "
+          f"{ms[Tf]['K13a'] / ms[Tf]['K9']:.4f}")
+    results["flash_attention_exp2"] = dict(
+        max_abs_err=err_a, ms=ms[Tf]["K13a"], plain_ms=plain_a, **bounds[Tf],
+        library_ms=libs[Tf])
+    results["flash_attention_exp2_bf16"] = dict(
+        max_abs_err=err_b, ms=ms[Tf]["K13b"], plain_ms=plain_b, **bounds[Tf],
+        library_ms=libs[Tf])
+
+    # ---- K13c: queued behind a spin (device time) and paced by the host
+    for dt, (tab, idx) in tabs.items():
+        out = rows[dt]
+        for A in (GATHER_A, GATHER_SHORT_A):
+            ii = idx[:A]
+            dev_ms = time_ms(lambda: gather_rows_kernel(tab, ii),
+                             GATHER_ITERS, dev, queued=True)
+            host_ms = time_ms(lambda: gather_rows_kernel(tab, ii),
+                              GATHER_ITERS, dev)
+            lib = time_ms(lambda: tab.index_select(0, ii), GATHER_ITERS, dev,
+                          queued=True)
+            moved = nbytes(out[:A // 512], ii, tab)
+            b = bound(moved=moved)
+            print(f"K13c gather_rows {str(dt)[6:]} A={A} W={GATHER_W}: "
+                  f"queued {dev_ms * 1e3:.3f} us, host-paced "
+                  f"{host_ms * 1e3:.3f} us, index_select queued "
+                  f"{lib * 1e3:.3f} us, bound {b['bound_ms'] * 1e3:.3f} us "
+                  f"({b['bound_by']}, {moved / 1e6:.2f} MB at 3.35 TB/s)")
+            if A == GATHER_A and dt == torch.float32:
+                plain = time_ms(lambda: gather_rows_plain(tab, idx), 20, dev)
+                results["gather_rows"] = dict(
+                    max_abs_err=0.0, ms=dev_ms, plain_ms=plain, **b,
+                    library_ms=lib)
+                print(f"  plain version (f32) {plain * 1e3:.3f} us")
+    del qkv, path, path_bf16, rows, tabs
+    torch.cuda.empty_cache()
+
+    # ---- the ported experiments, through their main
+    print(f"langscenex_tpu_torch.experiments.ab_attention2, "
+          f"{EXPERIMENT_ITERS} iterations:")
+    ab2 = ab_attention2.main(iters=EXPERIMENT_ITERS, device=dev)
+    print("langscenex_tpu_torch.experiments.ab_gather2:")
+    abg = ab_gather2.main(device=dev)
+    require(all(math.isfinite(x) and x > 0 for x in [*ab2.values(),
+                                                    *abg.values()]),
+            "K13 experiments: a time is not finite")
     return launches
 
 
@@ -2015,6 +2290,9 @@ def main() -> int:
     # ---- 20. exact attention, attention-exact-48x17776x64 ---------------
     exact = phase_exact(dev, results)
 
+    # ---- 21. K13, attention-exp2-48x18432x64 and gather-640k-w24 ---------
+    k13 = phase_k13(dev, results)
+
     launches = {**{k: train_launches[k] for k in RENDER_TRAIN_KERNELS},
                 **{k: request["launches"][k] for k in DIT_KERNELS},
                 "flash_attention_backward": lora["launches"],
@@ -2022,12 +2300,14 @@ def main() -> int:
                 "flash_attention_online": exact["flash_attention_online"],
                 "flash_attention_h2": exact["flash_attention_h2"],
                 "flash_attention_backward_split":
-                    exact["flash_attention_backward"]}
+                    exact["flash_attention_backward"],
+                **{k: k13[k] for k in K13_KERNELS}}
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=TPU_KERNELS[name], launches=launches[name],
                     **results[name])
                for name in RENDER_TRAIN_KERNELS + DIT_KERNELS
-               + TRAIN_DIT_KERNELS + TP_KERNELS + EXACT_KERNELS]
+               + TRAIN_DIT_KERNELS + TP_KERNELS + EXACT_KERNELS
+               + K13_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -38,7 +38,9 @@ launch_counts = {"sort_pairs": 0, "compact_pairs": 0, "blend_forward": 0,
                  "blend_backward": 0, "flash_attention": 0,
                  "flash_attention_bhtd": 0, "flash_attention_backward": 0,
                  "ln_modulate": 0, "flash_attention_online": 0,
-                 "flash_attention_h2": 0}
+                 "flash_attention_h2": 0, "flash_attention_exp2": 0,
+                 "flash_attention_exp2_bf16": 0, "gather_rows": 0,
+                 "exp2_bf16x2": 0}
 
 # seconds the last nvcc build of this process took (0.0 when only the
 # cached library was loaded); read by chip_smoke.py
@@ -80,6 +82,15 @@ _SIGNATURES = {
     # and o, bf16(scale), stream
     "lsx_flash_attention_h2_fwd": [_P, _P, _P, _P, _I, _I, _I, _I,
                                    *[_L] * 12, _F, _P],
+    # K13a, K13b: as K11's, with bf16(scale * log2 e)
+    "lsx_flash_attention_exp2_fwd": [_P, _P, _P, _P, _I, _I, _I, _I,
+                                     *[_L] * 12, _F, _P],
+    "lsx_flash_attention_exp2_bf16_fwd": [_P, _P, _P, _P, _I, _I, _I, _I,
+                                          *[_L] * 12, _F, _P],
+    # K13c: tab, idx, out, R, W, A, elem_bytes, stream
+    "lsx_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # K13b's packed exp alone: x, y, n, stream
+    "lsx_exp2_bf16x2": [_P, _P, _I, _P],
     # q', k, v, do, l2, dvec, dq, dk, dv, B, T, Tk, H, (b, t, h) element
     # strides of q', k, v and do, scale, stream
     "lsx_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

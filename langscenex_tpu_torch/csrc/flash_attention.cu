@@ -1,8 +1,9 @@
 // Flash-attention forward, kernels K5 ([B, T, H, D], bounded logits), K6
 // ([B, H, T, D], bounded logits, key length Tk that may differ from T),
-// K9 ([B, H, T, D], online softmax in the exp2 domain) and K11 ([B, H, T,
-// D], online softmax in the natural-exp domain): one device function read
-// through element strides, templated on its softmax, four entry points.
+// K9 ([B, H, T, D], online softmax in the exp2 domain), K11 ([B, H, T,
+// D], online softmax in the natural-exp domain) and the two exp2 probes of
+// K13 ([B, H, T, D], f32 or packed-bf16 exp2): one device function read
+// through element strides, templated on its softmax, six entry points.
 //
 // K5 replaces: langscenex_tpu/ops/flash_attention.py:991
 // _attn_kernel_nomax_t4 (reached via _flash_fwd_impl_bthd, :1043, from
@@ -16,10 +17,12 @@
 // flash_attention(bounded_logits=False) and attention_auto). K11 replaces
 // :676 _attn_kernel_h2 (called at :772 from flash_attention_h2); its head
 // pairs packed block-diagonally keep the MXU's 128-deep contraction full
-// and carry no function, so it is one head per block here. The transposed
-// accumulator of the TPU's bounded kernels exists to keep the MXU's output
-// lanes full; on Hopper the mma tiles below have no such padding, so only
-// the function carries over. In [B, H, T, D] one head's rows are
+// and carry no function, so it is one head per block here. K13a replaces
+// experiments/ab_attention2.py:46 _exp2_kernel (call :96, from flash_exp2)
+// and K13b :129 _exp2_bf16_kernel (call :165, from flash_exp2_bf16). The
+// transposed accumulator of the TPU's bounded kernels exists to keep the
+// MXU's output lanes full; on Hopper the mma tiles below have no such
+// padding, so only the function carries over. In [B, H, T, D] one head's rows are
 // contiguous: a 64-row k or v tile is one 8 KB read. The rounding points
 // are the TPU kernels':
 //   bounded (K5, K6; the DiT's qk-LayerNorm bounds the logits, so there is
@@ -35,6 +38,12 @@
 //   natural (K11): q' = bf16(q * bf16(scale)), p = exp(s - m'),
 //     a = exp(m - m'), l summed from the unrounded f32 p, bf16(p) in the PV
 //     product, o as above, no l2.
+//   exp2 (K13a): K9's q', s, m' and a; p = exp2(s - m') and l summed from
+//     the unrounded p, as K11 sums; bf16(p) in the PV product; no l2.
+//   exp2 bf16 (K13b): as K13a, but d = bf16(s - m') and p = exp2(d)
+//     evaluated in bf16, two per ex2.approx.ftz.bf16x2 (Hopper's packed
+//     bf16 exp, the TPU's two-lane bf16 exp2); l sums those bf16 p, a stays
+//     f32. It measures what the exps on the SFU cost the loop.
 // kv rows past Tk contribute nothing: the staged k/v rows are zero, so no
 // garbage or NaN enters the sums, and p is set to 0 there, as the TPU
 // kernels' zero v columns, valid row and -1e9 bias column do; in the
@@ -47,7 +56,9 @@
 // tensor-parallel shard of 24 heads does half of both. Its
 // B H T^2 = 3.03e10 exps take about as long again on the SFU
 // (16 ex2/clk/SM); the online modes add one exp per row and tile for the
-// rescale, 1/64 of that.
+// rescale, 1/64 of that. K13b issues half as many exps, two per packed
+// instruction, and on an H100 ran no faster than K13a (PERF.md §6): the
+// SFU does not bound this design.
 //
 // Design (simple and right first; wgmma, TMA and warp specialisation are
 // later work): one block of 4 warps per (b, h, 64-query tile); each warp
@@ -82,8 +93,9 @@ constexpr float FA_NEG_INF = -1e30f;  // JAX's NEG_INF: finite, so m - m'
                                        // is never inf - inf = NaN
 
 // The softmax of the device function: K5/K6's exp2 with no running max,
-// K9's online exp2, K11's online natural exp.
-enum class Softmax { kBounded, kOnline, kNatural };
+// K9's online exp2, K11's online natural exp, K13's online exp2 with l
+// from the unrounded p (kExp2) or with p in packed bf16 (kExp2Bf16).
+enum class Softmax { kBounded, kOnline, kNatural, kExp2, kExp2Bf16 };
 
 template <Softmax MODE>
 __device__ __forceinline__ float softmax_exp(float x) {
@@ -92,6 +104,14 @@ __device__ __forceinline__ float softmax_exp(float x) {
   } else {
     return exp2f(x);
   }
+}
+
+// exp2 of two bf16 in one 32-bit register, as one packed SFU operation
+// (subnormal results flush to 0)
+__device__ __forceinline__ unsigned exp2_bf16x2(unsigned d) {
+  unsigned p;
+  asm("ex2.approx.ftz.bf16x2 %0, %1;" : "=r"(p) : "r"(d));
+  return p;
 }
 
 template <Softmax MODE>
@@ -228,26 +248,35 @@ flash_fwd(const __nv_bfloat16* __restrict__ q,
     }
 
     // P = bf16(exp2(S)) (bounded) or bf16(exp(S - m')), zero past Tk; the
-    // normalizer sums P itself, or (natural) the unrounded p
+    // normalizer sums P itself, or (natural, exp2) the unrounded p. In the
+    // packed-bf16 mode P = exp2(bf16(S - m')) directly: a key past Tk has
+    // S = -1e30, so its d rounds to about -1e30 and its P to 0.
     unsigned pa[4][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if constexpr (MODE == Softmax::kBounded) {
-          p[e] = exp2f(s[n][e]);
-        } else {
-          p[e] = softmax_exp<MODE>(s[n][e] - (e < 2 ? m0 : m1));
-        }
-        if (tail && kv0 + n * 8 + 2 * tq + (e & 1) >= Tk) p[e] = 0.f;
-      }
-      const unsigned lo = pack_bf16(p[0], p[1]);
-      const unsigned hi = pack_bf16(p[2], p[3]);
-      if constexpr (MODE == Softmax::kNatural) {
-        lsum0 += p[0] + p[1];
-        lsum1 += p[2] + p[3];
+      unsigned lo, hi;
+      if constexpr (MODE == Softmax::kExp2Bf16) {
+        lo = exp2_bf16x2(pack_bf16(s[n][0] - m0, s[n][1] - m0));
+        hi = exp2_bf16x2(pack_bf16(s[n][2] - m1, s[n][3] - m1));
       } else {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (MODE == Softmax::kBounded) {
+            p[e] = exp2f(s[n][e]);
+          } else {
+            p[e] = softmax_exp<MODE>(s[n][e] - (e < 2 ? m0 : m1));
+          }
+          if (tail && kv0 + n * 8 + 2 * tq + (e & 1) >= Tk) p[e] = 0.f;
+        }
+        lo = pack_bf16(p[0], p[1]);
+        hi = pack_bf16(p[2], p[3]);
+        if constexpr (MODE == Softmax::kNatural || MODE == Softmax::kExp2) {
+          lsum0 += p[0] + p[1];
+          lsum1 += p[2] + p[3];
+        }
+      }
+      if constexpr (MODE != Softmax::kNatural && MODE != Softmax::kExp2) {
         const float2 flo = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(&lo));
         const float2 fhi = __bfloat1622float2(
@@ -330,6 +359,14 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   return 0;
 }
 
+// K13b's packed exp alone, to measure it against exp2 rounded to bf16:
+// y = exp2(x) for n2 pairs of bf16
+__global__ void exp2_bf16x2_probe(const unsigned* __restrict__ x,
+                                  unsigned* __restrict__ y, int n2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n2) y[i] = exp2_bf16x2(x[i]);
+}
+
 }  // namespace
 
 // o [B, T, H, 64] bf16 and l2 [B*H, T] f32 from q, k, v [B, T, H, 64]
@@ -390,4 +427,42 @@ extern "C" int lsx_flash_attention_h2_fwd(
       q, k, v, o, nullptr, B, H, T, Tk, Strides{qsb, qst, qsh},
       Strides{ksb, kst, ksh}, Strides{vsb, vst, vsh}, Strides{osb, ost, osh},
       scale1, stream);
+}
+
+// K13a: o [B, H, T, 64] bf16 from K6's operands with the exp2 online
+// softmax whose l sums the unrounded p; scale2 as K9's. No l2.
+extern "C" int lsx_flash_attention_exp2_fwd(
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int T, int Tk, long long qsb, long long qsh, long long qst, long long ksb,
+    long long ksh, long long kst, long long vsb, long long vsh, long long vst,
+    long long osb, long long osh, long long ost, float scale2,
+    cudaStream_t stream) {
+  return launch_fwd<Softmax::kExp2>(
+      q, k, v, o, nullptr, B, H, T, Tk, Strides{qsb, qst, qsh},
+      Strides{ksb, kst, ksh}, Strides{vsb, vst, vsh}, Strides{osb, ost, osh},
+      scale2, stream);
+}
+
+// K13b: K13a with p = exp2(bf16(s - m')) in packed bf16. No l2.
+extern "C" int lsx_flash_attention_exp2_bf16_fwd(
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int T, int Tk, long long qsb, long long qsh, long long qst, long long ksb,
+    long long ksh, long long kst, long long vsb, long long vsh, long long vst,
+    long long osb, long long osh, long long ost, float scale2,
+    cudaStream_t stream) {
+  return launch_fwd<Softmax::kExp2Bf16>(
+      q, k, v, o, nullptr, B, H, T, Tk, Strides{qsb, qst, qsh},
+      Strides{ksb, kst, ksh}, Strides{vsb, vst, vsh}, Strides{osb, ost, osh},
+      scale2, stream);
+}
+
+// y [n] bf16 = exp2(x [n] bf16) through K13b's packed instruction; n even.
+extern "C" int lsx_exp2_bf16x2(const void* x, void* y, int n,
+                               cudaStream_t stream) {
+  const int n2 = n / 2;
+  if (n2 == 0) return 0;
+  exp2_bf16x2_probe<<<(n2 + 255) / 256, 256, 0, stream>>>(
+      static_cast<const unsigned*>(x), static_cast<unsigned*>(y), n2);
+  LSX_CHECK_LAUNCH();
+  return 0;
 }

@@ -1,5 +1,5 @@
-"""Attention — kernels K5, K6, K9 and K11 (forward) and K7 (backward) —
-and the attention dispatch of the DiT.
+"""Attention — kernels K5, K6, K9, K11 and K13a/b (forward) and K7
+(backward) — and the attention dispatch of the DiT.
 
 Port of ``langscenex_tpu/ops/flash_attention.py``:
 
@@ -19,7 +19,11 @@ Port of ``langscenex_tpu/ops/flash_attention.py``:
   (K9, the online softmax) with the split backward kernels
   ``_bwd_dq_kernel``/``_bwd_dkv_kernel`` (K12), which compute K7's
   function from K9's l2, so K7's kernel serves them;
-* ``flash_attention_h2`` → ``_attn_kernel_h2`` (K11), forward only.
+* ``flash_attention_h2`` → ``_attn_kernel_h2`` (K11), forward only;
+* the exp2 probes of ``experiments/ab_attention2.py``, ``flash_exp2`` →
+  ``_exp2_kernel`` (K13a) and ``flash_exp2_bf16`` → ``_exp2_bf16_kernel``
+  (K13b), forward only, which the port's
+  ``experiments/ab_attention2.py`` calls through the wrappers here.
 
 The bounded forward (K5, K6): the logits are bounded by the DiT's
 qk-LayerNorm, so there is no running max, and the rounding points are
@@ -37,7 +41,10 @@ rescales fall moves bf16(p) at rounding level, so its plain version takes
 the block: JAX's default 1024 on the CPU, the kernel's 64-key tile where
 it is held against the kernel. K11 is the same recurrence in the
 natural-exp domain: q scaled by bf16(scale), p = exp(s − m'), l summed
-from the unrounded p, bf16(p) in the PV product, no l2.
+from the unrounded p, bf16(p) in the PV product, no l2. K13a is K9's
+recurrence with l summed from the unrounded p, and no l2; K13b is K13a
+with p = exp2(bf16(s − m')) evaluated in bf16 (the kernel two at a time,
+packed), l summed from those bf16 p, the rescale exp2(m − m') in f32.
 
 The backward recomputes p = exp2(s − l2) from the saved l2 with the TPU
 kernel's rounding points: ds = p·(dp − dvec) rounded to the working
@@ -51,7 +58,11 @@ back to: :func:`attention_bthd_kernel` / :func:`attention_bthd_plain`
 (K6), :func:`flash_attention_online_kernel` /
 :func:`flash_attention_online_plain` (K9),
 :func:`flash_attention_h2_kernel` / :func:`flash_attention_h2_plain`
-(K11), :func:`attention_bthd_backward_kernel` /
+(K11), :func:`flash_attention_exp2_kernel` /
+:func:`flash_attention_exp2_plain` (K13a),
+:func:`flash_attention_exp2_bf16_kernel` /
+:func:`flash_attention_exp2_bf16_plain` (K13b),
+:func:`attention_bthd_backward_kernel` /
 :func:`attention_bthd_backward_plain` and, on [B, H, T, D] views of the
 same kernel, :func:`flash_attention_backward_kernel` /
 :func:`flash_attention_backward_plain` (K7). :class:`FlashBTHDFn`,
@@ -76,6 +87,7 @@ KERNEL_HEAD_DIM = 64       # csrc/flash_attention.cu
 KERNEL_BLOCK_K = 64        # keys per tile of the forward kernels
 ONLINE_BLOCK_K = 1024      # JAX's default key block of K9
 H2_BLOCK_K = 512           # JAX's default key block of K11
+EXP2_BLOCK_K = 1024        # JAX's default key block of K13a/b
 PLAIN_Q_CHUNK = 256        # query rows per step of the plain version
 
 
@@ -126,20 +138,22 @@ def attention_bthd_plain(q, k, v, scale: float,
 
 
 def _online_plain(q, k, v, q_scale: torch.Tensor, block_k: int, q_chunk: int,
-                  natural: bool):
+                  mode: str):
     """The online softmax over key blocks of ``block_k``, one chunk of
     query rows at a time: (o in q's dtype, m [B,H,T], l [B,H,T] f32).
 
     The running max m_j after block j is the cumulative max of the block
-    maxima (from NEG_INF); block j's p is exp(s − m_j) (exp2 unless
-    ``natural``), and the recurrence acc_j = acc_{j-1}·exp(m_{j-1} − m_j)
-    + p̃_j·v is summed at once as Σ_j exp(m_j − m_last)·p̃_j·v, equal up to
-    f32 rounding. l sums bf16(p) (exp2 domain) or the unrounded p
-    (natural). Keys past Tk (the pad of the last block) take NEG_INF."""
+    maxima (from NEG_INF); block j's p is exp(s − m_j) (exp2 but in the
+    ``"natural"`` mode), and the recurrence acc_j = acc_{j-1}·exp(m_{j-1} −
+    m_j) + p̃_j·v is summed at once as Σ_j exp(m_j − m_last)·p̃_j·v, equal
+    up to f32 rounding. p̃ is bf16(p) (p rounded to q's dtype), or in the
+    ``"exp2_bf16"`` mode exp2(bf16(s − m_j)) in bf16. l sums p̃ (``"online"``,
+    ``"exp2_bf16"``) or the unrounded p (``"natural"``, ``"exp2"``). Keys
+    past Tk (the pad of the last block) take NEG_INF."""
     B, H, T, D = q.shape
     Tk = k.shape[2]
     dt = q.dtype
-    exp = torch.exp if natural else torch.exp2
+    exp = torch.exp if mode == "natural" else torch.exp2
     bk = min(block_k, Tk)
     nb = -(-Tk // bk)
     kf = k.transpose(-1, -2).float()                   # [B,H,D,Tk]
@@ -150,11 +164,16 @@ def _online_plain(q, k, v, q_scale: torch.Tensor, block_k: int, q_chunk: int,
         s = torch.nn.functional.pad(torch.matmul(qc, kf), (0, nb * bk - Tk),
                                     value=NEG_INF).unflatten(-1, (nb, bk))
         m = s.amax(-1).clamp(min=NEG_INF).cummax(-1).values   # [B,H,c,nb]
-        p = exp(s - m[..., None])                      # [B,H,c,nb,bk]
+        s -= m[..., None]                              # d = s − m_j
+        if mode == "exp2_bf16":
+            p = pr = exp(s.to(torch.bfloat16).float()).to(
+                torch.bfloat16).float()                # [B,H,c,nb,bk]
+        else:
+            p = exp(s)
+            pr = p.to(dt).float()
         del s
-        pr = p.to(dt).float()
         w = exp(m - m[..., -1:])                       # rescale to m_last
-        l = ((p if natural else pr).sum(-1) * w).sum(-1)
+        l = ((p if mode in ("natural", "exp2") else pr).sum(-1) * w).sum(-1)
         del p
         acc = torch.matmul((pr * w[..., None]).flatten(-2)[..., :Tk], vf)
         del pr
@@ -173,7 +192,7 @@ def flash_attention_online_plain(q, k, v, scale: float,
     default block by default; the kernel's tile is ``KERNEL_BLOCK_K``)."""
     B, H, T, _ = q.shape
     o, m, l = _online_plain(q, k, v, _scale2(scale, q.dtype).to(q.device),
-                            block_k, q_chunk, natural=False)
+                            block_k, q_chunk, "online")
     return o, (m + torch.log2(l.clamp(min=1e-30))).reshape(B * H, T)
 
 
@@ -185,7 +204,30 @@ def flash_attention_h2_plain(q, k, v, scale: float,
     block of ``block_k`` keys (JAX's 512 by default), the normalizer sums
     the unrounded p and the PV product takes bf16(p)."""
     q_scale = torch.tensor(scale, dtype=q.dtype, device=q.device)
-    return _online_plain(q, k, v, q_scale, block_k, q_chunk, natural=True)[0]
+    return _online_plain(q, k, v, q_scale, block_k, q_chunk, "natural")[0]
+
+
+def flash_attention_exp2_plain(q, k, v, scale: float,
+                               block_k: int = EXP2_BLOCK_K,
+                               q_chunk: int = PLAIN_Q_CHUNK):
+    """K13a's plain version: q [B,H,T,D], k, v [B,H,Tk,D] -> o [B,H,T,D] in
+    q's dtype. K9's q', s and running max per block of ``block_k`` keys
+    (JAX's 1024 by default; the kernel's tile is ``KERNEL_BLOCK_K``), the
+    normalizer summed from the unrounded p, bf16(p) in the PV product."""
+    return _online_plain(q, k, v, _scale2(scale, q.dtype).to(q.device),
+                         block_k, q_chunk, "exp2")[0]
+
+
+def flash_attention_exp2_bf16_plain(q, k, v, scale: float,
+                                    block_k: int = EXP2_BLOCK_K,
+                                    q_chunk: int = PLAIN_Q_CHUNK):
+    """K13b's plain version: K13a's, with p = exp2(bf16(s − m)) computed in
+    f32 and rounded to bf16, the normalizer summed from those bf16 p. This
+    is exp2 itself, as the TPU's native exp2 and the card's packed one
+    compute it; JAX's interpret mode lowers the exp2 of a bf16 operand to
+    exp(bf16(ln 2)·x) instead (``tests/test_torch_attention_exp2.py``)."""
+    return _online_plain(q, k, v, _scale2(scale, q.dtype).to(q.device),
+                         block_k, q_chunk, "exp2_bf16")[0]
 
 
 def _check(q, k, v) -> None:
@@ -273,9 +315,9 @@ def attention_bthd_kernel(q, k, v, scale: float):
 
 def _launch_bhtd(what: str, entry: str, counter: str, q, k, v,
                  q_scale: float, with_l2: bool = True):
-    """Launch one of the [B, H, T, D] forward kernels (K6, K9, K11) through
-    its C entry ``entry``: o laid out as a [B, T, H, 64] tensor and, with
-    ``with_l2``, l2 [B·H, T] f32."""
+    """Launch one of the [B, H, T, D] forward kernels (K6, K9, K11, K13a/b)
+    through its C entry ``entry``: o laid out as a [B, T, H, 64] tensor
+    and, with ``with_l2``, l2 [B·H, T] f32."""
     _check_bhtd(q, k, v)
     B, H, T, D = q.shape
     Tk = k.shape[2]
@@ -325,6 +367,50 @@ def flash_attention_h2_kernel(q, k, v, scale: float):
                         "flash_attention_h2", q, k, v,
                         float(torch.tensor(scale, dtype=torch.bfloat16)),
                         with_l2=False)[0]
+
+
+def flash_attention_exp2_kernel(q, k, v, scale: float):
+    """Launch K13a, the exp2 online softmax whose normalizer sums the
+    unrounded p, on K6's operands -> o [B,H,T,64] bf16 laid out as K6's.
+    Its rescale falls after every 64-key tile: its plain version is
+    :func:`flash_attention_exp2_plain` with ``block_k=KERNEL_BLOCK_K``."""
+    return _launch_bhtd("K13a", "lsx_flash_attention_exp2_fwd",
+                        "flash_attention_exp2", q, k, v,
+                        float(_scale2(scale, torch.bfloat16)),
+                        with_l2=False)[0]
+
+
+def flash_attention_exp2_bf16_kernel(q, k, v, scale: float):
+    """Launch K13b, K13a with p = exp2(bf16(s − m')) two at a time in
+    packed bf16 (``ex2.approx.ftz.bf16x2``), on K6's operands -> o
+    [B,H,T,64] bf16 laid out as K6's. The packed exp may differ from the
+    f32 exp2 rounded to bf16 by a bf16 ulp of p."""
+    return _launch_bhtd("K13b", "lsx_flash_attention_exp2_bf16_fwd",
+                        "flash_attention_exp2_bf16", q, k, v,
+                        float(_scale2(scale, torch.bfloat16)),
+                        with_l2=False)[0]
+
+
+def exp2_bf16x2_plain(x: torch.Tensor) -> torch.Tensor:
+    """exp2 of bf16 values, computed in f32 and rounded to bf16."""
+    return torch.exp2(x.float()).to(torch.bfloat16)
+
+
+def exp2_bf16x2_kernel(x: torch.Tensor) -> torch.Tensor:
+    """K13b's packed exp alone (``ex2.approx.ftz.bf16x2``, two bf16 per
+    instruction, subnormal results flushed to 0) on ``x`` [n] bf16, n even,
+    on a CUDA device, to measure it against :func:`exp2_bf16x2_plain`."""
+    if x.dtype != torch.bfloat16 or x.dim() != 1 or x.numel() % 2:
+        raise ValueError(f"exp2_bf16x2 takes [n] bf16 with n even, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    _device_check("exp2_bf16x2", (x,))
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    code = _build.library().lsx_exp2_bf16x2(
+        x.data_ptr(), y.data_ptr(), x.numel(), _build.stream_ptr(x.device))
+    _build.launch_counts["exp2_bf16x2"] += 1
+    _build.check(code, "exp2_bf16x2")
+    return y
 
 
 def flash_attention_backward_plain(q, k, v, o, l2, do, scale: float,

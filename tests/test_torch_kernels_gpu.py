@@ -543,3 +543,110 @@ def test_ln_modulate_kernel_matches_plain(cuda, H, dtype):
     other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
     with pytest.raises(TypeError, match="bf16"):
         ln_modulate(x, gamma.to(other), beta, *mods, 226)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,Tk,view,mag", [(1, 4, 300, 300, False, 1.0),
+                                               (2, 3, 130, 200, True, 1.0),
+                                               (1, 3, 192, 192, False, 1.0),
+                                               (2, 2, 200, 70, True, 1.0),
+                                               (1, 1, 1, 1, False, 1.0),
+                                               (1, 2, 128, 192, False, 20.0)])
+def test_exp2_kernels_match_plain(cuda, B, H, T, Tk, view, mag):
+    # K13a and K13b against their plain versions at the kernel's 64-key
+    # tile (the same rescale points), Tk != T, tails, views, odd B·H and
+    # x20 logits. K13a has K9's rounding points but for l: o within K9's
+    # bound, 2^-7 relative + 1e-3. K13b's packed exp is within one bf16
+    # ulp of exp2 rounded to bf16 (test_packed_exp2_within_one_ulp), so
+    # each p may move by a factor 1 + e, |e| <= 2^-7, and o = sum p v /
+    # sum p by 2^-7 / (1 - 2^-7) max|v - o|, plus a bf16 rounding of each
+    # side's o; the many moves have either sign, so o's relative RMS
+    # difference stays within 2^-7
+    from langscenex_tpu_torch.ops.flash_attention import (
+        KERNEL_BLOCK_K, flash_attention_exp2_bf16_kernel,
+        flash_attention_exp2_bf16_plain, flash_attention_exp2_kernel,
+        flash_attention_exp2_plain)
+    rng = np.random.default_rng(27)
+    q, k, v = (_bhtd(rng, B, H, n, cuda, view, m)
+               for n, m in ((T, mag), (Tk, mag), (Tk, 1.0)))
+    _build.reset_launch_counts()
+    o = flash_attention_exp2_kernel(q, k, v, 0.125)
+    ob = flash_attention_exp2_bf16_kernel(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert _build.launch_counts == {**{n: 0 for n in _build.launch_counts},
+                                    "flash_attention_exp2": 1,
+                                    "flash_attention_exp2_bf16": 1}
+    ro = flash_attention_exp2_plain(q, k, v, 0.125, block_k=KERNEL_BLOCK_K)
+    rb = flash_attention_exp2_bf16_plain(q, k, v, 0.125,
+                                         block_k=KERNEL_BLOCK_K).float()
+    assert o.shape == ob.shape == (B, H, T, 64)
+    assert bool(torch.isfinite(o.float()).all())
+    torch.testing.assert_close(o.float(), ro.float(), atol=1e-3,
+                               rtol=2 ** -7)
+    ob = ob.float()
+    assert bool(torch.isfinite(ob).all())
+    e = 2 ** -7
+    lim = e / (1 - e) * (float(v.abs().max()) + rb.abs()) + e * rb.abs()
+    assert bool(((ob - rb).abs() <= lim).all())
+    assert float((ob - rb).norm() / rb.norm()) <= 2 ** -7
+
+
+@pytest.mark.gpu
+def test_packed_exp2_within_one_ulp(cuda):
+    # K13b's ex2.approx.ftz.bf16x2 alone on every bf16 input of [-126, 0]
+    # (the d = s - m of the softmax whose exp is a normal number) against
+    # exp2 computed in f32 and rounded to bf16: at most one bf16 ulp apart;
+    # below -126 the result is 0 or below 2^-126 (subnormals flush)
+    from langscenex_tpu_torch.ops.flash_attention import (exp2_bf16x2_kernel,
+                                                          exp2_bf16x2_plain)
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)
+    x = x[torch.isfinite(x) & (x <= 0)].to(cuda)
+    x = x[:x.numel() // 2 * 2]
+    _build.reset_launch_counts()
+    got = exp2_bf16x2_kernel(x)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["exp2_bf16x2"] == 1
+    ref = exp2_bf16x2_plain(x)
+    normal = x >= -126
+    ulps = (got.view(torch.int16).int() - ref.view(torch.int16).int()).abs()
+    assert int(ulps[normal].max()) <= 1
+    assert bool((got[~normal].float() <= 2.0 ** -126).all())
+    with pytest.raises(ValueError, match="n even"):
+        exp2_bf16x2_kernel(x[:3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,dtype", [(8, torch.float32), (24, torch.float32),
+                                     (128, torch.float32),
+                                     (8, torch.bfloat16),
+                                     (24, torch.bfloat16),
+                                     (128, torch.bfloat16),
+                                     (7, torch.float32), (3, torch.bfloat16)])
+def test_gather_kernel_matches_plain(cuda, W, dtype):
+    # K13c against its plain version bit for bit, rows of whole 16-byte
+    # vectors (W 8, 24, 128 in f32 and bf16) and others (W 7, 3), from a
+    # contiguous table and from a column slice of a wider one, with
+    # indices that wrap (-1, -R) and that fall outside (NaN rows)
+    from langscenex_tpu_torch.ops.gather import (gather_rows,
+                                                 gather_rows_kernel,
+                                                 gather_rows_plain)
+    rng = np.random.default_rng(28)
+    R, A = 1000, 2048
+    wide = torch.from_numpy(rng.normal(size=(R, W + 5)).astype(
+        np.float32)).to(cuda, dtype)
+    idx = rng.integers(0, R, A).astype(np.int32)
+    idx[:6] = [-1, -R, -R - 1, R, R - 1, 2 ** 31 - 1]
+    idx = torch.from_numpy(idx).to(cuda)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    _build.reset_launch_counts()
+    for tab in (wide[:, :W].contiguous(), wide[:, :W]):
+        got = gather_rows_kernel(tab, idx)
+        torch.cuda.synchronize()
+        want = gather_rows_plain(tab, idx)
+        assert got.shape == (A, W) and got.dtype == dtype
+        assert torch.equal(got.view(bits), want.view(bits))
+        assert bool(got[[2, 3, 5]].isnan().all())
+    assert gather_rows(wide[:, :W], idx).shape == (A // 512, 512, W)
+    assert _build.launch_counts == {**{n: 0 for n in _build.launch_counts},
+                                    "gather_rows": 3}
