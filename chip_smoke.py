@@ -10,7 +10,10 @@ Phases (any failure raises, so the exit code is non-zero):
   2. build: compile langscenex_tpu_torch/csrc/*.cu with nvcc (sm_90a);
   3. each kernel against its plain PyTorch version at the slice's shapes,
      with CUDA-event times of both after warmup: K4 sort on a 2^19 pair
-     stream and on 100k depth keys with ties and +inf rows (exact), K3
+     stream and on 100k depth keys with ties and +inf rows, timed on the
+     device queued behind a spin beside torch.sort(stable=True), and on
+     all-equal keys, a constant top digit, the int32 extremes, 2^20 keys
+     and lengths around its 2,048-key tile (all exact), K3
      compaction on the render scene's enumerated stream (exact), K1 blend
      forward and K2 blend backward (random upstream gradients, 14
      channels and the abs hook) on the render scene's identity-view tile
@@ -59,8 +62,10 @@ Phases (any failure raises, so the exit code is non-zero):
      weights from seed 42, B=1, 17,776 tokens, rank-16 adapters): K7
      against its plain version on layer-0 q, k, v [1, 17776, 48, 64] and a
      seeded output gradient (largest error, relative RMS and their bounds
-     for dq, dk, dv; CUDA-event times of kernel, plain and the backward of
-     scaled_dot_product_attention), and K8 in f32 at [1, 17776, 3072];
+     for dq, dk, dv; K7's registers, stack and local memory from cuobjdump,
+     no spill allowed; CUDA-event times of the kernel alone, the wrapper as
+     a whole, plain and the backward of scaled_dot_product_attention), and
+     K8 in f32 at [1, 17776, 3072];
  14. the adapter gradients through the kernels and through the plain path
      on a 2-block cut at full width, then 4 LoRA train steps: wall time,
      loss, grad_norm and peak memory per step, the adapters' B still at 0
@@ -161,7 +166,8 @@ from langscenex_tpu_torch.experiments import (ab_attention, ab_attention2,
                                               time_ms)
 from langscenex_tpu_torch.ops.flash_attention import (
     KERNEL_BLOCK_K, attention_auto, attention_bthd_backward_kernel,
-    attention_bthd_backward_plain, attention_bthd_kernel,
+    attention_bthd_backward_launch, attention_bthd_backward_plain,
+    attention_bthd_kernel,
     attention_bthd_plain, flash_attention, flash_attention_backward_kernel,
     flash_attention_backward_plain, flash_attention_exp2_bf16_kernel,
     flash_attention_exp2_bf16_plain, flash_attention_exp2_kernel,
@@ -179,7 +185,8 @@ from langscenex_tpu_torch.ops.rasterize_cuda import (blend_backward,
                                                      blend_backward_plain,
                                                      blend_forward,
                                                      blend_tiles_plain)
-from langscenex_tpu_torch.ops.sort_engine import sort_pairs, sort_pairs_plain
+from langscenex_tpu_torch.ops.sort_engine import (SORT_TILE, sort_pairs,
+                                                  sort_pairs_plain)
 from langscenex_tpu_torch.ops.transforms import focal2fov, fov2focal
 from langscenex_tpu_torch.parallel.dryrun import rank_mesh, spawn
 from langscenex_tpu_torch.parallel.mesh import (dit_sharded_apply,
@@ -381,6 +388,11 @@ GATHER_A, GATHER_W, GATHER_SHORT_A = 640_000, 24, 160_000
 K13_ITERS, GATHER_ITERS = 5, 200
 EXP2_BF16_REL_RMS = 2 ** -5
 PACKED_EXP_ULP, K13B_REL_RMS = 2 ** -7, 2 ** -7
+# K4: calls per timing, the passes of its LSD sort, and its time at 2^19
+# pairs on an H100 before the onesweep design (PERF.md §6)
+SORT_ITERS, SORT_PASSES, K4_BEFORE_MS = 50, 4, 0.6311
+# K7 at the LoRA shape on an H100 before the wgmma design (PERF.md §6)
+K7_BEFORE_MS = 69.6828
 # the card's published peaks (H100 SXM): bf16 dense tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -571,6 +583,52 @@ def bad_rows(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float(bad.float().mean())
 
 
+def kernel_resources(name: str) -> list[str]:
+    """cuobjdump's resource lines (registers, stack, shared and local memory
+    per thread), one for each kernel of the built library whose symbol
+    holds ``name``."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    out = subprocess.run([cuobjdump, "-res-usage",
+                          str(_build.library_path())], capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    lines = [out[i + 1].strip() for i, line in enumerate(out[:-1])
+             if "Function" in line and name in line]
+    require(bool(lines), f"cuobjdump lists no kernel {name}")
+    return lines
+
+
+def resource_field(line: str, field: str) -> int:
+    """One numeric field (``REG``, ``STACK``, ``LOCAL``, ...) of a
+    cuobjdump resource line such as ``REG:168 STACK:0 SHARED:0 LOCAL:0``."""
+    for tok in line.replace(",", " ").split():
+        key, _, val = tok.partition(":")
+        if key == field:
+            return int(val)
+    raise RuntimeError(f"cuobjdump line has no {field}: {line!r}")
+
+
+def sort_edge_cases(rng):
+    """(name, int32 keys) of the streams K4's onesweep design is sensitive
+    to: every digit the same, a skewed top digit (bitcast positive f32 in
+    [2, 10): 0x40 and 0x41), a constant top digit over varying lower digits
+    (f32 in [2, 4): 0x40), the int32 extremes with mixed signs, one key,
+    one below, at and one above the 2,048-key tile, and 2^20 keys."""
+    tile = SORT_TILE
+    wide = rng.integers(-2 ** 31, 2 ** 31 - 1, 1 << 20, dtype=np.int64)
+    wide[rng.uniform(size=wide.size) < 0.1] = -2 ** 31
+    wide[rng.uniform(size=wide.size) < 0.1] = 2 ** 31 - 1
+    wide = wide.astype(np.int32)
+    depth = rng.uniform(2.0, 10.0, 1 << 19).astype(np.float32)
+    top = rng.uniform(2.0, 4.0, 1 << 19).astype(np.float32)
+    return [("all keys equal", np.full(100_000, -12345, np.int32)),
+            ("skewed top digit (2^19 f32 depths)", depth.view(np.int32)),
+            ("constant top digit (2^19 f32 in [2, 4))", top.view(np.int32)),
+            ("INT32_MIN/MAX, mixed signs (2^20)", wide),
+            ("n = 1", wide[:1]), (f"n = {tile - 1}", wide[:tile - 1]),
+            (f"n = {tile}", wide[:tile]), (f"n = {tile + 1}", wide[:tile + 1])]
+
+
 def phase_kernels(dev, state_gpu, results) -> None:
     rng = np.random.default_rng(1)
     # ---- K4 on a 2^19 unique-key pair stream ---------------------------
@@ -581,14 +639,23 @@ def phase_kernels(dev, state_gpu, results) -> None:
     require(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
             "sort_pairs: 2^19 pair stream differs from the stable sort")
     sort_err = pair_err(got, ref)
-    ms = cuda_ms(lambda: sort_pairs(key, val), 20)
+    # device times queued behind a spin (the host's wrapper and launches
+    # take longer than the sort) and, beside them, host-paced times
+    ms = time_ms(lambda: sort_pairs(key, val), SORT_ITERS, dev, queued=True)
+    lib_ms = time_ms(lambda: torch.sort(key, stable=True), SORT_ITERS, dev,
+                     queued=True)
+    paced = cuda_ms(lambda: sort_pairs(key, val), SORT_ITERS)
+    lib_paced = cuda_ms(lambda: torch.sort(key, stable=True), SORT_ITERS)
     plain_ms = cuda_ms(lambda: sort_pairs_plain(key, val), 20)
-    lib_ms = cuda_ms(lambda: torch.sort(key, stable=True), 20)
     sort_bound = bound(moved=2 * nbytes(key, val))
-    print(f"K4 sort_pairs 2^19 pairs: exact; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, torch.sort(stable=True) {lib_ms:.4f} "
-          f"ms, bound {sort_bound['bound_ms']:.4f} ms "
-          f"({sort_bound['bound_by']})")
+    lsd = bound(moved=nbytes(key) + SORT_PASSES * 2 * nbytes(key, val))
+    print(f"K4 sort_pairs 2^19 pairs: exact; kernel {ms:.4f} ms on the "
+          f"device ({paced:.4f} ms host-paced), torch.sort(stable=True) "
+          f"{lib_ms:.4f} ms ({lib_paced:.4f} host-paced), plain "
+          f"{plain_ms:.4f} ms; bounds {sort_bound['bound_ms']:.4f} ms (one "
+          f"read + one write, {sort_bound['bound_by']}) and "
+          f"{lsd['bound_ms']:.4f} ms (a 4-pass LSD sort's traffic); "
+          f"{K4_BEFORE_MS} ms before the onesweep design")
     # ---- K4 on 100k depth keys with ties and +inf rows ------------------
     depth = rng.uniform(2.0, 10.0, P).astype(np.float32)
     depth[rng.integers(0, P, P // 10)] = np.float32(5.25)
@@ -599,10 +666,26 @@ def phase_kernels(dev, state_gpu, results) -> None:
     require(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
             "sort_pairs: depth keys differ from the stable sort")
     sort_err = max(sort_err, pair_err(got, ref))
-    dms = cuda_ms(lambda: sort_pairs(dkey, sid), 20)
+    dms = time_ms(lambda: sort_pairs(dkey, sid), SORT_ITERS, dev,
+                  queued=True)
+    dlib = time_ms(lambda: torch.sort(dkey, stable=True), SORT_ITERS, dev,
+                   queued=True)
     dplain = cuda_ms(lambda: sort_pairs_plain(dkey, sid), 20)
     print(f"K4 sort_pairs 100k depth keys (ties, +inf): exact; kernel "
-          f"{dms:.4f} ms, plain {dplain:.4f} ms")
+          f"{dms:.4f} ms on the device, torch.sort(stable=True) {dlib:.4f} "
+          f"ms, plain {dplain:.4f} ms")
+    # ---- K4 on the streams the onesweep design is sensitive to ----------
+    cases = sort_edge_cases(rng)
+    for what, k in cases:
+        v = torch.from_numpy(rng.integers(0, 1 << 30, k.size).astype(
+            np.int32)).to(dev)
+        k = torch.from_numpy(k).to(dev)
+        got, ref = sort_pairs(k, v), sort_pairs_plain(k, v)
+        require(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                f"sort_pairs: {what} differs from the stable sort")
+        sort_err = max(sort_err, pair_err(got, ref))
+    print(f"K4 sort_pairs edge cases exact: "
+          f"{', '.join(w for w, _ in cases)}")
     results["sort_pairs"] = dict(max_abs_err=sort_err, ms=ms,
                                  plain_ms=plain_ms, **sort_bound,
                                  library_ms=lib_ms)
@@ -1268,8 +1351,14 @@ def phase_k7(dev, dit, batch, results) -> None:
                          BWD_REL_RMS)[0]
               for name, g, r in zip("qkv", got, ref))
     del got, ref
-    ms = cuda_ms(lambda: attention_bthd_backward_kernel(q, k, v, o, l2, do,
-                                                        sc), 5)
+    # the wrapper as a whole (q', dvec and the padded l2, the zeroed f32
+    # dq, the cast of dq), which the kernels line reports as in every
+    # earlier run, and the kernel alone on prepared operands
+    launch = attention_bthd_backward_launch(q, k, v, o, l2, do, sc)[0]
+    kernel_ms = cuda_ms(launch, 5)
+    ms = cuda_ms(lambda: attention_bthd_backward_kernel(
+        q, k, v, o, l2, do, sc), 5)
+    del launch
     plain_ms = cuda_ms(lambda: attention_bthd_backward_plain(
         q, k, v, o, l2, do, sc), 1, warmup=1)
     # the library yardstick: SDPA's backward in the [B, H, T, D] layout
@@ -1281,15 +1370,21 @@ def phase_k7(dev, dit, batch, results) -> None:
     n_exp = B * H * T * T
     sfu = n_exp / (16 * torch.cuda.get_device_properties(
         dev).multi_processor_count)
-    print(f"K7 flash_attention_backward: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, scaled_dot_product_attention backward "
+    for line in kernel_resources("flash_bwd"):
+        print(f"K7 flash_attention_backward: {line}")
+        require(resource_field(line, "LOCAL") == 0
+                and resource_field(line, "STACK") == 0,
+                f"K7 spills to local memory: {line}")
+    print(f"K7 flash_attention_backward: kernel {kernel_ms:.4f} ms alone, "
+          f"wrapper {ms:.4f} ms ({K7_BEFORE_MS} ms before the wgmma design), "
+          f"plain {plain_ms:.4f} ms, scaled_dot_product_attention backward "
           f"{lib_ms:.4f} ms (fwd+bwd minus fwd {fwd_ms:.4f}), bound "
           f"{k7_bound['bound_ms']:.4f} ms ({k7_bound['bound_by']}, "
           f"{flops / 1e12:.3f} TFLOP); {n_exp:.4g} exp2 = {sfu:.4g} SFU "
           f"cycles per SM at 16 ex2/clk")
     results["flash_attention_backward"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, **k7_bound,
-        library_ms=lib_ms)
+        max_abs_err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+        **k7_bound, library_ms=lib_ms)
     del q, k, v, o, l2, do
 
     # K8 in f32 on the layer-0 stream and modulation of this cell

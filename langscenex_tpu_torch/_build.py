@@ -51,9 +51,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    # keys_in, vals_in, keys_out, vals_out, keys_tmp, vals_tmp, hist, n,
-    # n_blocks, stream
-    "lsx_sort_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # keys_in, vals_in, keys_out, vals_out, scratch, n, stream
+    "lsx_sort_pairs": [_P, _P, _P, _P, _P, _I, _P],
     # key, sid, out_key, out_sid, block_counts, n, out_len, n_blocks,
     # sent_min, fill_key, fill_sid, stream
     "lsx_compact_pairs": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -91,10 +90,10 @@ _SIGNATURES = {
     "lsx_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     # K13b's packed exp alone: x, y, n, stream
     "lsx_exp2_bf16x2": [_P, _P, _I, _P],
-    # q', k, v, do, l2, dvec, dq, dk, dv, B, T, Tk, H, (b, t, h) element
-    # strides of q', k, v and do, scale, stream
-    "lsx_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, *[_L] * 12, _F, _P],
+    # q', k, v, do, aux (l2 and dvec), dq, dk, dv, B, T, Tk, H, (b, t, h)
+    # element strides of q', k, v and do, scale, stream
+    "lsx_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, *[_L] * 12, _F, _P],
     # x, gamma, beta, sc, sh, tsc, tsh, y, B, T, H, text_len, is_f32,
     # stream
     "lsx_ln_modulate": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -20,281 +20,370 @@
 //   dv = sum_q bf16(p) do     dk = (sum_q ds q') / log2 e
 //   dq = scale * sum_k ds k
 // dk and dv are accumulated in f32 registers and written in bf16; dq is
-// accumulated in a caller-zeroed f32 [B, T, H, 64] buffer with atomics.
+// accumulated in a caller-zeroed f32 [B, H, T, 64] buffer by bulk tensor
+// reductions (summation order varies from run to run).
 //
 // Bound on the H100: operations. At the LoRA step's shape (q, k, v
 // [1, 17776, 48, 64] bf16) one call does 5 products of 2 T Tk D H =
-// 9.71 TFLOP: 9.8 ms at 989 TFLOP/s, against about 1 GB of operands and
-// results (0.3 ms at 3.35 TB/s). Its 1.52e10 exp2s take about 7 ms of SFU
-// time besides (16 ex2/clk/SM).
+// 9.707 TFLOP: 9.8 ms at 989 TFLOP/s, against about 1 GB of operands and
+// results (0.3 ms at 3.35 TB/s).
 //
-// Design (simple and right first; wgmma, TMA and warp specialisation are
-// later work). The TPU kernel runs its grid in order and carries dq in
-// HBM from one key block to the next; here blocks run in parallel, so
-// each block owns one (b, h, 64-key tile of Tk) and walks all 64-query
-// tiles of T:
-// its k and v stay in shared memory and its dk, dv in registers, and its
-// share of dq goes out through f32 atomicAdd (summation order varies from
-// run to run). Blocks of one head start their walk at different query
-// tiles, so they do not all add into the same dq rows at once. Each of
-// the 4 warps owns 16 key rows. Per query tile, q' and do tiles, l2 and
-// dvec arrive by cp.async, double-buffered, rows past T zero-filled.
-// S^T = k q'^T and dP^T = v do^T run on the bf16 tensor cores
-// (mma.sync.m16n8k16, f32 accumulate); p and ds are formed in registers
-// and re-packed as the A fragments of dV += P^T do and dK += dS^T q'
-// without a trip through shared memory; dS^T goes to shared memory once
-// so that each warp can form 16 query rows of dq = dS k.
+// Design (FlashAttention-3's backward in structure, Shah et al. 2024).
+// Blocks run in parallel, so each block owns one (b, h, 128-key tile of
+// Tk) and walks all 64-query tiles of T, starting at a tile that differs
+// between the key tiles of one head so that their dq reductions spread
+// over the rows. Three warpgroups:
+// - a producer, cut to 24 registers by setmaxnreg, whose one thread loads
+//   k and v once and then a ring of 3 stages of (q', do, l2, dvec) by TMA
+//   (4-D tensor maps over (D, T, H, B) built from the caller's strides, so
+//   contiguous operands and [B, H, T, D] views load alike; 128-byte
+//   swizzle, which is wgmma's canonical layout for 64-wide bf16 rows; rows
+//   past T or Tk arrive as zeros) and 256-byte bulk copies, completed on
+//   mbarrier transaction counts; the consumers free a stage by arriving on
+//   its empty barrier;
+// - two consumers of 64 keys each, raised to 240 registers. Per query
+//   tile: S^T = K Q'^T and dP^T = V dO^T by wgmma.m64n64k16 from shared
+//   memory; P^T and dS^T formed in registers, masked by index, and
+//   re-packed as the register A operand of dV += bf16(P^T) dO and
+//   dK += dS^T Q' (dO and Q' read transposed from the same tiles); dS^T
+//   staged once in shared memory, so that dQ = dS K is a third product
+//   with both operands transposed. Each consumer sums dQ over its 64 keys
+//   into a 16 KB f32 tile in shared memory (swizzled, so the stores are
+//   free of bank conflicts; two per consumer, alternating) and one of its
+//   threads adds the tile to dq with two bulk tensor reductions
+//   (cp.reduce.async.bulk.tensor ... add.f32), in place of 32 f32 atomics
+//   per thread and step. The next tile's S^T and dP^T are issued before
+//   that, so the tensor cores work while the tile goes out.
+// Measured on the H100 (PERF.md): exp2f's subnormal path cost 8 ms at the
+// LoRA shape, hence ex2.approx.ftz; the consumers handing one dq tile
+// between them cost more than the second reduction each now issues.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "common.cuh"
-#include "mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-using namespace lsx;
+using namespace lsx::sm90;
 
-constexpr int BW_D = 64;       // head dim
-constexpr int BW_BK = 64;      // keys per block
-constexpr int BW_BQ = 64;      // queries per step
-constexpr int BW_WARPS = 4;    // 16 key rows each
-constexpr int BW_THREADS = BW_WARPS * 32;
+constexpr int BW_D = 64;         // head dim
+constexpr int BW_BK = 128;       // keys per block, 64 per consumer
+constexpr int BW_BQ = 64;        // queries per step
+constexpr int BW_STAGES = 3;     // query tiles in flight
+constexpr int BW_CONSUMERS = 256;
+constexpr int BW_THREADS = BW_CONSUMERS + 128;
+constexpr uint32_t STAGE_BYTES = 2 * BW_BQ * BW_D * 2 + 2 * BW_BQ * 4;
 constexpr float BW_LN2 = 0.6931471805599453f;  // 1 / log2(e)
 
-struct BwdSmem {
+struct __align__(1024) BwdSmem {
   __nv_bfloat16 k[BW_BK * BW_D];
   __nv_bfloat16 v[BW_BK * BW_D];
-  __nv_bfloat16 ds[BW_BK * BW_BQ];         // dS^T of the current step
-  __nv_bfloat16 q[2][BW_BQ * BW_D];        // q' tiles
-  __nv_bfloat16 dout[2][BW_BQ * BW_D];     // do tiles
-  float l2[2][BW_BQ];
-  float dvec[2][BW_BQ];
+  __nv_bfloat16 q[BW_STAGES][BW_BQ * BW_D];     // q' tiles
+  __nv_bfloat16 dout[BW_STAGES][BW_BQ * BW_D];  // do tiles
+  __nv_bfloat16 ds[BW_BK * BW_BQ];              // dS^T, [key][query]
+  float dq[2][2][BW_BQ * BW_D];  // per consumer, two [64][32] halves each
+  float l2[BW_STAGES][BW_BQ];
+  float dvec[BW_STAGES][BW_BQ];
+  uint64_t kv_bar;
+  uint64_t full[BW_STAGES];
+  uint64_t empty[BW_STAGES];
 };
 
-// Stage query tile qt of one head: q' and do rows, l2 and dvec.
-__device__ __forceinline__ void load_query_tile(
-    BwdSmem& sm, int buf, const __nv_bfloat16* qh, long long q_st,
-    const __nv_bfloat16* doh, long long do_st, const float* l2h,
-    const float* dvech, int qt, int T) {
-  const int q0 = qt * BW_BQ;
-  load_rows64<BW_THREADS>(sm.q[buf], qh, q_st, q0, T);
-  load_rows64<BW_THREADS>(sm.dout[buf], doh, do_st, q0, T);
-  const int i = threadIdx.x & (BW_BQ - 1);
-  const bool ok = q0 + i < T;
-  if (threadIdx.x < BW_BQ) {
-    cp_async4(&sm.l2[buf][i], ok ? l2h + q0 + i : l2h, ok);
-  } else {
-    cp_async4(&sm.dvec[buf][i], ok ? dvech + q0 + i : dvech, ok);
-  }
+// exp2 on the SFU, subnormal results flushed to 0 (p below 2^-126 adds
+// nothing a bf16 ds or dv can hold next to the row's p of order 1)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__global__ void __launch_bounds__(BW_THREADS)
-flash_bwd_bthd(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v,
-               const __nv_bfloat16* __restrict__ dout,
-               const float* __restrict__ l2, const float* __restrict__ dvec,
-               float* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
-               __nv_bfloat16* __restrict__ dv, int T, int Tk, int H,
-               Strides qs, Strides ks, Strides vs, Strides dos, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(smem_raw);
+// S^T = K Q'^T and dP^T = V dO^T of one stage, issued as one wgmma group
+__device__ __forceinline__ void issue_s_dp(float (&sacc)[32],
+                                           float (&pacc)[32],
+                                           const __nv_bfloat16* kw,
+                                           const __nv_bfloat16* vw,
+                                           const __nv_bfloat16* qs,
+                                           const __nv_bfloat16* dos) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss<0, 0>(sacc, desc128(kw + kk * 16), desc128(qs + kk * 16), kk);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss<0, 0>(pacc, desc128(vw + kk * 16), desc128(dos + kk * 16), kk);
+  wgmma_commit();
+}
 
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__global__ void __launch_bounds__(BW_THREADS, 1)
+flash_bwd_wgmma(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                const __grid_constant__ CUtensorMap do_map,
+                const __grid_constant__ CUtensorMap dq_map,
+                const float* __restrict__ aux, __nv_bfloat16* __restrict__ dk,
+                __nv_bfloat16* __restrict__ dv, int T, int Tk, int H, int Tp,
+                float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int kb = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int key0 = kb * BW_BK;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int mat = lane >> 3;
-  const int mr = lane & 7;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  const long long bh = (long long)b * H + h;
-  const __nv_bfloat16* qh = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kh = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vh = v + b * vs.b + h * vs.h;
-  const __nv_bfloat16* doh = dout + b * dos.b + h * dos.h;
-  const float* l2h = l2 + bh * T;
-  const float* dvech = dvec + bh * T;
   const int nq = (T + BW_BQ - 1) / BW_BQ;
   const int first = kb % nq;
+  const int bh = b * H + h;
 
-  load_rows64<BW_THREADS>(sm.k, kh, ks.t, key0, Tk);
-  load_rows64<BW_THREADS>(sm.v, vh, vs.t, key0, Tk);
-  load_query_tile(sm, 0, qh, qs.t, doh, dos.t, l2h, dvech, first, T);
-  cp_async_commit();
-
-  // this thread's key rows (as accumulator rows) and whether they exist
-  const int krow = warp * 16 + g;
-  const bool key_ok0 = key0 + krow < Tk;
-  const bool key_ok1 = key0 + krow + 8 < Tk;
-
-  float dk_acc[8][4], dv_acc[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_bar, 1);
+    for (int s = 0; s < BW_STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], BW_CONSUMERS);
+    }
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  for (int j = 0; j < nq; ++j) {
-    const int buf = j & 1;
-    const int qt = (first + j) % nq;
-    if (j + 1 < nq) {
-      load_query_tile(sm, buf ^ 1, qh, qs.t, doh, dos.t, l2h, dvech,
-                      (first + j + 1) % nq, T);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int q0 = qt * BW_BQ;
-
-    // S^T = k q'^T and dP^T = v do^T: this warp's 16 keys x 64 queries
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      unsigned ka[4], va[4];
-      const int arow = warp * 16 + mr + (mat & 1) * 8;
-      const int acol = kk * 16 + (mat >> 1) * 8;
-      ldmatrix_x4(ka, sm.k + swz(arow, acol));
-      ldmatrix_x4(va, sm.v + swz(arow, acol));
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        unsigned bq[4], bo[4];
-        const int row = np * 16 + mr + (mat >> 1) * 8;
-        const int col = kk * 16 + (mat & 1) * 8;
-        ldmatrix_x4(bq, sm.q[buf] + swz(row, col));
-        ldmatrix_x4(bo, sm.dout[buf] + swz(row, col));
-        mma_bf16(s[2 * np], ka, bq[0], bq[1]);
-        mma_bf16(s[2 * np + 1], ka, bq[2], bq[3]);
-        mma_bf16(dp[2 * np], va, bo[0], bo[1]);
-        mma_bf16(dp[2 * np + 1], va, bo[2], bo[3]);
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    // ---- producer -------------------------------------------------------
+    reg_dealloc<24>();
+    if (threadIdx.x == BW_CONSUMERS) {
+      mbar_expect_tx(&sm.kv_bar, 2 * BW_BK * BW_D * 2);
+      tma_load_4d(sm.k, &k_map, 0, key0, h, b, &sm.kv_bar);
+      tma_load_4d(sm.v, &v_map, 0, key0, h, b, &sm.kv_bar);
+      const float* l2h = aux + (size_t)bh * Tp;
+      const float* dvech = aux + ((size_t)gridDim.y * gridDim.z + bh) * Tp;
+      for (int j = 0; j < nq; ++j) {
+        const int s = j % BW_STAGES;
+        if (j >= BW_STAGES) mbar_wait(&sm.empty[s], (j / BW_STAGES - 1) & 1);
+        const int q0 = ((first + j) % nq) * BW_BQ;
+        mbar_expect_tx(&sm.full[s], STAGE_BYTES);
+        tma_load_4d(sm.q[s], &q_map, 0, q0, h, b, &sm.full[s]);
+        tma_load_4d(sm.dout[s], &do_map, 0, q0, h, b, &sm.full[s]);
+        bulk_load(sm.l2[s], l2h + q0, BW_BQ * 4, &sm.full[s]);
+        bulk_load(sm.dvec[s], dvech + q0, BW_BQ * 4, &sm.full[s]);
       }
     }
+  } else {
+    // ---- consumers: 64 keys each ----------------------------------------
+    reg_alloc<240>();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int tq = lane & 3;
+    const int row0 = warp * 16 + (lane >> 2);  // accumulator rows row0, +8
+    const int krow0 = key0 + wg * 64 + row0;
+    const bool kok0 = krow0 < Tk;
+    const bool kok1 = krow0 + 8 < Tk;
+    const __nv_bfloat16* kw = sm.k + wg * 64 * BW_D;
+    const __nv_bfloat16* vw = sm.v + wg * 64 * BW_D;
+    unsigned char* dsw = reinterpret_cast<unsigned char*>(sm.ds) + wg * 8192;
 
-    // P^T = exp2(S^T - l2), dS^T = bf16(P^T (dP^T - dvec)), both 0 for
-    // keys past Tk or queries past T; packed as A fragments over the
-    // query axis
-    const bool q_tail = q0 + BW_BQ > T;
-    unsigned pa[4][4], da[4][4];
+    float dk_acc[32], dv_acc[32];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      float p[4], d[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = n * 8 + 2 * tq + (e & 1);
-        const bool ok = (e < 2 ? key_ok0 : key_ok1)
-                        && (!q_tail || q0 + qc < T);
-        p[e] = ok ? exp2f(s[n][e] - sm.l2[buf][qc]) : 0.f;
-        d[e] = p[e] * (dp[n][e] - sm.dvec[buf][qc]);
-      }
-      const int slot = (n & 1) * 2;
-      pa[n >> 1][slot] = pack_bf16(p[0], p[1]);
-      pa[n >> 1][slot + 1] = pack_bf16(p[2], p[3]);
-      da[n >> 1][slot] = pack_bf16(d[0], d[1]);
-      da[n >> 1][slot + 1] = pack_bf16(d[2], d[3]);
-      *reinterpret_cast<unsigned*>(sm.ds + swz(krow, n * 8 + 2 * tq)) =
-          da[n >> 1][slot];
-      *reinterpret_cast<unsigned*>(sm.ds + swz(krow + 8, n * 8 + 2 * tq)) =
-          da[n >> 1][slot + 1];
-    }
+    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(&sm.kv_bar, 0);
 
-    // dV += bf16(P^T) do and dK += dS^T q' over this step's 64 queries
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        unsigned bo[4], bq[4];
-        const int row = kk * 16 + mr + (mat & 1) * 8;
-        const int col = np * 16 + (mat >> 1) * 8;
-        ldmatrix_x4_trans(bo, sm.dout[buf] + swz(row, col));
-        ldmatrix_x4_trans(bq, sm.q[buf] + swz(row, col));
-        mma_bf16(dv_acc[2 * np], pa[kk], bo[0], bo[1]);
-        mma_bf16(dv_acc[2 * np + 1], pa[kk], bo[2], bo[3]);
-        mma_bf16(dk_acc[2 * np], da[kk], bq[0], bq[1]);
-        mma_bf16(dk_acc[2 * np + 1], da[kk], bq[2], bq[3]);
-      }
-    }
-    __syncthreads();  // dS^T complete in shared memory
+    // step j + 1's S^T and dP^T are issued before step j's dq tile goes
+    // out, so that the tensor cores work meanwhile
+    float sacc[32], pacc[32];
+    mbar_wait(&sm.full[0], 0);
+    issue_s_dp(sacc, pacc, kw, vw, sm.q[0], sm.dout[0]);
+    for (int j = 0; j < nq; ++j) {
+      const int s = j % BW_STAGES;
+      const int q0 = ((first + j) % nq) * BW_BQ;
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      fence_regs(pacc);
 
-    // dq for this warp's 16 queries: scale * dS k over the block's keys;
-    // the A fragment (queries x keys) is dS^T read transposed
-    float acc[8][4];
+      // P^T = exp2(S^T - l2), dS^T = bf16(P^T (dP^T - dvec)), 0 for keys
+      // past Tk or queries past T; packed as register A operands over the
+      // query axis, dS^T also staged swizzled in shared memory
+      const bool q_tail = q0 + BW_BQ > T;
+      uint32_t pa[16], da[16];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+      for (int i = 0; i < 8; ++i) {
+        float p[4], d[4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      unsigned a[4];
-      ldmatrix_x4_trans(a, sm.ds + swz(kk * 16 + mr + (mat >> 1) * 8,
-                                       warp * 16 + (mat & 1) * 8));
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        unsigned bk[4];
-        ldmatrix_x4_trans(bk, sm.k + swz(kk * 16 + mr + (mat & 1) * 8,
-                                         np * 16 + (mat >> 1) * 8));
-        mma_bf16(acc[2 * np], a, bk[0], bk[1]);
-        mma_bf16(acc[2 * np + 1], a, bk[2], bk[3]);
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * i + 2 * tq + (e & 1);
+          const bool ok = (e < 2 ? kok0 : kok1) && (!q_tail || q0 + c < T);
+          const float pe = exp2_ftz(sacc[4 * i + e] - sm.l2[s][c]);
+          p[e] = ok ? pe : 0.f;
+          d[e] = ok ? pe * (pacc[4 * i + e] - sm.dvec[s][c]) : 0.f;
+        }
+        pa[2 * i] = pack_bf16(p[0], p[1]);
+        pa[2 * i + 1] = pack_bf16(p[2], p[3]);
+        da[2 * i] = pack_bf16(d[0], d[1]);
+        da[2 * i + 1] = pack_bf16(d[2], d[3]);
+        *reinterpret_cast<uint32_t*>(dsw + swz128(row0, 8 * i + 2 * tq)) =
+            da[2 * i];
+        *reinterpret_cast<uint32_t*>(dsw + swz128(row0 + 8, 8 * i + 2 * tq)) =
+            da[2 * i + 1];
       }
-    }
-    const int r0 = q0 + warp * 16 + g;
-    const int r1 = r0 + 8;
-    float* dq0 = dq + (((long long)b * T + r0) * H + h) * BW_D;
-    float* dq1 = dq0 + 8LL * H * BW_D;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int d = n * 8 + 2 * tq;
-      if (r0 < T) {
-        atomicAdd(dq0 + d, scale * acc[n][0]);
-        atomicAdd(dq0 + d + 1, scale * acc[n][1]);
-      }
-      if (r1 < T) {
-        atomicAdd(dq1 + d, scale * acc[n][2]);
-        atomicAdd(dq1 + d + 1, scale * acc[n][3]);
-      }
-    }
-    __syncthreads();  // buffers and dS^T free for the next step
-  }
 
-  // dk = acc / log2 e and dv, in bf16, into contiguous [B, Tk, H, 64]
-  const long long row_stride = (long long)H * BW_D;
-  const long long base0 = (((long long)b * Tk + key0 + krow) * H + h) * BW_D;
-  const long long base1 = base0 + 8 * row_stride;
+      // dV += bf16(P^T) dO and dK += dS^T Q' over this tile's queries
+      wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int d = n * 8 + 2 * tq;
-    if (key_ok0) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + base0 + d) =
-          __floats2bfloat162_rn(dk_acc[n][0] * BW_LN2, dk_acc[n][1] * BW_LN2);
-      *reinterpret_cast<__nv_bfloat162*>(dv + base0 + d) =
-          __floats2bfloat162_rn(dv_acc[n][0], dv_acc[n][1]);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<1>(dv_acc, pa + 4 * kk, desc128(sm.dout[s] + kk * 16 * BW_D));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<1>(dk_acc, da + 4 * kk, desc128(sm.q[s] + kk * 16 * BW_D));
+      wgmma_commit();
+
+      // this consumer's part of dQ = dS K, over its 64 keys
+      fence_proxy_async();
+      bar_sync(1 + wg, 128);
+      float qacc[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<1, 1>(qacc, desc128(dsw + kk * 2048),
+                       desc128(kw + kk * 16 * BW_D), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(qacc);
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      mbar_arrive(&sm.empty[s]);
+
+      // this consumer's part of the dq tile goes out on its own: stored
+      // swizzled in shared memory, then added to dq by two bulk tensor
+      // reductions (rows past T skipped) that one thread issues while the
+      // tensor cores start on the next tile's S^T and dP^T
+      unsigned char* dqb = reinterpret_cast<unsigned char*>(sm.dq[wg][j & 1]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int c = 8 * i + 2 * tq;
+          *reinterpret_cast<float2*>(dqb + (c >> 5) * 8192
+                                     + swz128_f32(row0 + 8 * half, c & 31)) =
+              make_float2(scale * qacc[4 * i + 2 * half],
+                          scale * qacc[4 * i + 2 * half + 1]);
+        }
+      }
+      if (j + 1 < nq) {
+        const int s1 = (j + 1) % BW_STAGES;
+        mbar_wait(&sm.full[s1], ((j + 1) / BW_STAGES) & 1);
+        issue_s_dp(sacc, pacc, kw, vw, sm.q[s1], sm.dout[s1]);
+      }
+      fence_proxy_async();
+      bar_sync(1 + wg, 128);
+      if (tid == 0) {
+        tma_reduce_add_3d(&dq_map, dqb, 0, q0, bh);
+        tma_reduce_add_3d(&dq_map, dqb + 8192, 32, q0, bh);
+        bulk_commit();
+        bulk_wait_read<1>();  // this consumer's other buffer is free
+      }
     }
-    if (key_ok1) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + base1 + d) =
-          __floats2bfloat162_rn(dk_acc[n][2] * BW_LN2, dk_acc[n][3] * BW_LN2);
-      *reinterpret_cast<__nv_bfloat162*>(dv + base1 + d) =
-          __floats2bfloat162_rn(dv_acc[n][2], dv_acc[n][3]);
+    if (tid == 0) bulk_wait<0>();
+
+    // dk = acc / log2 e and dv, in bf16, into contiguous [B, Tk, H, 64]
+    const long long row_stride = (long long)H * BW_D;
+    const long long base0 = (((long long)b * Tk + krow0) * H + h) * BW_D;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = 8 * i + 2 * tq;
+      if (kok0) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + base0 + c) =
+            __floats2bfloat162_rn(dk_acc[4 * i] * BW_LN2,
+                                  dk_acc[4 * i + 1] * BW_LN2);
+        *reinterpret_cast<__nv_bfloat162*>(dv + base0 + c) =
+            __floats2bfloat162_rn(dv_acc[4 * i], dv_acc[4 * i + 1]);
+      }
+      if (kok1) {
+        const long long at = base0 + 8 * row_stride + c;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(dk_acc[4 * i + 2] * BW_LN2,
+                                  dk_acc[4 * i + 3] * BW_LN2);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
+      }
     }
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found at run time so that the
+// library needs no link against libcuda; null if the driver has none
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess
+        && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// a 4-D map over a [B, rows, H, 64] bf16 operand with these element
+// strides, loading boxes of box_rows x 64 with the 128-byte swizzle
+CUresult bthd_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+                  int B, int rows, int H, long long sb, long long st,
+                  long long sh, int box_rows) {
+  const cuuint64_t dims[4] = {BW_D, (cuuint64_t)rows, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {BW_D, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// a 3-D map over the f32 dq scratch [B * H, T, 64], reducing boxes of
+// 64 rows x 32 with the 128-byte swizzle
+CUresult dq_map_of(EncodeTiled encode, CUtensorMap* map, void* dq, int BH,
+                   int T) {
+  const cuuint64_t dims[3] = {BW_D, (cuuint64_t)T, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {BW_D * 4, (cuuint64_t)T * BW_D * 4};
+  const cuuint32_t box[3] = {32, BW_BQ, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, dq, dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 }  // namespace
 
-// dq [B, T, H, 64] f32 (zeroed by the caller; accumulated), dk and dv
+// dq [B, H, T, 64] f32 (zeroed by the caller; accumulated), dk and dv
 // [B, Tk, H, 64] bf16 (contiguous, written) from q' (q already scaled by
 // bf16(scale * log2 e)) and do [B, T, H, 64], k and v [B, Tk, H, 64] bf16
-// given by their (b, t, h) element strides (head-dim stride 1, rows
-// 16-byte aligned; the wrapper checks), and l2, dvec [B * H, T] f32.
+// given by their (b, t, h) element strides (head-dim stride 1, strides
+// multiples of 8 and 16-byte aligned bases; the wrapper checks), and aux
+// [2, B * H, Tp] f32 holding l2 and then dvec, Tp = T rounded up to 64.
 extern "C" int lsx_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* l2, const void* dvec, void* dq, void* dk, void* dv, int B,
-    int T, int Tk, int H, long long qsb, long long qst, long long qsh,
-    long long ksb, long long kst, long long ksh, long long vsb, long long vst,
-    long long vsh, long long dsb, long long dst, long long dsh, float scale,
+    const void* aux, void* dq, void* dk, void* dv, int B, int T, int Tk,
+    int H, long long qsb, long long qst, long long qsh, long long ksb,
+    long long kst, long long ksh, long long vsb, long long vst, long long vsh,
+    long long dsb, long long dst, long long dsh, float scale,
     cudaStream_t stream) {
   if (B == 0 || Tk == 0 || H == 0) return 0;
   if (T == 0) {  // no queries: dk and dv are zero
@@ -303,21 +392,30 @@ extern "C" int lsx_flash_attention_bwd(
     if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, bytes, stream);
     return (int)err;
   }
-  const int smem = (int)sizeof(BwdSmem);
+  // a missing entry point or a refused map returns its CUresult, whose
+  // codes read as the cudaError_t of the same name
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap q_map, k_map, v_map, do_map, dq_map;
+  CUresult res = bthd_map(encode, &q_map, q, B, T, H, qsb, qst, qsh, BW_BQ);
+  if (res == CUDA_SUCCESS)
+    res = bthd_map(encode, &k_map, k, B, Tk, H, ksb, kst, ksh, BW_BK);
+  if (res == CUDA_SUCCESS)
+    res = bthd_map(encode, &v_map, v, B, Tk, H, vsb, vst, vsh, BW_BK);
+  if (res == CUDA_SUCCESS)
+    res = bthd_map(encode, &do_map, dout, B, T, H, dsb, dst, dsh, BW_BQ);
+  if (res == CUDA_SUCCESS) res = dq_map_of(encode, &dq_map, dq, B * H, T);
+  if (res != CUDA_SUCCESS) return (int)res;
+  const int smem = (int)sizeof(BwdSmem) + 1024;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_bthd, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_bwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
+  const int Tp = (T + BW_BQ - 1) / BW_BQ * BW_BQ;
   const dim3 grid((Tk + BW_BK - 1) / BW_BK, H, B);
-  flash_bwd_bthd<<<grid, BW_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(l2), static_cast<const float*>(dvec),
-      static_cast<float*>(dq), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), T, Tk, H, Strides{qsb, qst, qsh},
-      Strides{ksb, kst, ksh}, Strides{vsb, vst, vsh}, Strides{dsb, dst, dsh},
-      scale);
+  flash_bwd_wgmma<<<grid, BW_THREADS, smem, stream>>>(
+      q_map, k_map, v_map, do_map, dq_map, static_cast<const float*>(aux),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), T, Tk,
+      H, Tp, scale);
   LSX_CHECK_LAUNCH();
   return 0;
 }

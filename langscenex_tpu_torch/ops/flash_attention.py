@@ -85,6 +85,8 @@ LOG2E = 1.4426950408889634
 NEG_INF = -1e30            # the online softmax's initial max (JAX's NEG_INF)
 KERNEL_HEAD_DIM = 64       # csrc/flash_attention.cu
 KERNEL_BLOCK_K = 64        # keys per tile of the forward kernels
+KERNEL_Q_TILE = 64         # queries per step of K7
+KERNEL_BWD_KEYS = 128      # keys per block of K7
 ONLINE_BLOCK_K = 1024      # JAX's default key block of K9
 H2_BLOCK_K = 512           # JAX's default key block of K11
 EXP2_BLOCK_K = 1024        # JAX's default key block of K13a/b
@@ -455,11 +457,11 @@ def attention_bthd_backward_plain(q, k, v, o, l2, do, scale: float,
     return tuple(_bthd(g) for g in grads)
 
 
-def attention_bthd_backward_kernel(q, k, v, o, l2, do, scale: float):
-    """Launch K7: q, o and do [B,T,H,64], k and v [B,Tk,H,64] bf16 and l2
-    [B·H, T] f32 (from K5, K6 or K9) on one CUDA device -> dq [B,T,H,64],
-    dk, dv [B,Tk,H,64] bf16. dq is summed with f32 atomics into a zeroed
-    scratch that is then cast."""
+def attention_bthd_backward_launch(q, k, v, o, l2, do, scale: float):
+    """K7's operands, prepared as :func:`attention_bthd_backward_kernel`
+    prepares them, and ``(launch, dq, dk, dv)``: ``launch()`` runs the
+    kernel alone, adding dq into the f32 [B,H,T,64] ``dq`` and writing the
+    bf16 [B,Tk,H,64] ``dk`` and ``dv``."""
     _check_bthd_kv(q, k, v)
     B, T, H, D = q.shape
     Tk = k.shape[1]
@@ -472,33 +474,56 @@ def attention_bthd_backward_kernel(q, k, v, o, l2, do, scale: float):
         raise ValueError("attention kernel K7 wants o and do of q's shape")
     _device_check("K7", (q, k, v, o, l2, do))
     # q' = bf16(q · bf16(scale·log2 e)) and dvec = Σ_d do·o in f32, as the
-    # JAX package forms them in XLA around its kernel
+    # JAX package forms them in XLA around its kernel; l2 and dvec go to
+    # the kernel in rows padded to whole 64-query tiles (its bulk copies
+    # read a tile at a time; the padding is masked by index)
     qs = _kernel_operand(q * _scale2(scale, q.dtype).to(q.device))
-    dvec = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
-    k, v, do = (_kernel_operand(t) for t in (k, v, do))
-    l2 = l2.contiguous()
-    dq = torch.zeros((B, T, H, D), dtype=torch.float32, device=q.device)
+    k, v, do_k = (_kernel_operand(t) for t in (k, v, do))
+    Tp = -(-T // KERNEL_Q_TILE) * KERNEL_Q_TILE
+    aux = torch.empty((2, B * H, Tp), dtype=torch.float32, device=q.device)
+    aux[0, :, :T].copy_(l2)
+    aux[1, :, :T].view(B, H, T).copy_(
+        (do.float() * o.float()).sum(-1).transpose(1, 2))
+    dq = torch.zeros((B, H, T, D), dtype=torch.float32, device=q.device)
     dk = torch.empty((B, Tk, H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, Tk, H, D), dtype=q.dtype, device=q.device)
-    strides = [s for t in (qs, k, v, do) for s in t.stride()[:3]]
-    code = _build.library().lsx_flash_attention_bwd(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        l2.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, T, Tk, H, *strides, float(scale),
-        _build.stream_ptr(q.device))
-    _build.launch_counts["flash_attention_backward"] += 1
-    _build.check(code, "flash_attention_backward")
-    return dq.to(q.dtype), dk, dv
+    strides = [s for t in (qs, k, v, do_k) for s in t.stride()[:3]]
+    stream = _build.stream_ptr(q.device)
+    lib = _build.library()
+
+    def launch():
+        code = lib.lsx_flash_attention_bwd(
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), do_k.data_ptr(),
+            aux.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
+            T, Tk, H, *strides, float(scale), stream)
+        _build.launch_counts["flash_attention_backward"] += 1
+        _build.check(code, "flash_attention_backward")
+
+    return launch, dq, dk, dv
+
+
+def attention_bthd_backward_kernel(q, k, v, o, l2, do, scale: float):
+    """Launch K7: q, o and do [B,T,H,64], k and v [B,Tk,H,64] bf16 and l2
+    [B·H, T] f32 (from K5, K6 or K9) on one CUDA device -> dq [B,T,H,64],
+    dk, dv [B,Tk,H,64] bf16. The kernel adds dq into a zeroed f32
+    [B,H,T,64] scratch by bulk reductions; one cast and permute makes it
+    dq."""
+    launch, dq, dk, dv = attention_bthd_backward_launch(q, k, v, o, l2, do,
+                                                        scale)
+    launch()
+    dq = dq.transpose(1, 2).to(q.dtype, memory_format=torch.contiguous_format)
+    return dq, dk, dv
 
 
 def flash_attention_backward_kernel(q, k, v, o, l2, do, scale: float):
     """K7 on [B, H, T, D] operands, k and v with their own key length Tk
     (the backward of K6 and K9, and so K12's split kernels): the kernel
-    reads their [B, T, H, D] views in place and its outputs come back as
-    [B, H, T, D] views."""
-    grads = attention_bthd_backward_kernel(
+    reads their [B, T, H, D] views in place, dk and dv come back as
+    [B, H, T, D] views and dq is its f32 [B, H, T, D] scratch, cast."""
+    launch, dq, dk, dv = attention_bthd_backward_launch(
         *(_bthd(t) for t in (q, k, v, o)), l2, _bthd(do), scale)
-    return tuple(_bthd(g) for g in grads)
+    launch()
+    return dq.to(q.dtype), _bthd(dk), _bthd(dv)
 
 
 def _attention_fn(name: str, fwd_kernel, fwd_plain, bwd_kernel, bwd_plain):

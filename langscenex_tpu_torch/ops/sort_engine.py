@@ -6,7 +6,10 @@ the GPU the network becomes a stable LSD radix sort (``csrc/sort.cu``):
 stability gives the ``tie_sid=True`` order (equal keys by input position)
 for free, and any length is accepted, so callers need no power-of-two
 padding. Contract: identical to a stable ``lax.sort((key, val),
-num_keys=1)`` for every int32 key.
+num_keys=1)`` for every int32 key. The kernel is a onesweep sort: one
+upsweep over all four digits, then one launch per digit whose blocks find
+their offsets by decoupled look-back; the wrapper allocates one scratch
+tensor per call, sized by :func:`sort_scratch_words`.
 
 :func:`sort_pairs` launches the kernel for CUDA tensors and runs the plain
 version (:func:`sort_pairs_plain`) for CPU tensors.
@@ -17,8 +20,19 @@ import torch
 
 from .. import _build
 
-SORT_TILE = 2048          # elements per radix block (csrc/sort.cu)
+SORT_TILE = 2048          # keys per onesweep tile (csrc/sort.cu)
 RADIX = 256
+NUM_PASSES = 4
+MAX_PAIRS = 1 << 30       # a status word holds a count in 30 bits
+
+
+def sort_scratch_words(n: int) -> int:
+    """32-bit words of the kernel's scratch for n pairs, laid out as
+    csrc/sort.cu reads it: the four digit histograms, one ticket per pass
+    (padded to 16 words), a status word per (pass, tile, digit), then the
+    ping-pong keys and values (n words each)."""
+    n_tiles = -(-n // SORT_TILE)
+    return NUM_PASSES * RADIX + 16 + NUM_PASSES * n_tiles * RADIX + 2 * n
 
 
 def _check_pair(key: torch.Tensor, val: torch.Tensor) -> None:
@@ -46,21 +60,18 @@ def sort_pairs(key: torch.Tensor, val: torch.Tensor):
         return sort_pairs_plain(key, val)
     if key.device.type != "cuda":
         raise ValueError(f"sort_pairs: unsupported device {key.device}")
+    n = key.numel()
+    if n >= MAX_PAIRS:
+        raise ValueError(f"sort_pairs takes fewer than 2^30 pairs, got {n}")
     key = key.contiguous()
     val = val.contiguous()
-    n = key.numel()
-    n_blocks = (n + SORT_TILE - 1) // SORT_TILE
     out_k = torch.empty_like(key)
     out_v = torch.empty_like(val)
-    tmp_k = torch.empty_like(key)
-    tmp_v = torch.empty_like(val)
-    hist = torch.empty(max(1, RADIX * n_blocks), dtype=torch.int32,
-                       device=key.device)
-    lib = _build.library()
-    code = lib.lsx_sort_pairs(
+    scratch = torch.empty(sort_scratch_words(n), dtype=torch.int32,
+                          device=key.device)
+    code = _build.library().lsx_sort_pairs(
         key.data_ptr(), val.data_ptr(), out_k.data_ptr(), out_v.data_ptr(),
-        tmp_k.data_ptr(), tmp_v.data_ptr(), hist.data_ptr(), n, n_blocks,
-        _build.stream_ptr(key.device))
+        scratch.data_ptr(), n, _build.stream_ptr(key.device))
     _build.launch_counts["sort_pairs"] += 1
     _build.check(code, "sort_pairs")
     return out_k, out_v

@@ -29,8 +29,8 @@ from langscenex_tpu_torch.experiments import (ab_attention, ab_attention4,
 from langscenex_tpu_torch.ops.flash_attention import (
     attention_auto, flash_attention, flash_attention_backward_plain,
     flash_attention_h2, flash_attention_h2_kernel, flash_attention_h2_plain,
-    flash_attention_online_kernel, flash_attention_online_plain,
-    flash_attention_plain)
+    KERNEL_BWD_KEYS, KERNEL_Q_TILE, flash_attention_online_kernel,
+    flash_attention_online_plain, flash_attention_plain)
 
 SCALE = 0.125
 F32_TOL = dict(atol=2e-5, rtol=2e-5)
@@ -226,6 +226,35 @@ def test_split_backward_branches_match_k7_plain(monkeypatch, branch, dtype):
                                        err_msg=f"d{name}")
             rel_rms = np.sqrt(np.mean((g - w) ** 2) / np.mean(w ** 2))
             assert rel_rms < 2 ** -10, (name, rel_rms)
+
+
+@pytest.mark.parametrize("Tk", [KERNEL_BWD_KEYS - 1, KERNEL_BWD_KEYS,
+                                KERNEL_BWD_KEYS + 1])
+@pytest.mark.parametrize("T", [KERNEL_Q_TILE - 1, KERNEL_Q_TILE,
+                               KERNEL_Q_TILE + 1, 200])
+def test_k7_plain_matches_jax_at_kernel_tile_edges(monkeypatch, T, Tk):
+    # K7's plain version against JAX's backward (the K9 split branch of
+    # _flash_bwd_core in interpret mode, which takes Tk != T) on the JAX
+    # forward's (o, l2), at the edges of the CUDA kernel's 128-key block
+    # and 64-query step, Tk above and below T. f32: 2e-5 of the largest
+    # gradient of each kind + 2e-5 relative (the sums run in another order)
+    _pin(monkeypatch, True, True)
+    q, k, v = _mk(T, Tk, seed=23)
+    do = np.random.default_rng(24).normal(size=q.shape).astype(np.float32)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _cast((q, k, v, do), "f32")
+    with pltpu.force_tpu_interpret_mode():
+        o, l2 = jfa._flash_fwd_impl(jq, jk, jv, SCALE, 64, 64, False)
+        want = jfa._flash_bwd_core(jq, jk, jv, o, l2, jdo, SCALE, 64, 64,
+                                   False)
+    to = torch.from_numpy(np.array(o, np.float32))
+    tl2 = torch.from_numpy(np.array(l2)[:, :T])
+    got = flash_attention_backward_plain(tq, tk, tv, to, tl2, tdo, SCALE)
+    for name, g, w in zip("qkv", got, want):
+        g, w = g.numpy(), np.asarray(w, np.float32)
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=2e-5,
+                                   atol=2e-5 * np.abs(w).max(),
+                                   err_msg=f"d{name}")
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

@@ -23,7 +23,8 @@ from langscenex_tpu_torch.ops.rasterize import prepare_blend
 from langscenex_tpu_torch.ops.rasterize_cuda import (blend_backward,
                                                      blend_backward_plain,
                                                      blend_tiles)
-from langscenex_tpu_torch.ops.sort_engine import sort_pairs, sort_pairs_plain
+from langscenex_tpu_torch.ops.sort_engine import (SORT_TILE, sort_pairs,
+                                                  sort_pairs_plain)
 from langscenex_tpu_torch.ops.transforms import (focal2fov, fov2focal,
                                                  projection_matrix)
 
@@ -72,16 +73,68 @@ def test_wrappers_refuse_other_devices():
                     m, 2)
 
 
+def _sort_case(rng, case, n):
+    """int32 keys of one of the streams the onesweep sort is sensitive to."""
+    if case == "equal":
+        return np.full(n, -12345, np.int32)
+    if case == "depth":             # bitcast positive f32 and +inf: a skewed
+        d = rng.uniform(2.0, 10.0, n).astype(np.float32)    # top digit
+        d[rng.uniform(size=n) < 0.1] = np.inf
+        d[rng.integers(0, n, n // 10)] = np.float32(5.25)
+        return d.view(np.int32)
+    if case == "top":               # f32 in [2, 4): the top digit is 0x40
+        return rng.uniform(2.0, 4.0, n).astype(np.float32).view(np.int32)
+    if case == "extremes":          # INT32_MIN / INT32_MAX and mixed signs
+        k = rng.integers(-2 ** 31, 2 ** 31 - 1, n, dtype=np.int64)
+        k[rng.uniform(size=n) < 0.1] = -2 ** 31
+        k[rng.uniform(size=n) < 0.1] = 2 ** 31 - 1
+        return k.astype(np.int32)
+    if case == "pairs":             # tile << 22 | rank, clustered by tile
+        return ((rng.integers(0, 345, n) << 22)
+                | rng.integers(0, 1 << 22, n)).astype(np.int32)
+    k = rng.integers(-2 ** 31, 2 ** 31 - 1, n).astype(np.int32)
+    k[: n // 3] = 7                 # ties
+    return k
+
+
 @pytest.mark.gpu
-def test_sort_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("case,n", [
+    ("ties", 1), ("ties", 2047), ("ties", 100_003), ("equal", SORT_TILE),
+    ("equal", 100_000), ("depth", 100_000), ("depth", 1 << 19),
+    ("top", 100_000), ("top", 1 << 19),
+    ("extremes", SORT_TILE - 1), ("extremes", SORT_TILE),
+    ("extremes", SORT_TILE + 1),
+    ("extremes", 1 << 20), ("pairs", 1 << 19)])
+def test_sort_kernel_matches_plain(cuda, case, n):
+    # K4 bit for bit against the stable sort, at its onesweep tile of keys
+    # and one below and above it, on all-equal keys, a skewed top digit,
+    # a constant top digit over varying lower digits and the full int32
+    # range
     rng = np.random.default_rng(5)
-    for n in (1, 2047, 2048, 100_003):
-        key = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, n)
-                               .astype(np.int32)).to(cuda)
-        key[: n // 3] = 7                             # ties
-        val = torch.arange(n, dtype=torch.int32, device=cuda)
-        got, ref = sort_pairs(key, val), sort_pairs_plain(key, val)
-        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    key = torch.from_numpy(_sort_case(rng, case, n)).to(cuda)
+    val = torch.from_numpy(rng.integers(0, 1 << 30, n).astype(
+        np.int32)).to(cuda)
+    got, ref = sort_pairs(key, val), sort_pairs_plain(key, val)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.gpu
+def test_sort_kernel_counts_once_and_does_not_synchronise(cuda):
+    # one launch count per call, and no host synchronisation inside it
+    rng = np.random.default_rng(6)
+    key = torch.from_numpy(_sort_case(rng, "ties", 1 << 19)).to(cuda)
+    val = torch.arange(1 << 19, dtype=torch.int32, device=cuda)
+    sort_pairs(key, val)                 # builds and loads the library
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sort_pairs(key, val)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _build.launch_counts["sort_pairs"] == 1
+    ref = sort_pairs_plain(key, val)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 @pytest.mark.gpu
@@ -455,6 +508,39 @@ def test_backward_kernel_with_own_key_length_matches_plain(cuda, B, H, T, Tk,
         flash_attention_backward_kernel, flash_attention_backward_plain,
         flash_attention_online_kernel)
     rng = np.random.default_rng(27)
+    q, do = (_bhtd(rng, B, H, T, cuda, view) for _ in range(2))
+    k, v = (_bhtd(rng, B, H, Tk, cuda, view) for _ in range(2))
+    o, l2 = flash_attention_online_kernel(q, k, v, 0.125)
+    _build.reset_launch_counts()
+    got = flash_attention_backward_kernel(q, k, v, o, l2, do, 0.125)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attention_backward"] == 1
+    ref = flash_attention_backward_plain(q, k, v, o, l2, do, 0.125)
+    for name, g, r, n in zip("qkv", got, ref, (T, Tk, Tk)):
+        assert g.shape == (B, H, n, 64) and g.dtype == torch.bfloat16
+        assert bool(torch.isfinite(g.float()).all()), name
+        g, r = g.float(), r.float()
+        torch.testing.assert_close(g, r, rtol=2 ** -7,
+                                   atol=2 ** -8 * float(r.abs().max()),
+                                   msg=f"d{name}")
+        rel = float((g - r).pow(2).mean().sqrt() / r.pow(2).mean().sqrt())
+        assert rel < 2 ** -9, (name, rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,Tk,view", [
+    (1, 2, 63, 127, False), (1, 2, 64, 128, True), (2, 2, 65, 129, False),
+    (1, 2, 200, 127, True), (2, 3, 200, 128, False), (1, 2, 64, 129, True),
+    (1, 24, 130, 129, True), (1, 48, 65, 200, False)])
+def test_backward_kernel_at_key_tile_edges(cuda, B, H, T, Tk, view):
+    # K7 at the edges of its 128-key block and 64-query step (one key or
+    # query below, at and above), B = 2, [B, H, T, D] views read through
+    # their strides and the DiT's 24 (TP shard) and 48 heads, on K9's o and
+    # l2: K7's bounds (see test_flash_attention_backward_kernel_matches_plain)
+    from langscenex_tpu_torch.ops.flash_attention import (
+        flash_attention_backward_kernel, flash_attention_backward_plain,
+        flash_attention_online_kernel)
+    rng = np.random.default_rng(29)
     q, do = (_bhtd(rng, B, H, T, cuda, view) for _ in range(2))
     k, v = (_bhtd(rng, B, H, Tk, cuda, view) for _ in range(2))
     o, l2 = flash_attention_online_kernel(q, k, v, 0.125)

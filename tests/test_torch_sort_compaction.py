@@ -17,7 +17,9 @@ from langscenex_tpu.ops.sort_engine import bitonic_sort_pairs
 from langscenex_tpu_torch import _build
 from langscenex_tpu_torch.ops.binning import _depth_perm
 from langscenex_tpu_torch.ops.compaction import compact_pairs
-from langscenex_tpu_torch.ops.sort_engine import sort_pairs, sort_pairs_plain
+from langscenex_tpu_torch.ops.sort_engine import (SORT_TILE, sort_pairs,
+                                                  sort_pairs_plain,
+                                                  sort_scratch_words)
 
 SENT = 345 << 22                 # tile sentinel of a 720x480 / 32x32 grid
 
@@ -33,23 +35,61 @@ def _pair_stream(rng, n, n_valid, n_splats=100_000):
     return key[order], sid[order]
 
 
-@pytest.mark.parametrize("case", ["ties", "unique", "negative", "empty"])
-def test_plain_sort_matches_stable_lax_sort(case):
-    # stable on equal keys: identical to lax.sort((key, val), num_keys=1)
-    rng = np.random.default_rng(0)
-    n = 0 if case == "empty" else 5000
+def _sort_keys(rng, case):
+    """int32 keys of one case: its stream and its length."""
+    n = {"empty": 0, "one": 1, "tile_below": SORT_TILE - 1,
+         "tile": SORT_TILE, "tile_above": SORT_TILE + 1}.get(case, 5000)
     if case == "ties":
-        key = rng.integers(0, 40, n)
-    elif case == "unique":
-        key = rng.permutation(n) * 7919
-    else:
-        key = rng.integers(-2 ** 31, 2 ** 31 - 1, n)
-    key = key.astype(np.int32)
+        return rng.integers(0, 40, n).astype(np.int32)
+    if case == "unique":
+        return (rng.permutation(n) * 7919).astype(np.int32)
+    if case == "equal":
+        return np.full(n, -7, np.int32)
+    if case == "depth":             # bitcast positive f32 and +inf: a
+        d = rng.uniform(2.0, 10.0, n).astype(np.float32)  # skewed top digit
+        d[rng.uniform(size=n) < 0.1] = np.inf
+        return d.view(np.int32)
+    if case == "top":               # f32 in [2, 4): the top digit is 0x40
+        return rng.uniform(2.0, 4.0, n).astype(np.float32).view(np.int32)
+    if case == "extremes":          # INT32_MIN / INT32_MAX, mixed signs
+        k = rng.integers(-2 ** 31, 2 ** 31 - 1, n, dtype=np.int64)
+        k[rng.uniform(size=n) < 0.1] = -2 ** 31
+        k[rng.uniform(size=n) < 0.1] = 2 ** 31 - 1
+        return k.astype(np.int32)
+    return rng.integers(-2 ** 31, 2 ** 31 - 1, n).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["ties", "unique", "negative", "empty",
+                                  "equal", "depth", "top", "extremes", "one",
+                                  "tile_below", "tile", "tile_above"])
+def test_plain_sort_matches_stable_lax_sort(case):
+    # stable on equal keys: identical to lax.sort((key, val), num_keys=1),
+    # also on the streams the onesweep kernel is sensitive to (every digit
+    # equal, a skewed top digit, a constant top digit over varying lower
+    # digits, the int32 extremes) and at one, one below, at and one above
+    # its tile of keys
+    rng = np.random.default_rng(0)
+    key = _sort_keys(rng, case)
+    n = key.size
     val = rng.integers(0, 1 << 30, n).astype(np.int32)
     rk, rv = jax.lax.sort((jnp.asarray(key), jnp.asarray(val)), num_keys=1)
     tk, tv = sort_pairs(torch.from_numpy(key), torch.from_numpy(val))
     np.testing.assert_array_equal(tk.numpy(), np.asarray(rk))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(rv))
+
+
+@pytest.mark.parametrize("n", [0, 1, SORT_TILE - 1, SORT_TILE,
+                               SORT_TILE + 1, 1 << 19])
+def test_sort_scratch_words_fits_the_kernel_layout(n):
+    # the digit histograms (4 x 256), 16 ticket words, a status word per
+    # (pass, tile, digit) and the ping-pong keys and values, in that order
+    # (csrc/sort.cu lays out its one scratch tensor so)
+    n_tiles = -(-n // SORT_TILE)
+    words = sort_scratch_words(n)
+    assert words == 4 * 256 + 16 + 4 * 256 * n_tiles + 2 * n
+    assert (words - 2 * n) % 4 == 0       # ping-pong buffers 16-byte aligned
+    if n:
+        assert n_tiles * SORT_TILE >= n > (n_tiles - 1) * SORT_TILE
 
 
 def test_plain_sort_matches_bitonic_engine():
