@@ -105,14 +105,17 @@ Phases (any failure raises, so the exit code is non-zero):
      forward and backward at [1, 48, 17776, 64] with Tk = 17,776 and with
      the 17,550 video keys, attention_auto(bounded_logits=False) and
      flash_attention_h2, with exactly 3 K9, 2 K7 and 1 K11 launches and no
-     other; then K9 against its plain version at its 64-key tile at
+     other; the new forward's cuobjdump resources (no spill); then K9
+     against its plain version at its 64-key tile at
      [2, 48, 17776, 64], [1, 48, 17776, 64] and Tk = 17,550 (K5's bounds),
      the gap to JAX's 1024-key block, a x20-logit input where the bounded
      softmax overflows, K9 against K6 on LayerNormed q, k, K7's gradients
      on K9's (o, l2) against the plain backward at both key lengths (K7's
-     bounds), K11 against its plain version and against K9; CUDA-event
-     times of K9, K11 and K7 on K9's l2 beside their plain versions,
-     scaled_dot_product_attention and the bound; and the ported
+     bounds), K11 against its plain version at its 128-key tile and
+     against K9; CUDA-event times of K9, K11 and K7 on K9's l2 beside their
+     plain versions, scaled_dot_product_attention and the bound, K11's
+     tensor and SFU terms and the K/V bytes it reads from L2; and the
+     ported
      experiments ab_attention and ab_attention4 through their main.
  21. the cells attention-exp2-48x18432x64 and gather-640k-w24, the probes
      of K13 through the ported experiments' entry points on seeded
@@ -122,12 +125,14 @@ Phases (any failure raises, so the exit code is non-zero):
      [100008, 24] table in f32 and bf16, with exactly 2 K13a, 1 K13b and
      2 K13c launches and no other; K13b's packed exp alone on every bf16
      input of [-126, 0] (within one bf16 ulp); K13a and K13b against
-     their plain versions at the kernel's 64-key tile (K5's bounds, and
-     for K13b the packed exp's) and the gap to JAX's 1024-key block, K13a
-     against K9, K13b against K13a; K13c bit
-     for bit against torch.index_select; CUDA-event times of K9, K13a and
-     K13b in turns, their plain versions, scaled_dot_product_attention and
-     the bound, and of K13c queued behind a spin and paced by the host,
+     their plain versions at each kernel's key tile (64 and 128 keys; K5's
+     bounds, and for K13b the packed exp's) and the gap to JAX's 1024-key
+     block, K13a against K9, K13b against K13a; K13c bit for bit against
+     torch.index_select; CUDA-event times of K9, K13a, K11 and K13b in
+     turns at [1, 48, 18432, 64], the per-score ratio K13b / K11 of the
+     two wgmma forwards with their tensor and SFU terms and L2 bytes, the
+     plain versions, scaled_dot_product_attention and the bound, and of
+     K13c queued behind a spin and paced by the host,
      beside index_select; then ab_attention2 and ab_gather2 through their
      main.
 Every kernel's bound is computed from this run's shapes: the larger of
@@ -165,7 +170,8 @@ from langscenex_tpu_torch.experiments import (ab_attention, ab_attention2,
                                               ab_attention4, ab_gather2,
                                               time_ms)
 from langscenex_tpu_torch.ops.flash_attention import (
-    KERNEL_BLOCK_K, attention_auto, attention_bthd_backward_kernel,
+    KERNEL_BLOCK_K, WGMMA_BLOCK_K, WGMMA_Q_TILE, attention_auto,
+    attention_bthd_backward_kernel,
     attention_bthd_backward_launch, attention_bthd_backward_plain,
     attention_bthd_kernel,
     attention_bthd_plain, flash_attention, flash_attention_backward_kernel,
@@ -344,8 +350,8 @@ K6_T, K6_H, K6_SHORT_T = 13 * 30 * 45 + 226, 48, 1000
 # as in the request and B = 1 as in experiments/ab_attention4.py, and the
 # keys cut to the 17,550 video tokens (the joint sequence is [text;
 # video]); a x20-logit input at a small shape. K9 and K11 are held to
-# their plain versions at the kernel's 64-key tile (the same rescale
-# points) with K5's bounds. At JAX's 1024-key block every p is rounded at
+# their plain versions at each kernel's key tile (64 and 128 keys: the
+# same rescale points) with K5's bounds. At JAX's 1024-key block every p is rounded at
 # another scale, so it may move by a bf16 ulp (2^-7 of it): o is still
 # held per element to K5's bound (2^-7 relative + 1e-3), l2 to
 # log2(1 + 2^-7). K9 against K6 on LayerNormed q, k (bounded logits):
@@ -371,7 +377,7 @@ EXPERIMENT_ITERS = 2
 # is measured alone on every bf16 input of [-126, 0] against exp2 rounded
 # to bf16 and must stay within one bf16 ulp (2^-7 of p at most); then each
 # p of K13b may move by a factor 1 + e, |e| <= 2^-7, against its plain
-# version, and o = sum p v / sum p by at most 2^-7 / (1 - 2^-7) max|v - o|,
+# version at its 128-key tile, and o = sum p v / sum p by at most 2^-7 / (1 - 2^-7) max|v - o|,
 # plus a bf16 rounding of each side's o (2^-7 |o| together). Such moves
 # are many and of either sign, so o's relative RMS difference stays near
 # their RMS (2^-7 / sqrt(3) at most): within 2^-7, where a dropped 64-key
@@ -436,12 +442,12 @@ SOURCES = {
     "flash_attention_backward":
         "langscenex_tpu_torch/csrc/flash_attention_backward.cu",
     "flash_attention_online": "langscenex_tpu_torch/csrc/flash_attention.cu",
-    "flash_attention_h2": "langscenex_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_h2": "langscenex_tpu_torch/csrc/flash_attention_sm90.cu",
     "flash_attention_backward_split":
         "langscenex_tpu_torch/csrc/flash_attention_backward.cu",
     "flash_attention_exp2": "langscenex_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_exp2_bf16":
-        "langscenex_tpu_torch/csrc/flash_attention.cu",
+        "langscenex_tpu_torch/csrc/flash_attention_sm90.cu",
     "gather_rows": "langscenex_tpu_torch/csrc/gather_rows.cu",
 }
 RENDER_TRAIN_KERNELS = ("blend_forward", "blend_backward", "compact_pairs",
@@ -606,6 +612,38 @@ def resource_field(line: str, field: str) -> int:
         if key == field:
             return int(val)
     raise RuntimeError(f"cuobjdump line has no {field}: {line!r}")
+
+
+def require_no_spill(name: str, what: str) -> None:
+    """Print the resources of each built kernel whose symbol holds
+    ``name`` and fail if one has local memory or a stack (a spill)."""
+    for line in kernel_resources(name):
+        print(f"{what}: {line}")
+        require(resource_field(line, "LOCAL") == 0
+                and resource_field(line, "STACK") == 0,
+                f"{what} spills to local memory: {line}")
+
+
+def forward_terms(what: str, ms: float, H: int, T: int, Tk: int,
+                  exps: float, dev) -> None:
+    """Print a wgmma forward's time beside its tensor term (4 H T Tk 64
+    flops at the bf16 peak) and its SFU term (``exps`` ex2 instructions,
+    16 per clock and SM at nvidia-smi's maximum SM clock), and the K and V
+    bytes its blocks of WGMMA_Q_TILE queries read from L2 per call with
+    the rate they imply at this time."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    tensor_ms = 4.0 * H * T * Tk * 64 / PEAK_BF16_FLOPS * 1e3
+    sfu_ms = exps / (16 * sms) / (mhz * 1e3)
+    kv = -(-T // WGMMA_Q_TILE) * H * Tk * 64 * 2 * 2
+    print(f"{what} at [1, {H}, {T}, 64], Tk {Tk}: {ms:.4f} ms; tensor term "
+          f"{tensor_ms:.4f} ms (989 TFLOP/s), SFU term {sfu_ms:.4f} ms "
+          f"({exps:.4g} ex2 at 16 per clock on {sms} SMs at {mhz:.0f} MHz); "
+          f"K/V read from L2 {kv / 1e9:.3f} GB per call, "
+          f"{kv / ms / 1e9:.3f} TB/s at this time")
 
 
 def sort_edge_cases(rng):
@@ -1370,11 +1408,7 @@ def phase_k7(dev, dit, batch, results) -> None:
     n_exp = B * H * T * T
     sfu = n_exp / (16 * torch.cuda.get_device_properties(
         dev).multi_processor_count)
-    for line in kernel_resources("flash_bwd"):
-        print(f"K7 flash_attention_backward: {line}")
-        require(resource_field(line, "LOCAL") == 0
-                and resource_field(line, "STACK") == 0,
-                f"K7 spills to local memory: {line}")
+    require_no_spill("flash_bwd", "K7 flash_attention_backward")
     print(f"K7 flash_attention_backward: kernel {kernel_ms:.4f} ms alone, "
           f"wrapper {ms:.4f} ms ({K7_BEFORE_MS} ms before the wgmma design), "
           f"plain {plain_ms:.4f} ms, scaled_dot_product_attention backward "
@@ -1788,8 +1822,8 @@ def phase_exact(dev, results) -> dict:
                 "rounding on bounded logits")
         del qn, kn, o9n, o6n, gap, lim
         # ---- K11 against its plain version and against K9
-        rh = flash_attention_h2_plain(q1, k1, v1, sc, block_k=KERNEL_BLOCK_K)
-        err11 = check_attention(f"K11 vs plain at its {KERNEL_BLOCK_K}-key "
+        rh = flash_attention_h2_plain(q1, k1, v1, sc, block_k=WGMMA_BLOCK_K)
+        err11 = check_attention(f"K11 vs plain at its {WGMMA_BLOCK_K}-key "
                                 f"tile, q, k, v {list(q1.shape)}", h2, None,
                                 rh, None)
         e11 = rel_rms(h2, runs["Tk = T"][0])
@@ -1810,7 +1844,7 @@ def phase_exact(dev, results) -> dict:
         max_abs_err=err9, ms=ms9, plain_ms=plain9, **b9, library_ms=lib9)
     ms11 = cuda_ms(lambda: flash_attention_h2_kernel(q1, k1, v1, sc), 5)
     plain11 = cuda_ms(lambda: flash_attention_h2_plain(
-        q1, k1, v1, sc, block_k=KERNEL_BLOCK_K), 1, warmup=1)
+        q1, k1, v1, sc, block_k=WGMMA_BLOCK_K), 1, warmup=1)
     with torch.no_grad():
         lib11 = cuda_ms(lambda: sdpa(q1, k1, v1), 5)
     b11 = bound(flops=4.0 * H * T * T * D, moved=nbytes(q1, k1, v1, h2))
@@ -1844,6 +1878,10 @@ def phase_exact(dev, results) -> dict:
               f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     print(f"K7 on K9's l2 at Tk = {Tv}: kernel {ms7v:.4f} ms, bound "
           f"{b7v['bound_ms']:.4f} ms ({b7v['bound_by']})")
+    # K11: one ex2 per score and one per row and key tile for the rescale
+    require_no_spill("flash_fwd_wgmma", "K11/K13b flash_fwd_wgmma")
+    forward_terms("K11 flash_attention_h2", ms11, H, T, T,
+                  H * T * (T + -(-T // WGMMA_BLOCK_K)), dev)
     del q, k, v, q1, k1, v1, do, runs, shapes, o9, l9, o1, l21, ov, l2v, h2
     torch.cuda.empty_cache()
 
@@ -1945,9 +1983,9 @@ def phase_k13(dev, results) -> dict:
         require(torch.equal(ob, path_bf16), "K13b: the path's output differs "
                 "from a second launch")
         rb = flash_attention_exp2_bf16_plain(q, k, v, sc,
-                                             block_k=KERNEL_BLOCK_K)
+                                             block_k=WGMMA_BLOCK_K)
         err_b = check_packed_exp2(ob, rb, v, f"K13b vs plain at its "
-                                  f"{KERNEL_BLOCK_K}-key tile, q, k, v "
+                                  f"{WGMMA_BLOCK_K}-key tile, q, k, v "
                                   f"{list(q.shape)}")
         del rb
         rj = flash_attention_exp2_bf16_plain(q, k, v, sc)
@@ -1971,7 +2009,8 @@ def phase_k13(dev, results) -> dict:
             require(same, "K13c differs from index_select")
             del lib
 
-    # ---- times: K9, K13a, K13b in turns at T = 18,432; plain, SDPA, bound
+    # ---- times: K9, K13a, K11, K13b in turns at T = 18,432; plain, SDPA,
+    # bound
     ms, libs, bounds = {}, {}, {}
     for T in K13_TOKENS:
         q, k, v = qkv[T]
@@ -1979,9 +2018,11 @@ def phase_k13(dev, results) -> dict:
                "K13a": lambda: flash_attention_exp2_kernel(q, k, v, sc)}
         order = ("K9", "K13a", "K13a", "K9")
         if T == Tf:
+            fns["K11"] = lambda: flash_attention_h2_kernel(q, k, v, sc)
             fns["K13b"] = lambda: flash_attention_exp2_bf16_kernel(q, k, v,
                                                                    sc)
-            order = ("K9", "K13a", "K13b", "K13b", "K13a", "K9")
+            order = ("K9", "K13a", "K11", "K13b", "K13b", "K11", "K13a",
+                     "K9")
         runs = {n: [] for n in fns}
         for n in order:
             runs[n].append(cuda_ms(fns[n], K13_ITERS))
@@ -1997,11 +2038,23 @@ def phase_k13(dev, results) -> dict:
               + f"; scaled_dot_product_attention {lib:.4f} ms, bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}, "
               f"{4.0 * K13_H * T * T * D / 1e12:.3f} TFLOP at 989 TFLOP/s)")
+    # the two wgmma forwards at one shape: K11 issues one ex2 per score,
+    # K13b one packed ex2 per two; both one per row and key tile for the
+    # rescale. Their per-score ratio says whether the SFU bounds the design
+    rescales = K13_H * Tf * -(-Tf // WGMMA_BLOCK_K)
+    ratio = ms[Tf]["K13b"] / ms[Tf]["K11"]
+    print(f"wgmma forwards at [1, {K13_H}, {Tf}, {D}]: per-score ratio "
+          f"K13b / K11 {ratio:.4f} (under about 0.9: the SFU co-bounds "
+          f"them)")
+    forward_terms("K11 flash_attention_h2", ms[Tf]["K11"], K13_H, Tf, Tf,
+                  K13_H * Tf * Tf + rescales, dev)
+    forward_terms("K13b flash_attention_exp2_bf16", ms[Tf]["K13b"], K13_H,
+                  Tf, Tf, K13_H * Tf * Tf / 2 + rescales, dev)
     q, k, v = qkv[Tf]
     plain_a = cuda_ms(lambda: flash_attention_exp2_plain(
         q, k, v, sc, block_k=KERNEL_BLOCK_K), 1, warmup=1)
     plain_b = cuda_ms(lambda: flash_attention_exp2_bf16_plain(
-        q, k, v, sc, block_k=KERNEL_BLOCK_K), 1, warmup=1)
+        q, k, v, sc, block_k=WGMMA_BLOCK_K), 1, warmup=1)
     print(f"K13a plain {plain_a:.4f} ms, K13b plain {plain_b:.4f} ms at "
           f"[1, {K13_H}, {Tf}, {D}]; K13b / K13a "
           f"{ms[Tf]['K13b'] / ms[Tf]['K13a']:.4f}, K13a / K9 "

@@ -1,9 +1,10 @@
-// Flash-attention forward, kernels K5 ([B, T, H, D], bounded logits), K6
-// ([B, H, T, D], bounded logits, key length Tk that may differ from T),
-// K9 ([B, H, T, D], online softmax in the exp2 domain), K11 ([B, H, T,
-// D], online softmax in the natural-exp domain) and the two exp2 probes of
-// K13 ([B, H, T, D], f32 or packed-bf16 exp2): one device function read
-// through element strides, templated on its softmax, six entry points.
+// Flash-attention forward on mma.sync, kernels K5 ([B, T, H, D], bounded
+// logits), K6 ([B, H, T, D], bounded logits, key length Tk that may differ
+// from T), K9 ([B, H, T, D], online softmax in the exp2 domain) and the
+// f32 exp2 probe of K13 (K13a, [B, H, T, D]): one device function read
+// through element strides, templated on its softmax, four entry points.
+// K11 and K13b run on the Hopper design of flash_attention_sm90.cu, where
+// these modes are meant to follow.
 //
 // K5 replaces: langscenex_tpu/ops/flash_attention.py:991
 // _attn_kernel_nomax_t4 (reached via _flash_fwd_impl_bthd, :1043, from
@@ -14,13 +15,9 @@
 // the lane-padded _attn_kernel_nomax (:82, K10) compute the same function
 // and differ only in MXU scheduling, so this kernel serves them too. K9
 // replaces :32 _attn_kernel (called at :182 from _flash_fwd_impl, through
-// flash_attention(bounded_logits=False) and attention_auto). K11 replaces
-// :676 _attn_kernel_h2 (called at :772 from flash_attention_h2); its head
-// pairs packed block-diagonally keep the MXU's 128-deep contraction full
-// and carry no function, so it is one head per block here. K13a replaces
-// experiments/ab_attention2.py:46 _exp2_kernel (call :96, from flash_exp2)
-// and K13b :129 _exp2_bf16_kernel (call :165, from flash_exp2_bf16). The
-// transposed accumulator of the TPU's bounded kernels exists to keep the
+// flash_attention(bounded_logits=False) and attention_auto). K13a replaces
+// experiments/ab_attention2.py:46 _exp2_kernel (call :96, from
+// flash_exp2). The transposed accumulator of the TPU's bounded kernels exists to keep the
 // MXU's output lanes full; on Hopper the mma tiles below have no such
 // padding, so only the function carries over. In [B, H, T, D] one head's rows are
 // contiguous: a 64-row k or v tile is one 8 KB read. The rounding points
@@ -35,15 +32,8 @@
 //     q', s as above;  m' = max(m, rowmax s);  p = exp2(s - m')
 //     a  = exp2(m - m');  acc = acc * a + bf16(p) V;  l = l * a + sum bf16(p)
 //     o  = bf16(acc / max(l, 1e-30));  l2 = m + log2(max(l, 1e-30))
-//   natural (K11): q' = bf16(q * bf16(scale)), p = exp(s - m'),
-//     a = exp(m - m'), l summed from the unrounded f32 p, bf16(p) in the PV
-//     product, o as above, no l2.
 //   exp2 (K13a): K9's q', s, m' and a; p = exp2(s - m') and l summed from
-//     the unrounded p, as K11 sums; bf16(p) in the PV product; no l2.
-//   exp2 bf16 (K13b): as K13a, but d = bf16(s - m') and p = exp2(d)
-//     evaluated in bf16, two per ex2.approx.ftz.bf16x2 (Hopper's packed
-//     bf16 exp, the TPU's two-lane bf16 exp2); l sums those bf16 p, a stays
-//     f32. It measures what the exps on the SFU cost the loop.
+//     the unrounded p; bf16(p) in the PV product; no l2.
 // kv rows past Tk contribute nothing: the staged k/v rows are zero, so no
 // garbage or NaN enters the sums, and p is set to 0 there, as the TPU
 // kernels' zero v columns, valid row and -1e9 bias column do; in the
@@ -56,12 +46,11 @@
 // tensor-parallel shard of 24 heads does half of both. Its
 // B H T^2 = 3.03e10 exps take about as long again on the SFU
 // (16 ex2/clk/SM); the online modes add one exp per row and tile for the
-// rescale, 1/64 of that. K13b issues half as many exps, two per packed
-// instruction, and on an H100 ran no faster than K13a (PERF.md §6): the
-// SFU does not bound this design.
+// rescale, 1/64 of that. The SFU does not bound this design: halving the
+// exp instructions gained nothing on an H100 (PERF.md §6).
 //
-// Design (simple and right first; wgmma, TMA and warp specialisation are
-// later work): one block of 4 warps per (b, h, 64-query tile); each warp
+// Design (simple and right first; the wgmma, TMA and warp-specialised
+// design of flash_attention_sm90.cu is to take these modes over): one block of 4 warps per (b, h, 64-query tile); each warp
 // owns 16 query rows. The scaled q tile is staged once into shared memory
 // and held as mma A fragments. kv tiles of 64 rows are double-buffered in
 // shared memory with cp.async (rows past T zero-filled), XOR-swizzled by
@@ -93,26 +82,8 @@ constexpr float FA_NEG_INF = -1e30f;  // JAX's NEG_INF: finite, so m - m'
                                        // is never inf - inf = NaN
 
 // The softmax of the device function: K5/K6's exp2 with no running max,
-// K9's online exp2, K11's online natural exp, K13's online exp2 with l
-// from the unrounded p (kExp2) or with p in packed bf16 (kExp2Bf16).
-enum class Softmax { kBounded, kOnline, kNatural, kExp2, kExp2Bf16 };
-
-template <Softmax MODE>
-__device__ __forceinline__ float softmax_exp(float x) {
-  if constexpr (MODE == Softmax::kNatural) {
-    return expf(x);
-  } else {
-    return exp2f(x);
-  }
-}
-
-// exp2 of two bf16 in one 32-bit register, as one packed SFU operation
-// (subnormal results flush to 0)
-__device__ __forceinline__ unsigned exp2_bf16x2(unsigned d) {
-  unsigned p;
-  asm("ex2.approx.ftz.bf16x2 %0, %1;" : "=r"(p) : "r"(d));
-  return p;
-}
+// K9's online exp2, K13a's online exp2 with l from the unrounded p.
+enum class Softmax { kBounded, kOnline, kExp2 };
 
 template <Softmax MODE>
 __global__ void __launch_bounds__(FA_THREADS)
@@ -139,8 +110,8 @@ flash_fwd(const __nv_bfloat16* __restrict__ q,
   load_rows64<FA_THREADS>(sV[0], vh, vs.t, 0, Tk);
   cp_async_commit();
 
-  // q' = bf16(q * scale_q), scale_q = bf16(scale log2 e) or (natural)
-  // bf16(scale); rows past T are zero
+  // q' = bf16(q * scale_q), scale_q = bf16(scale log2 e); rows past T are
+  // zero
   {
     const __nv_bfloat16* qh = q + b * qs.b + h * qs.h;
 #pragma unroll
@@ -215,7 +186,7 @@ flash_fwd(const __nv_bfloat16* __restrict__ q,
     const bool tail = kv0 + FA_BK > Tk;
     if constexpr (MODE != Softmax::kBounded) {
       // m' = max(m, rowmax S) over the valid keys, then the accumulators
-      // and partial row sums are rescaled by a = exp(m - m')
+      // and partial row sums are rescaled by a = exp2(m - m')
       float mx0 = m0, mx1 = m1;
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
@@ -232,8 +203,8 @@ flash_fwd(const __nv_bfloat16* __restrict__ q,
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float a0 = softmax_exp<MODE>(m0 - mx0);
-      const float a1 = softmax_exp<MODE>(m1 - mx1);
+      const float a0 = exp2f(m0 - mx0);
+      const float a1 = exp2f(m1 - mx1);
       m0 = mx0;
       m1 = mx1;
       lsum0 *= a0;
@@ -247,36 +218,28 @@ flash_fwd(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // P = bf16(exp2(S)) (bounded) or bf16(exp(S - m')), zero past Tk; the
-    // normalizer sums P itself, or (natural, exp2) the unrounded p. In the
-    // packed-bf16 mode P = exp2(bf16(S - m')) directly: a key past Tk has
-    // S = -1e30, so its d rounds to about -1e30 and its P to 0.
+    // P = bf16(exp2(S)) (bounded) or bf16(exp2(S - m')), zero past Tk; the
+    // normalizer sums P itself, or (exp2) the unrounded p.
     unsigned pa[4][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      unsigned lo, hi;
-      if constexpr (MODE == Softmax::kExp2Bf16) {
-        lo = exp2_bf16x2(pack_bf16(s[n][0] - m0, s[n][1] - m0));
-        hi = exp2_bf16x2(pack_bf16(s[n][2] - m1, s[n][3] - m1));
-      } else {
-        float p[4];
+      float p[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if constexpr (MODE == Softmax::kBounded) {
-            p[e] = exp2f(s[n][e]);
-          } else {
-            p[e] = softmax_exp<MODE>(s[n][e] - (e < 2 ? m0 : m1));
-          }
-          if (tail && kv0 + n * 8 + 2 * tq + (e & 1) >= Tk) p[e] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (MODE == Softmax::kBounded) {
+          p[e] = exp2f(s[n][e]);
+        } else {
+          p[e] = exp2f(s[n][e] - (e < 2 ? m0 : m1));
         }
-        lo = pack_bf16(p[0], p[1]);
-        hi = pack_bf16(p[2], p[3]);
-        if constexpr (MODE == Softmax::kNatural || MODE == Softmax::kExp2) {
-          lsum0 += p[0] + p[1];
-          lsum1 += p[2] + p[3];
-        }
+        if (tail && kv0 + n * 8 + 2 * tq + (e & 1) >= Tk) p[e] = 0.f;
       }
-      if constexpr (MODE != Softmax::kNatural && MODE != Softmax::kExp2) {
+      const unsigned lo = pack_bf16(p[0], p[1]);
+      const unsigned hi = pack_bf16(p[2], p[3]);
+      if constexpr (MODE == Softmax::kExp2) {
+        lsum0 += p[0] + p[1];
+        lsum1 += p[2] + p[3];
+      }
+      if constexpr (MODE != Softmax::kExp2) {
         const float2 flo = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(&lo));
         const float2 fhi = __bfloat1622float2(
@@ -359,14 +322,6 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   return 0;
 }
 
-// K13b's packed exp alone, to measure it against exp2 rounded to bf16:
-// y = exp2(x) for n2 pairs of bf16
-__global__ void exp2_bf16x2_probe(const unsigned* __restrict__ x,
-                                  unsigned* __restrict__ y, int n2) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n2) y[i] = exp2_bf16x2(x[i]);
-}
-
 }  // namespace
 
 // o [B, T, H, 64] bf16 and l2 [B*H, T] f32 from q, k, v [B, T, H, 64]
@@ -415,20 +370,6 @@ extern "C" int lsx_flash_attention_online_fwd(
       scale2, stream);
 }
 
-// K11: o [B, H, T, 64] bf16 from K6's operands with the natural-exp online
-// softmax; scale1 is bf16(scale) as a float. No l2.
-extern "C" int lsx_flash_attention_h2_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
-    int T, int Tk, long long qsb, long long qsh, long long qst, long long ksb,
-    long long ksh, long long kst, long long vsb, long long vsh, long long vst,
-    long long osb, long long osh, long long ost, float scale1,
-    cudaStream_t stream) {
-  return launch_fwd<Softmax::kNatural>(
-      q, k, v, o, nullptr, B, H, T, Tk, Strides{qsb, qst, qsh},
-      Strides{ksb, kst, ksh}, Strides{vsb, vst, vsh}, Strides{osb, ost, osh},
-      scale1, stream);
-}
-
 // K13a: o [B, H, T, 64] bf16 from K6's operands with the exp2 online
 // softmax whose l sums the unrounded p; scale2 as K9's. No l2.
 extern "C" int lsx_flash_attention_exp2_fwd(
@@ -441,28 +382,4 @@ extern "C" int lsx_flash_attention_exp2_fwd(
       q, k, v, o, nullptr, B, H, T, Tk, Strides{qsb, qst, qsh},
       Strides{ksb, kst, ksh}, Strides{vsb, vst, vsh}, Strides{osb, ost, osh},
       scale2, stream);
-}
-
-// K13b: K13a with p = exp2(bf16(s - m')) in packed bf16. No l2.
-extern "C" int lsx_flash_attention_exp2_bf16_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
-    int T, int Tk, long long qsb, long long qsh, long long qst, long long ksb,
-    long long ksh, long long kst, long long vsb, long long vsh, long long vst,
-    long long osb, long long osh, long long ost, float scale2,
-    cudaStream_t stream) {
-  return launch_fwd<Softmax::kExp2Bf16>(
-      q, k, v, o, nullptr, B, H, T, Tk, Strides{qsb, qst, qsh},
-      Strides{ksb, kst, ksh}, Strides{vsb, vst, vsh}, Strides{osb, ost, osh},
-      scale2, stream);
-}
-
-// y [n] bf16 = exp2(x [n] bf16) through K13b's packed instruction; n even.
-extern "C" int lsx_exp2_bf16x2(const void* x, void* y, int n,
-                               cudaStream_t stream) {
-  const int n2 = n / 2;
-  if (n2 == 0) return 0;
-  exp2_bf16x2_probe<<<(n2 + 255) / 256, 256, 0, stream>>>(
-      static_cast<const unsigned*>(x), static_cast<unsigned*>(y), n2);
-  LSX_CHECK_LAUNCH();
-  return 0;
 }

@@ -92,14 +92,6 @@ struct __align__(1024) BwdSmem {
   uint64_t empty[BW_STAGES];
 };
 
-// exp2 on the SFU, subnormal results flushed to 0 (p below 2^-126 adds
-// nothing a bf16 ds or dv can hold next to the row's p of order 1)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // S^T = K Q'^T and dP^T = V dO^T of one stage, issued as one wgmma group
 __device__ __forceinline__ void issue_s_dp(float (&sacc)[32],
                                            float (&pacc)[32],
@@ -115,11 +107,6 @@ __device__ __forceinline__ void issue_s_dp(float (&sacc)[32],
   for (int kk = 0; kk < 4; ++kk)
     wgmma_ss<0, 0>(pacc, desc128(vw + kk * 16), desc128(dos + kk * 16), kk);
   wgmma_commit();
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __global__ void __launch_bounds__(BW_THREADS, 1)
@@ -207,7 +194,9 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap q_map,
 
       // P^T = exp2(S^T - l2), dS^T = bf16(P^T (dP^T - dvec)), 0 for keys
       // past Tk or queries past T; packed as register A operands over the
-      // query axis, dS^T also staged swizzled in shared memory
+      // query axis, dS^T also staged swizzled in shared memory. The exp
+      // flushes subnormal results to 0: a p below 2^-126 adds nothing a
+      // bf16 ds or dv can hold next to the row's p of order 1
       const bool q_tail = q0 + BW_BQ > T;
       uint32_t pa[16], da[16];
 #pragma unroll
@@ -312,47 +301,6 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap q_map,
       }
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found at run time so that the
-// library needs no link against libcuda; null if the driver has none
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess
-        && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// a 4-D map over a [B, rows, H, 64] bf16 operand with these element
-// strides, loading boxes of box_rows x 64 with the 128-byte swizzle
-CUresult bthd_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-                  int B, int rows, int H, long long sb, long long st,
-                  long long sh, int box_rows) {
-  const cuuint64_t dims[4] = {BW_D, (cuuint64_t)rows, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {BW_D, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // a 3-D map over the f32 dq scratch [B * H, T, 64], reducing boxes of

@@ -1,0 +1,471 @@
+// Flash-attention forward on Hopper (wgmma, TMA, warp specialisation),
+// kernels K11 ([B, H, T, D], online softmax in the natural-exp domain) and
+// K13b ([B, H, T, D], online softmax in the exp2 domain with p in packed
+// bf16), queries q [B, H, T, 64] and keys k, v [B, H, Tk, 64] read through
+// element strides, so that transpose(1, 2) views of [B, T, H, 64] tensors
+// load in place. One device function templated on its softmax; the other
+// forward modes (K5, K6, K9, K13a) still run on flash_attention.cu's
+// mma.sync design and are meant to move here as further modes.
+//
+// K11 replaces: langscenex_tpu/ops/flash_attention.py:676 _attn_kernel_h2
+// (called at :772 from flash_attention_h2); its head pairs packed
+// block-diagonally keep the MXU's 128-deep contraction full and carry no
+// function, so it is one head per block here. K13b replaces
+// experiments/ab_attention2.py:129 _exp2_bf16_kernel (call :165, from
+// flash_exp2_bf16). The rounding points are the TPU kernels', per tile of
+// 128 keys with a running row max m from -1e30:
+//   natural (K11): q' = bf16(q * bf16(scale)), s = q' . k in f32,
+//     m' = max(m, rowmax s), p = exp(s - m'), a = exp(m - m'),
+//     acc = acc a + bf16(p) V, l = l a + sum p (the unrounded f32 p);
+//   exp2 bf16 (K13b): q' = bf16(q * bf16(scale log2 e)), s and m' as
+//     above, d = bf16(s - m'), p = exp2(d) in bf16, two per
+//     ex2.approx.ftz.bf16x2, acc = acc a + p V, l = l a + sum p (those
+//     bf16 p), a = exp2(m - m') in f32;
+//   o = bf16(acc / max(l, 1e-30)), written for rows < T only. No l2.
+// K11's exp is ex2.approx.ftz of one FFMA, s log2 e - m' log2 e, in place
+// of the library expf: the FFMA's rounding moves p by under 2^-22 |s| of
+// it, far inside a bf16 ulp, and subnormal p (below 2^-126) flush to 0.
+// Keys past Tk arrive as zero rows; only the last tile, when Tk is not a
+// multiple of 128, sets their s to -1e30 before the max, which makes
+// their p exp(-1e30 - m') = 0 (m' is the max of at least one real key),
+// so a row whose logits are all below 0 does not take m = 0 from them.
+//
+// Bound on the H100: operations. At [1, 48, 17776, 64] one call does
+// 4 H T Tk D = 3.88 TFLOP, 3.93 ms at 989 TFLOP/s, against 0.44 GB of q,
+// k, v and o; its H T Tk = 1.52e10 exps take about as long on the SFU
+// (16 ex2 per clock and SM), K13b's packed exps half of that.
+//
+// Design (FlashAttention-3's forward in structure, Shah et al. 2024):
+// one block of three warpgroups per (b, h, 128-query tile):
+// - a producer, cut to 24 registers by setmaxnreg, whose one thread loads
+//   q once and then a ring of FW_STAGES stages of (k, v) tiles of 128
+//   keys by TMA (4-D maps over (D, T, H, B), 128-byte swizzle, which is
+//   wgmma's canonical layout for 64-wide bf16 rows), completed on
+//   mbarrier transaction counts; the consumers free a stage by arriving
+//   on its empty barrier once its V product is done;
+// - two consumers of 64 query rows each, raised to 240 registers. Each
+//   scales and rounds its q rows once from shared memory into the
+//   register A operand of S = q' K^T (wgmma.m64n128k16, K as a K-major B);
+//   P is re-packed from the S accumulator as the register A operand of
+//   O += P V (wgmma.m64n64k16 over 8 k-steps, V as an MN-major B).
+//   Per tile j a consumer issues S_j and, behind it, O's rescale and
+//   P_{j-1} V_{j-1} as one turn, then runs tile j's softmax while both
+//   products run; the two consumers take turns on two named barriers
+//   (ping-pong, FlashAttention-3 §3.1), so that one warpgroup's exps run
+//   on the SFU while the other's products run on the tensor cores.
+// Measured on the H100 (PERF.md §6; tools/ab_forward_sm90.py):
+// ptxas serialises the products where it puts a wait in divergent code
+// (C7518, 45% of K11), keeps S registers alive into the next S (C7511)
+// or moves p out of them between two issues (C7513, 30% of K13b): hence
+// the peeled tiles, the write-only first k-step and K13b's f32 re-pack.
+// Without the turns K11 is 24% slower; 3 stages beat 2 and 4; with no
+// exp of the scores it is only 9-12% faster, with no K/V reads from L2
+// no faster.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "common.cuh"
+#include "sm90.cuh"
+
+namespace {
+
+using namespace lsx::sm90;
+
+constexpr int FW_D = 64;          // head dim
+constexpr int FW_BQ = 128;        // queries per block, 64 per consumer
+constexpr int FW_BK = 128;        // keys per tile
+constexpr int FW_STAGES = 3;      // (k, v) tiles in flight
+constexpr int FW_CONSUMERS = 256;
+constexpr int FW_THREADS = FW_CONSUMERS + 128;
+constexpr uint32_t TILE_BYTES = FW_BK * FW_D * 2;  // a k, v or q tile
+constexpr float FW_NEG_INF = -1e30f;  // JAX's NEG_INF: finite, so m - m'
+                                      // is never inf - inf = NaN
+constexpr float FW_LOG2E = 1.4426950408889634f;
+constexpr int BAR_TURN = 1;  // named barriers 1, 2: consumer 0's, 1's turn
+
+// The softmax of the device function: K11's online natural exp, K13b's
+// online exp2 with p in packed bf16.
+enum class Softmax { kNatural, kExp2Bf16 };
+
+struct __align__(1024) FwdSmem {
+  __nv_bfloat16 q[FW_BQ * FW_D];
+  __nv_bfloat16 k[FW_STAGES][FW_BK * FW_D];
+  __nv_bfloat16 v[FW_STAGES][FW_BK * FW_D];
+  uint64_t q_bar;
+  uint64_t full[FW_STAGES];
+  uint64_t empty[FW_STAGES];
+};
+
+// One tile's softmax on this thread's S accumulator (rows g and g + 8 of
+// its warp, columns 8i + 2tq + {0, 1}): m' = max(m, rowmax s) reduced over
+// the quad of lanes that share a row, a = exp(m - m'), l = l a + sum p.
+// p overwrites s in f32; K13b's packed bf16 p are unpacked for the sum
+// anyway and re-packed, exactly, once the last PV product is done. (Kept
+// packed they share registers with S, which the next S overwrites before
+// the PV product that reads p is issued: ptxas then moves them out
+// between the two issues and serialises the products.) With MASK, the
+// columns at or past `valid` are keys past Tk.
+template <Softmax MODE, bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[64], int valid,
+                                             int tq, float& m0, float& m1,
+                                             float& l0, float& l1, float& a0,
+                                             float& a1) {
+  if constexpr (MASK) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (8 * i + 2 * tq + (e & 1) >= valid) s[4 * i + e] = FW_NEG_INF;
+      }
+    }
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  float sum0 = 0.f, sum1 = 0.f;
+  if constexpr (MODE == Softmax::kNatural) {
+    a0 = exp2_ftz((m0 - mx0) * FW_LOG2E);
+    a1 = exp2_ftz((m1 - mx1) * FW_LOG2E);
+    const float b0 = mx0 * FW_LOG2E, b1 = mx1 * FW_LOG2E;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2_ftz(fmaf(s[4 * i + e], FW_LOG2E,
+                                      -(e < 2 ? b0 : b1)));
+        s[4 * i + e] = p;
+        if (e < 2) {
+          sum0 += p;
+        } else {
+          sum1 += p;
+        }
+      }
+    }
+  } else {
+    a0 = exp2_ftz(m0 - mx0);
+    a1 = exp2_ftz(m1 - mx1);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const uint32_t lo = exp2_bf16x2(pack_bf16(s[4 * i] - mx0,
+                                                s[4 * i + 1] - mx0));
+      const uint32_t hi = exp2_bf16x2(pack_bf16(s[4 * i + 2] - mx1,
+                                                s[4 * i + 3] - mx1));
+      const float2 flo = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&lo));
+      const float2 fhi = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&hi));
+      sum0 += flo.x + flo.y;
+      sum1 += fhi.x + fhi.y;
+      s[4 * i] = flo.x;
+      s[4 * i + 1] = flo.y;
+      s[4 * i + 2] = fhi.x;
+      s[4 * i + 3] = fhi.y;
+    }
+  }
+  l0 = l0 * a0 + sum0;
+  l1 = l1 * a1 + sum1;
+  m0 = mx0;
+  m1 = mx1;
+}
+
+// bf16(P) as the register A operand of the PV product: k-step kk of 16
+// keys is pa[4kk..4kk+3] (sm90.cuh's accumulator-to-A layout)
+__device__ __forceinline__ void pack_p(const float (&s)[64],
+                                       uint32_t (&pa)[32]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    pa[2 * i] = pack_bf16(s[4 * i], s[4 * i + 1]);
+    pa[2 * i + 1] = pack_bf16(s[4 * i + 2], s[4 * i + 3]);
+  }
+}
+
+__device__ __forceinline__ void rescale(float (&acc)[32], float a0,
+                                        float a1) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    acc[4 * i] *= a0;
+    acc[4 * i + 1] *= a0;
+    acc[4 * i + 2] *= a1;
+    acc[4 * i + 3] *= a1;
+  }
+}
+
+// O += P V over one tile's 128 keys
+__device__ __forceinline__ void issue_pv(float (&acc)[32],
+                                         const uint32_t (&pa)[32],
+                                         const __nv_bfloat16* vt) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_rs<1>(acc, pa + 4 * kk, desc128(vt + kk * 16 * FW_D));
+  wgmma_commit();
+}
+
+// What a consumer carries from one key tile to the next.
+struct Carry {
+  float acc[32];   // O, unnormalised
+  float s[64];     // S, then p
+  uint32_t pa[32]; // bf16(p) of the last tile, the A operand of its PV
+  float m0, m1;    // running max of rows row0, row0 + 8
+  float l0, l1;    // this thread's part of their normalizers
+  float a0, a1;    // the last tile's rescale, applied to acc before its PV
+};
+
+// One turn of a consumer on key tile j: wait for its (k, v) stage and for
+// its turn, issue S_j and (but on the first tile) O's rescale and
+// P_{j-1} V_{j-1}, hand the turn to the other consumer, run tile j's
+// softmax while the products run, then free tile j-1's stage and re-pack
+// P_j. No branch lies between a product's issue and its wait (ptxas would
+// serialise the products there), so the first tile and a masked last tile
+// are instantiations of their own.
+template <Softmax MODE, bool MASK, bool FIRST>
+__device__ __forceinline__ void consumer_tile(FwdSmem& sm, int j, int Tk,
+                                              int wg, int tq,
+                                              const uint32_t (&qa)[16],
+                                              Carry& c) {
+  const int st = j % FW_STAGES;
+  mbar_wait(&sm.full[st], (j / FW_STAGES) & 1);
+  bar_sync(BAR_TURN + wg, FW_CONSUMERS);
+  wgmma_fence();
+  wgmma_rs_n128<0, true>(c.s, qa, desc128(sm.k[st]));
+#pragma unroll
+  for (int kk = 1; kk < 4; ++kk)
+    wgmma_rs_n128<0, false>(c.s, qa + 4 * kk, desc128(sm.k[st] + kk * 16));
+  wgmma_commit();
+  if constexpr (!FIRST) {
+    rescale(c.acc, c.a0, c.a1);
+    issue_pv(c.acc, c.pa, sm.v[(j - 1) % FW_STAGES]);
+  }
+  bar_arrive(BAR_TURN + (wg ^ 1), FW_CONSUMERS);
+  if constexpr (FIRST) {
+    wgmma_wait<0>();
+  } else {
+    wgmma_wait<1>();
+  }
+  fence_regs(c.s);
+  softmax_tile<MODE, MASK>(c.s, Tk - j * FW_BK, tq, c.m0, c.m1, c.l0, c.l1,
+                           c.a0, c.a1);
+  if constexpr (!FIRST) {
+    wgmma_wait<0>();
+    fence_regs(c.acc);
+    mbar_arrive(&sm.empty[(j - 1) % FW_STAGES]);
+  }
+  pack_p(c.s, c.pa);
+}
+
+template <Softmax MODE>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                __nv_bfloat16* __restrict__ o, int T, int Tk, long long osb,
+                long long osh, long long ost, float scale_q) {
+  extern __shared__ unsigned char smem_raw[];
+  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int q0 = blockIdx.x * FW_BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_kv = (Tk + FW_BK - 1) / FW_BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_bar, 1);
+    for (int s = 0; s < FW_STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], FW_CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    // ---- producer -------------------------------------------------------
+    reg_dealloc<24>();
+    if (threadIdx.x == FW_CONSUMERS) {
+      mbar_expect_tx(&sm.q_bar, TILE_BYTES);
+      tma_load_4d(sm.q, &q_map, 0, q0, h, b, &sm.q_bar);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % FW_STAGES;
+        if (j >= FW_STAGES) mbar_wait(&sm.empty[s], (j / FW_STAGES - 1) & 1);
+        mbar_expect_tx(&sm.full[s], 2 * TILE_BYTES);
+        tma_load_4d(sm.k[s], &k_map, 0, j * FW_BK, h, b, &sm.full[s]);
+        tma_load_4d(sm.v[s], &v_map, 0, j * FW_BK, h, b, &sm.full[s]);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----------------------------------
+    reg_alloc<240>();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int tq = lane & 3;
+    const int row0 = wg * 64 + warp * 16 + (lane >> 2);  // and row0 + 8
+
+    // q' = bf16(q * scale_q) as the register A operand of S = q' K^T:
+    // k-step kk holds rows row0, row0 + 8 at columns 16kk + 2tq (+ 8)
+    mbar_wait(&sm.q_bar, 0);
+    uint32_t qa[16];
+    const unsigned char* qs = reinterpret_cast<const unsigned char*>(sm.q);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const uint32_t raw = *reinterpret_cast<const uint32_t*>(
+            qs + swz128(row0 + (r & 1) * 8, 16 * kk + (r >> 1) * 8 + 2 * tq));
+        const float2 f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&raw));
+        qa[4 * kk + r] = pack_bf16(f.x * scale_q, f.y * scale_q);
+      }
+    }
+
+    Carry c;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) c.acc[i] = 0.f;
+    c.m0 = c.m1 = FW_NEG_INF;
+    c.l0 = c.l1 = 0.f;
+    // consumer 0 takes the first turn; each consumer hands the turn over
+    // once per tile, and consumer 0 takes consumer 1's last hand-over at
+    // the end
+    if (wg == 1) bar_arrive(BAR_TURN, FW_CONSUMERS);
+    if (Tk < FW_BK) {
+      consumer_tile<MODE, true, true>(sm, 0, Tk, wg, tq, qa, c);
+    } else {
+      consumer_tile<MODE, false, true>(sm, 0, Tk, wg, tq, qa, c);
+    }
+    for (int j = 1; j + 1 < n_kv; ++j)
+      consumer_tile<MODE, false, false>(sm, j, Tk, wg, tq, qa, c);
+    if (n_kv > 1) {
+      if (Tk % FW_BK) {
+        consumer_tile<MODE, true, false>(sm, n_kv - 1, Tk, wg, tq, qa, c);
+      } else {
+        consumer_tile<MODE, false, false>(sm, n_kv - 1, Tk, wg, tq, qa, c);
+      }
+    }
+    rescale(c.acc, c.a0, c.a1);
+    issue_pv(c.acc, c.pa, sm.v[(n_kv - 1) % FW_STAGES]);
+    wgmma_wait<0>();
+    fence_regs(c.acc);
+    if (wg == 0) bar_sync(BAR_TURN, FW_CONSUMERS);
+
+    // the quad of a row holds its partial sums
+    float l0 = c.l0, l1 = c.l1;
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    l0 = fmaxf(l0, 1e-30f);
+    l1 = fmaxf(l1, 1e-30f);
+    const int r0 = q0 + row0;
+    const int r1 = r0 + 8;
+    __nv_bfloat16* oh = o + b * osb + h * osh;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int d = 8 * i + 2 * tq;
+      if (r0 < T) {
+        *reinterpret_cast<__nv_bfloat162*>(oh + (long long)r0 * ost + d) =
+            __floats2bfloat162_rn(c.acc[4 * i] / l0, c.acc[4 * i + 1] / l0);
+      }
+      if (r1 < T) {
+        *reinterpret_cast<__nv_bfloat162*>(oh + (long long)r1 * ost + d) =
+            __floats2bfloat162_rn(c.acc[4 * i + 2] / l1,
+                                  c.acc[4 * i + 3] / l1);
+      }
+    }
+  }
+}
+
+// q, k, v and o given by their (b, h, t) element strides (head-dim stride
+// 1, strides multiples of 8 and 16-byte aligned bases; the wrapper
+// checks). A missing entry point or a refused map returns its CUresult,
+// whose codes read as the cudaError_t of the same name; Tk = 0 (no key to
+// take the softmax over) returns cudaErrorInvalidValue.
+template <Softmax MODE>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+                     int B, int H, int T, int Tk, long long qsb,
+                     long long qsh, long long qst, long long ksb,
+                     long long ksh, long long kst, long long vsb,
+                     long long vsh, long long vst, long long osb,
+                     long long osh, long long ost, float scale_q,
+                     cudaStream_t stream) {
+  if (B == 0 || T == 0 || H == 0) return 0;
+  if (Tk == 0) return (int)cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap q_map, k_map, v_map;
+  CUresult res = bthd_map(encode, &q_map, q, B, T, H, qsb, qst, qsh, FW_BQ);
+  if (res == CUDA_SUCCESS)
+    res = bthd_map(encode, &k_map, k, B, Tk, H, ksb, kst, ksh, FW_BK);
+  if (res == CUDA_SUCCESS)
+    res = bthd_map(encode, &v_map, v, B, Tk, H, vsb, vst, vsh, FW_BK);
+  if (res != CUDA_SUCCESS) return (int)res;
+  const int smem = (int)sizeof(FwdSmem) + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + FW_BQ - 1) / FW_BQ, H, B);
+  flash_fwd_wgmma<MODE><<<grid, FW_THREADS, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), T, Tk, osb, osh,
+      ost, scale_q);
+  LSX_CHECK_LAUNCH();
+  return 0;
+}
+
+// K13b's packed exp alone, to measure it against exp2 rounded to bf16:
+// y = exp2(x) for n2 pairs of bf16
+__global__ void exp2_bf16x2_probe(const uint32_t* __restrict__ x,
+                                  uint32_t* __restrict__ y, int n2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n2) y[i] = exp2_bf16x2(x[i]);
+}
+
+}  // namespace
+
+// K11: o [B, H, T, 64] bf16 from q [B, H, T, 64] and k, v [B, H, Tk, 64]
+// bf16 with the natural-exp online softmax; scale1 is bf16(scale) as a
+// float. No l2.
+extern "C" int lsx_flash_attention_h2_fwd(
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int T, int Tk, long long qsb, long long qsh, long long qst, long long ksb,
+    long long ksh, long long kst, long long vsb, long long vsh, long long vst,
+    long long osb, long long osh, long long ost, float scale1,
+    cudaStream_t stream) {
+  return launch_fwd_wgmma<Softmax::kNatural>(
+      q, k, v, o, B, H, T, Tk, qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst,
+      osb, osh, ost, scale1, stream);
+}
+
+// K13b: K11's operands and output with the exp2 online softmax whose p =
+// exp2(bf16(s - m')) is evaluated in packed bf16; scale2 is bf16(scale *
+// log2 e) as a float. No l2.
+extern "C" int lsx_flash_attention_exp2_bf16_fwd(
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int T, int Tk, long long qsb, long long qsh, long long qst, long long ksb,
+    long long ksh, long long kst, long long vsb, long long vsh, long long vst,
+    long long osb, long long osh, long long ost, float scale2,
+    cudaStream_t stream) {
+  return launch_fwd_wgmma<Softmax::kExp2Bf16>(
+      q, k, v, o, B, H, T, Tk, qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst,
+      osb, osh, ost, scale2, stream);
+}
+
+// y [n] bf16 = exp2(x [n] bf16) through K13b's packed instruction; n even.
+extern "C" int lsx_exp2_bf16x2(const void* x, void* y, int n,
+                               cudaStream_t stream) {
+  const int n2 = n / 2;
+  if (n2 == 0) return 0;
+  exp2_bf16x2_probe<<<(n2 + 255) / 256, 256, 0, stream>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y), n2);
+  LSX_CHECK_LAUNCH();
+  return 0;
+}

@@ -1,7 +1,7 @@
-// Tensor-core and async-copy helpers shared by the attention forward (K5)
-// and backward (K7): cp.async staging of 64-column bf16 tiles into
-// XOR-swizzled shared memory, ldmatrix loads of mma fragments, and the
-// bf16 mma.sync.m16n8k16 with f32 accumulators.
+// Tensor-core and async-copy helpers of the mma.sync attention forward
+// (K5, K6, K9, K13a in flash_attention.cu): cp.async staging of 64-column
+// bf16 tiles into XOR-swizzled shared memory, ldmatrix loads of mma
+// fragments, and the bf16 mma.sync.m16n8k16 with f32 accumulators.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, tq = lane % 4):
 //   A (16x16, row): a0 (row g, cols 2tq..2tq+1), a1 (row g+8, same cols),
@@ -41,14 +41,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(smem)),
                "l"(gmem), "r"(pred ? 16 : 0));
-}
-
-// 4 bytes global -> shared, zero-filled when !pred
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem), "r"(pred ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -1,8 +1,11 @@
-// Hopper (sm_90a) helpers of the attention backward (K7): mbarriers, TMA
-// tile loads and tensor reductions, bulk copies, named barriers, register
-// reallocation and the bf16 wgmma.mma_async.m64n64k16 with f32
-// accumulators, its operands read from 128-byte-swizzled shared memory
-// (both) or, for A, from registers.
+// Hopper (sm_90a) helpers of the attention kernels on wgmma, the backward
+// (K7, flash_attention_backward.cu) and the forward of K11 and K13b
+// (flash_attention_sm90.cu): mbarriers, TMA tile loads and tensor
+// reductions, bulk copies, named barriers, register reallocation, the SFU
+// exps, the bf16 wgmma.mma_async.m64n64k16 and m64n128k16 with f32
+// accumulators, their operands read from 128-byte-swizzled shared memory
+// (both) or, for A, from registers; and on the host the tensor maps of
+// [B, T, H, 64] operands that both kernels load by TMA.
 //
 // Shared-memory operands are tiles of 128-byte rows written by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B (or by hand with swz128), each tile 1024-byte
@@ -21,6 +24,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -144,6 +148,11 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
+// count this thread towards the barrier without waiting for it
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
@@ -152,6 +161,28 @@ __device__ __forceinline__ void reg_alloc() {
 template <int N>
 __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// ---- exps on the SFU and bf16 packing ----------------------------------
+// exp2, subnormal results flushed to 0 (exp2f is not this one instruction:
+// its subnormal path cost K7 8 ms at the LoRA shape)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// exp2 of two bf16 in one 32-bit register, as one packed SFU operation
+// (subnormal results flush to 0)
+__device__ __forceinline__ uint32_t exp2_bf16x2(uint32_t d) {
+  uint32_t p;
+  asm("ex2.approx.ftz.bf16x2 %0, %1;" : "=r"(p) : "r"(d));
+  return p;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // ---- wgmma -------------------------------------------------------------
@@ -177,9 +208,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keep the compiler from moving accesses of an accumulator across an
 // asynchronous wgmma
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= A B, m64n64k16, A and B from shared memory; TA / TB = 1 for an
@@ -229,6 +261,99 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(TB));
+}
+
+// the 64 accumulator operands of an m64n128 wgmma, with constraint C
+#define LSX_ACC64(C)                                                       \
+  C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7]), \
+  C(d[8]), C(d[9]), C(d[10]), C(d[11]), C(d[12]), C(d[13]), C(d[14]),     \
+  C(d[15]), C(d[16]), C(d[17]), C(d[18]), C(d[19]), C(d[20]), C(d[21]),   \
+  C(d[22]), C(d[23]), C(d[24]), C(d[25]), C(d[26]), C(d[27]), C(d[28]),   \
+  C(d[29]), C(d[30]), C(d[31]), C(d[32]), C(d[33]), C(d[34]), C(d[35]),   \
+  C(d[36]), C(d[37]), C(d[38]), C(d[39]), C(d[40]), C(d[41]), C(d[42]),   \
+  C(d[43]), C(d[44]), C(d[45]), C(d[46]), C(d[47]), C(d[48]), C(d[49]),   \
+  C(d[50]), C(d[51]), C(d[52]), C(d[53]), C(d[54]), C(d[55]), C(d[56]),   \
+  C(d[57]), C(d[58]), C(d[59]), C(d[60]), C(d[61]), C(d[62]), C(d[63])
+#define LSX_WGMMA_RS_N128                                                  \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                             \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                                      \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                                 \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                               \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "                               \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "                               \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "                               \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "                               \
+  "%56, %57, %58, %59, %60, %61, %62, %63}, "                              \
+  "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}"
+
+// d (+)= A B, m64n128k16, A from registers, B from shared memory; TB = 1
+// for an MN-major B. INIT overwrites d and reads none of it, so the
+// compiler need not keep d's old values alive up to the product: the
+// first k-step of a product, where the others accumulate.
+template <int TB, bool INIT>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t* a,
+                                              uint64_t db) {
+  if constexpr (INIT) {
+    asm volatile(LSX_WGMMA_RS_N128
+                 : LSX_ACC64("=f")
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(0), "n"(TB));
+  } else {
+    asm volatile(LSX_WGMMA_RS_N128
+                 : LSX_ACC64("+f")
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(1), "n"(TB));
+  }
+}
+#undef LSX_WGMMA_RS_N128
+#undef LSX_ACC64
+
+// ---- host: tensor maps -------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found at run time so that the
+// library needs no link against libcuda; null if the driver has none
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess
+        && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// a 4-D map over a [B, rows, H, 64] bf16 operand with these element
+// strides (so a [B, H, rows, 64] one loads alike through its strides),
+// loading boxes of box_rows x 64 with the 128-byte swizzle; rows past
+// `rows` arrive as zeros
+inline CUresult bthd_map(EncodeTiled encode, CUtensorMap* map,
+                         const void* ptr, int B, int rows, int H,
+                         long long sb, long long st, long long sh,
+                         int box_rows) {
+  constexpr int D = 64;
+  const cuuint64_t dims[4] = {D, (cuuint64_t)rows, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {D, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace sm90

@@ -84,7 +84,11 @@ from .. import _build
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30            # the online softmax's initial max (JAX's NEG_INF)
 KERNEL_HEAD_DIM = 64       # csrc/flash_attention.cu
-KERNEL_BLOCK_K = 64        # keys per tile of the forward kernels
+KERNEL_BLOCK_K = 64        # keys per tile of the mma.sync forwards (K5, K6,
+                           # K9, K13a)
+WGMMA_BLOCK_K = 128        # keys per tile of the wgmma forwards (K11, K13b,
+                           # csrc/flash_attention_sm90.cu)
+WGMMA_Q_TILE = 128         # queries per block of the wgmma forwards
 KERNEL_Q_TILE = 64         # queries per step of K7
 KERNEL_BWD_KEYS = 128      # keys per block of K7
 ONLINE_BLOCK_K = 1024      # JAX's default key block of K9
@@ -364,7 +368,10 @@ def flash_attention_online_kernel(q, k, v, scale: float):
 def flash_attention_h2_kernel(q, k, v, scale: float):
     """Launch K11, the natural-exp online softmax, on K6's operands -> o
     [B,H,T,64] bf16 laid out as K6's. One head per block: JAX's head pairs
-    are its MXU layout and carry no function, so B·H may be odd."""
+    are its MXU layout and carry no function, so B·H may be odd. Its
+    rescale falls after every 128-key tile (``WGMMA_BLOCK_K``): its plain
+    version is :func:`flash_attention_h2_plain` with
+    ``block_k=WGMMA_BLOCK_K``."""
     return _launch_bhtd("K11", "lsx_flash_attention_h2_fwd",
                         "flash_attention_h2", q, k, v,
                         float(torch.tensor(scale, dtype=torch.bfloat16)),
@@ -386,7 +393,10 @@ def flash_attention_exp2_bf16_kernel(q, k, v, scale: float):
     """Launch K13b, K13a with p = exp2(bf16(s − m')) two at a time in
     packed bf16 (``ex2.approx.ftz.bf16x2``), on K6's operands -> o
     [B,H,T,64] bf16 laid out as K6's. The packed exp may differ from the
-    f32 exp2 rounded to bf16 by a bf16 ulp of p."""
+    f32 exp2 rounded to bf16 by a bf16 ulp of p. Its rescale falls after
+    every 128-key tile: its plain version is
+    :func:`flash_attention_exp2_bf16_plain` with
+    ``block_k=WGMMA_BLOCK_K``."""
     return _launch_bhtd("K13b", "lsx_flash_attention_exp2_bf16_fwd",
                         "flash_attention_exp2_bf16", q, k, v,
                         float(_scale2(scale, torch.bfloat16)),
@@ -587,7 +597,7 @@ def flash_attention_h2(q, k, v, scale: Optional[float] = None):
     """[B,H,T,D] q and [B,H,Tk,D] k, v -> [B,H,T,D] in q's dtype, the JAX
     package's head-pair forward in the natural-exp domain: K11 on CUDA
     tensors (a head dim other than 64 or a dtype other than bf16 raises;
-    the kernel's key tile is 64), the plain version with JAX's default key
+    the kernel's key tile is 128), the plain version with JAX's default key
     block of 512 on CPU tensors. Forward only, as in JAX, which has no VJP
     for it: an input that requires grad raises. Odd B·H is taken (JAX
     asserts it even for its MXU packing)."""

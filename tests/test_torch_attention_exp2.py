@@ -93,25 +93,28 @@ def _xla_exp2_bf16_model(q, k, v, block):
     return bf(acc / (p.sum(-1) * w).sum(-1)[..., None])
 
 
-def test_flash_exp2_bf16_matches_jax(jab2):
-    # JAX's flash_exp2_bf16 at T = 192, three 64-row blocks on each axis
-    # (the probe is bf16), against the port's at the same block. The port
-    # computes p = exp2(bf16(s - m)) rounded to bf16, the function of the
-    # TPU kernel as Mosaic lowers exp2 today (natively) and of the H100's
-    # packed ex2. In interpret mode XLA lowers exp2(x) to exp(ln2 * x) with
-    # ln 2 rounded to bf16 (0.6914, 0.25% low) and the product rounded to
-    # bf16, and the reference equals that model within the bf16 bound.
-    # That moves each p by up to 0.0025 |d| ln2 + 2^-9 |d| ln2 relative
-    # (d = s - m, |d| about 10 at most here: 3%) in roundings of either
-    # sign, so the port's o stays within 2^-6 + 2^-6 relative of JAX's and
-    # its relative RMS difference within 2^-5
-    (jq, jk, jv), (tq, tk, tv) = _inputs(192, 192, "bf16", seed=3)
+@pytest.mark.parametrize("T,block", [(192, 64), (256, 128)])
+def test_flash_exp2_bf16_matches_jax(jab2, T, block):
+    # JAX's flash_exp2_bf16 with whole blocks on each axis (the probe is
+    # bf16): T = 192 in 64-row blocks, and T = 256 in 128-row blocks, the
+    # key tile of K13b's kernel (WGMMA_BLOCK_K), against the port's at the
+    # same block. The port computes p = exp2(bf16(s - m)) rounded to bf16,
+    # the function of the TPU kernel as Mosaic lowers exp2 today (natively)
+    # and of the H100's packed ex2. In interpret mode XLA lowers exp2(x) to
+    # exp(ln2 * x) with ln 2 rounded to bf16 (0.6914, 0.25% low) and the
+    # product rounded to bf16, and the reference equals that model within
+    # the bf16 bound. That moves each p by up to 0.0025 |d| ln2 + 2^-9 |d|
+    # ln2 relative (d = s - m, |d| about 10 at most here: 3%) in roundings
+    # of either sign, so the port's o stays within 2^-6 + 2^-6 relative of
+    # JAX's and its relative RMS difference within 2^-5
+    (jq, jk, jv), (tq, tk, tv) = _inputs(T, T, "bf16", seed=3)
     with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(jab2.flash_exp2_bf16(jq, jk, jv, block_q=64,
-                                               block_k=64), np.float32)
-    model = _xla_exp2_bf16_model(tq, tk, tv, 64)
+        want = np.asarray(jab2.flash_exp2_bf16(jq, jk, jv, block_q=block,
+                                               block_k=block), np.float32)
+    model = _xla_exp2_bf16_model(tq, tk, tv, block)
     np.testing.assert_allclose(model.numpy(), want, **BF16_TOL)
-    got = ab_attention2.flash_exp2_bf16(tq, tk, tv, 64, 64).float().numpy()
+    got = ab_attention2.flash_exp2_bf16(tq, tk, tv, block,
+                                        block).float().numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=2 ** -6, rtol=2 ** -6)
     rel = np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2))

@@ -455,26 +455,51 @@ def _bhtd(rng, B, H, n, device, view, mag=1.0):
     return x.transpose(1, 2) if view else x
 
 
+def _online_inputs(rng, B, H, T, Tk, device, view, mag):
+    """q [B, H, T, 64] and k, v [B, H, Tk, 64] for the online forwards, q
+    and k scaled by |mag|. A negative ``mag`` makes every entry of k
+    positive and of q's first row negative, so that all the logits of that
+    row are below 0."""
+    q, k, v = (_bhtd(rng, B, H, n, device, view, m)
+               for n, m in ((T, abs(mag)), (Tk, abs(mag)), (Tk, 1.0)))
+    if mag < 0:
+        k = k.abs()
+        q[:, :, 0] = -q[:, :, 0].abs()
+    return q, k, v
+
+
+# the edges of the wgmma forwards' tiling (128 queries in two consumers of
+# 64, 128 keys): T = 100 leaves the second consumer a partial tile, T = 1
+# none; Tk = 130 and 257 have a masked last tile, above and below T; 3
+# heads give an odd B·H; a negative mag gives a row whose logits are all
+# below 0 (_online_inputs)
+WGMMA_EDGES = [(1, 3, 100, 100, False, 1.0), (1, 3, 100, 257, True, 1.0),
+               (1, 3, 200, 130, True, 1.0), (1, 3, 1, 257, False, 1.0),
+               (1, 3, 200, 200, False, -1.0), (1, 3, 200, 257, True, 20.0)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,T,Tk,view,mag", [(1, 4, 300, 300, False, 1.0),
                                                (2, 3, 130, 200, True, 1.0),
                                                (1, 2, 384, 640, False, 1.0),
                                                (2, 2, 200, 70, True, 1.0),
                                                (1, 1, 1, 1, False, 1.0),
-                                               (1, 2, 128, 192, False, 20.0)])
+                                               (1, 2, 128, 192, False, 20.0),
+                                               *WGMMA_EDGES])
 def test_online_kernels_match_plain(cuda, B, H, T, Tk, view, mag):
-    # K9 and K11 against their plain versions at the kernel's 64-key tile
-    # (the same rescale points), Tk != T, tails, views and x20 logits
-    # (where K6's bounded softmax overflows). As K6's bounds: o within
-    # 2^-7 relative + 1e-3; K9's l2 within log2(1 + 2^-7) < 1.13e-2 (a p one
-    # bf16 ulp away moves l by at most 2^-7 of it) and, at unit logits,
-    # within 1e-4 on average over the rows
+    # K9 and K11 against their plain versions at each kernel's key tile
+    # (the same rescale points: 64 keys for K9, 128 for K11), Tk != T,
+    # tails, views, x20 logits (where K6's bounded softmax overflows) and
+    # the edges of K11's tiling. As K6's bounds: o within 2^-7 relative +
+    # 1e-3; K9's l2 within log2(1 + 2^-7) < 1.13e-2 (a p one bf16 ulp away
+    # moves l by at most 2^-7 of it) and, at unit logits, within 1e-4 on
+    # average over the rows
     from langscenex_tpu_torch.ops.flash_attention import (
-        KERNEL_BLOCK_K, flash_attention_h2_kernel, flash_attention_h2_plain,
-        flash_attention_online_kernel, flash_attention_online_plain)
+        KERNEL_BLOCK_K, WGMMA_BLOCK_K, flash_attention_h2_kernel,
+        flash_attention_h2_plain, flash_attention_online_kernel,
+        flash_attention_online_plain)
     rng = np.random.default_rng(26)
-    q, k, v = (_bhtd(rng, B, H, n, cuda, view, m)
-               for n, m in ((T, mag), (Tk, mag), (Tk, 1.0)))
+    q, k, v = _online_inputs(rng, B, H, T, Tk, cuda, view, mag)
     _build.reset_launch_counts()
     o, l2 = flash_attention_online_kernel(q, k, v, 0.125)
     oh = flash_attention_h2_kernel(q, k, v, 0.125)
@@ -484,7 +509,7 @@ def test_online_kernels_match_plain(cuda, B, H, T, Tk, view, mag):
                                     "flash_attention_h2": 1}
     ro, rl2 = flash_attention_online_plain(q, k, v, 0.125,
                                            block_k=KERNEL_BLOCK_K)
-    rh = flash_attention_h2_plain(q, k, v, 0.125, block_k=KERNEL_BLOCK_K)
+    rh = flash_attention_h2_plain(q, k, v, 0.125, block_k=WGMMA_BLOCK_K)
     assert o.shape == oh.shape == (B, H, T, 64) and l2.shape == (B * H, T)
     for got, ref in ((o, ro), (oh, rh)):
         assert bool(torch.isfinite(got.float()).all())
@@ -637,11 +662,13 @@ def test_ln_modulate_kernel_matches_plain(cuda, H, dtype):
                                                (1, 3, 192, 192, False, 1.0),
                                                (2, 2, 200, 70, True, 1.0),
                                                (1, 1, 1, 1, False, 1.0),
-                                               (1, 2, 128, 192, False, 20.0)])
+                                               (1, 2, 128, 192, False, 20.0),
+                                               *WGMMA_EDGES])
 def test_exp2_kernels_match_plain(cuda, B, H, T, Tk, view, mag):
-    # K13a and K13b against their plain versions at the kernel's 64-key
-    # tile (the same rescale points), Tk != T, tails, views, odd B·H and
-    # x20 logits. K13a has K9's rounding points but for l: o within K9's
+    # K13a and K13b against their plain versions at each kernel's key tile
+    # (the same rescale points: 64 keys for K13a, 128 for K13b), Tk != T,
+    # tails, views, odd B·H, x20 logits and the edges of K13b's tiling.
+    # K13a has K9's rounding points but for l: o within K9's
     # bound, 2^-7 relative + 1e-3. K13b's packed exp is within one bf16
     # ulp of exp2 rounded to bf16 (test_packed_exp2_within_one_ulp), so
     # each p may move by a factor 1 + e, |e| <= 2^-7, and o = sum p v /
@@ -649,12 +676,11 @@ def test_exp2_kernels_match_plain(cuda, B, H, T, Tk, view, mag):
     # side's o; the many moves have either sign, so o's relative RMS
     # difference stays within 2^-7
     from langscenex_tpu_torch.ops.flash_attention import (
-        KERNEL_BLOCK_K, flash_attention_exp2_bf16_kernel,
+        KERNEL_BLOCK_K, WGMMA_BLOCK_K, flash_attention_exp2_bf16_kernel,
         flash_attention_exp2_bf16_plain, flash_attention_exp2_kernel,
         flash_attention_exp2_plain)
     rng = np.random.default_rng(27)
-    q, k, v = (_bhtd(rng, B, H, n, cuda, view, m)
-               for n, m in ((T, mag), (Tk, mag), (Tk, 1.0)))
+    q, k, v = _online_inputs(rng, B, H, T, Tk, cuda, view, mag)
     _build.reset_launch_counts()
     o = flash_attention_exp2_kernel(q, k, v, 0.125)
     ob = flash_attention_exp2_bf16_kernel(q, k, v, 0.125)
@@ -664,7 +690,7 @@ def test_exp2_kernels_match_plain(cuda, B, H, T, Tk, view, mag):
                                     "flash_attention_exp2_bf16": 1}
     ro = flash_attention_exp2_plain(q, k, v, 0.125, block_k=KERNEL_BLOCK_K)
     rb = flash_attention_exp2_bf16_plain(q, k, v, 0.125,
-                                         block_k=KERNEL_BLOCK_K).float()
+                                         block_k=WGMMA_BLOCK_K).float()
     assert o.shape == ob.shape == (B, H, T, 64)
     assert bool(torch.isfinite(o.float()).all())
     torch.testing.assert_close(o.float(), ro.float(), atol=1e-3,

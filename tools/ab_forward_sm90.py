@@ -1,0 +1,184 @@
+"""Variants of the wgmma attention forward (K11, K13b), timed in turns on
+one card.
+
+Each variant is a copy of ``langscenex_tpu_torch/csrc/flash_attention_sm90.cu``
+with a few text edits (``VARIANTS``), built with the port's nvcc flags into
+``build/variants/<name>/`` (one nvcc per variant, all started together)
+and loaded with ctypes under the port's C signatures. ``base`` is the
+source as it stands. For each length of ``--tokens`` the script runs K11
+and K13b of every variant at [1, 48, T, 64] on seeded bf16 inputs, says
+whether each output equals the port's own build bit for bit (variants that
+drop work differ, and are for timing only), then times them with CUDA
+events in turns (the variants in order, then in reverse) beside
+``scaled_dot_product_attention``, and prints ptxas's registers, spills and
+C75xx performance notes for each build. Needs a card with ``nvcc``:
+
+    python3 tools/ab_forward_sm90.py [--variants base,nopp] [--tokens 17776]
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import shutil
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+import langscenex_tpu_torch.ops.flash_attention as fa  # noqa: E402
+from langscenex_tpu_torch import _build  # noqa: E402
+
+ENTRIES = ("lsx_flash_attention_h2_fwd", "lsx_flash_attention_exp2_bf16_fwd")
+# name -> [(text, replacement)] applied to the source
+VARIANTS = {
+    "base": [],
+    # two or four (k, v) stages in the ring instead of three
+    "stages2": [("FW_STAGES = 3;", "FW_STAGES = 2;")],
+    "stages4": [("FW_STAGES = 3;", "FW_STAGES = 4;")],
+    # the consumers issue their products without taking turns
+    "nopp": [("  bar_sync(BAR_TURN + wg, FW_CONSUMERS);\n", ""),
+             ("  bar_arrive(BAR_TURN + (wg ^ 1), FW_CONSUMERS);\n", ""),
+             ("    if (wg == 1) bar_arrive(BAR_TURN, FW_CONSUMERS);\n", ""),
+             ("    if (wg == 0) bar_sync(BAR_TURN, FW_CONSUMERS);\n", "")],
+    # no exp of the scores on the SFU: p is the exp's argument (timing
+    # only; the rescale's exps stay)
+    "nosfu": [("exp2_ftz(fmaf(", "(fmaf("),
+              ("exp2_bf16x2(pack_bf16(", "(pack_bf16(")],
+    # the producer loads the (k, v) tiles of even j only, or of the first
+    # stages only, and completes the other stages' barriers with no bytes,
+    # so the consumers reuse stale tiles: the K/V traffic from L2 halves
+    # or vanishes (timing only)
+    "halfkv": [("        mbar_expect_tx(&sm.full[s], 2 * TILE_BYTES);",
+                "        if (j & 1) {\n          mbar_arrive(&sm.full[s]);\n"
+                "          continue;\n        }\n"
+                "        mbar_expect_tx(&sm.full[s], 2 * TILE_BYTES);")],
+    "nokv": [("        mbar_expect_tx(&sm.full[s], 2 * TILE_BYTES);",
+              "        if (j >= FW_STAGES) {\n          mbar_arrive(&sm.full[s]);\n"
+              "          continue;\n        }\n"
+              "        mbar_expect_tx(&sm.full[s], 2 * TILE_BYTES);")],
+}
+
+
+def build(names):
+    """Build each variant; returns {name: namespace of its C entries}."""
+    src = (_build.CSRC / "flash_attention_sm90.cu").read_text()
+    jobs = {}
+    for name in names:
+        text = src
+        for old, new in VARIANTS[name]:
+            if old not in text:
+                raise ValueError(f"variant {name}: {old!r} not in source")
+            text = text.replace(old, new)
+        out = ROOT / "build" / "variants" / name
+        out.mkdir(parents=True, exist_ok=True)
+        for header in _build.CSRC.glob("*.cuh"):
+            shutil.copy(header, out)
+        (out / "kernel.cu").write_text(text)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+               "-shared", "-o", str(out / "lib.so"), str(out / "kernel.cu")]
+        jobs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True))
+    libs = {}
+    for name, (out, proc) in jobs.items():
+        log = proc.communicate()[0].splitlines()
+        if proc.returncode:
+            raise RuntimeError(f"variant {name} failed:\n" + "\n".join(log))
+        notes = sorted({line.split("(C75")[1][:2] for line in log
+                        if "(C75" in line})
+        regs = [line.split(":", 1)[1].strip() for line in log
+                if "registers" in line and "Used" in line]
+        spills = sorted({line.strip() for line in log if "spill" in line})
+        print(f"{name}: ptxas {regs[:2]}, {spills}, C75 notes "
+              f"{['C75' + n for n in notes] or 'none'}")
+        lib = ctypes.CDLL(str(out / "lib.so"))
+        ns = types.SimpleNamespace()
+        for entry in ENTRIES:
+            fn = getattr(lib, entry)
+            fn.argtypes = _build._SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+            setattr(ns, entry, fn)
+        libs[name] = ns
+    return libs
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--tokens", type=int, nargs="+", default=[17776, 18432])
+    ap.add_argument("--heads", type=int, default=48)
+    ap.add_argument("--iters", type=int, default=5)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("ab_forward_sm90: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"{torch.cuda.get_device_name(0)} ({smi})")
+    names = args.variants.split(",")
+    libs = build(names)
+    own = _build.library
+    kernels = {"K11": fa.flash_attention_h2_kernel,
+               "K13b": fa.flash_attention_exp2_bf16_kernel}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    sc = 0.125
+    for T in args.tokens:
+        q, k, v = (torch.randn((1, args.heads, T, 64), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        runs = {(n, kn): [] for n in names for kn in kernels}
+        with torch.inference_mode():
+            try:
+                ref = {kn: fn(q, k, v, sc) for kn, fn in kernels.items()}
+                for n in names:
+                    _build.library = lambda n=n: libs[n]
+                    for kn, fn in kernels.items():
+                        o = fn(q, k, v, sc)
+                        if not torch.equal(o, ref[kn]):
+                            err = (o.float() - ref[kn].float()).abs().max()
+                            print(f"  T={T} {n} {kn}: differs from the port's "
+                                  f"build, max |diff| {float(err):.3e}")
+                for n in names + names[::-1]:
+                    _build.library = lambda n=n: libs[n]
+                    for kn, fn in kernels.items():
+                        runs[(n, kn)].append(cuda_ms(
+                            lambda: fn(q, k, v, sc), args.iters))
+            finally:
+                _build.library = own
+            sdpa = [cuda_ms(lambda: torch.nn.functional
+                            .scaled_dot_product_attention(q, k, v),
+                            args.iters) for _ in range(2)]
+        print(f"T={T}: scaled_dot_product_attention "
+              f"{' / '.join('%.4f' % x for x in sdpa)} ms")
+        for n in names:
+            k11, k13 = runs[(n, "K11")], runs[(n, "K13b")]
+            print(f"T={T} {n}: K11 {' / '.join('%.4f' % x for x in k11)} ms, "
+                  f"K13b {' / '.join('%.4f' % x for x in k13)} ms, "
+                  f"K13b / K11 {sum(k13) / sum(k11):.4f}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
