@@ -105,16 +105,17 @@ Phases (any failure raises, so the exit code is non-zero):
      forward and backward at [1, 48, 17776, 64] with Tk = 17,776 and with
      the 17,550 video keys, attention_auto(bounded_logits=False) and
      flash_attention_h2, with exactly 3 K9, 2 K7 and 1 K11 launches and no
-     other; the new forward's cuobjdump resources (no spill); then K9
-     against its plain version at its 64-key tile at
+     other; then K9
+     against its plain version at its 128-key tile at
      [2, 48, 17776, 64], [1, 48, 17776, 64] and Tk = 17,550 (K5's bounds),
      the gap to JAX's 1024-key block, a x20-logit input where the bounded
      softmax overflows, K9 against K6 on LayerNormed q, k, K7's gradients
      on K9's (o, l2) against the plain backward at both key lengths (K7's
      bounds), K11 against its plain version at its 128-key tile and
      against K9; CUDA-event times of K9, K11 and K7 on K9's l2 beside their
-     plain versions, scaled_dot_product_attention and the bound, K11's
-     tensor and SFU terms and the K/V bytes it reads from L2; and the
+     plain versions, scaled_dot_product_attention and the bound, the wgmma
+     forward's cuobjdump resources in each of its four modes (no spill),
+     K11's tensor and SFU terms and the K/V bytes it reads from L2; and the
      ported
      experiments ab_attention and ab_attention4 through their main.
  21. the cells attention-exp2-48x18432x64 and gather-640k-w24, the probes
@@ -125,12 +126,13 @@ Phases (any failure raises, so the exit code is non-zero):
      [100008, 24] table in f32 and bf16, with exactly 2 K13a, 1 K13b and
      2 K13c launches and no other; K13b's packed exp alone on every bf16
      input of [-126, 0] (within one bf16 ulp); K13a and K13b against
-     their plain versions at each kernel's key tile (64 and 128 keys; K5's
+     their plain versions at the kernels' 128-key tile (K5's
      bounds, and for K13b the packed exp's) and the gap to JAX's 1024-key
      block, K13a against K9, K13b against K13a; K13c bit for bit against
      torch.index_select; CUDA-event times of K9, K13a, K11 and K13b in
-     turns at [1, 48, 18432, 64], the per-score ratio K13b / K11 of the
-     two wgmma forwards with their tensor and SFU terms and L2 bytes, the
+     turns at [1, 48, 18432, 64], the per-score ratios K13b / K11 and
+     K9 / K13a of the wgmma forwards with their tensor and SFU terms and
+     L2 bytes, the
      plain versions, scaled_dot_product_attention and the bound, and of
      K13c queued behind a spin and paced by the host,
      beside index_select; then ab_attention2 and ab_gather2 through their
@@ -170,7 +172,7 @@ from langscenex_tpu_torch.experiments import (ab_attention, ab_attention2,
                                               ab_attention4, ab_gather2,
                                               time_ms)
 from langscenex_tpu_torch.ops.flash_attention import (
-    KERNEL_BLOCK_K, WGMMA_BLOCK_K, WGMMA_Q_TILE, attention_auto,
+    WGMMA_BLOCK_K, WGMMA_Q_TILE, attention_auto,
     attention_bthd_backward_kernel,
     attention_bthd_backward_launch, attention_bthd_backward_plain,
     attention_bthd_kernel,
@@ -273,8 +275,8 @@ PROMPT = "a living room with a grey sofa, a lamp and a window"
 # p dominates comes near that (2.15e-3 at p / l of about 0.2 was read on
 # an H100), so each l2 is held to 1.13e-2. In all other rows the moved p
 # are small and l2 differs by f32 rounding, so the mean |l2| difference
-# is held to 1e-4; a dropped or doubled 64-key tile of near-uniform
-# attention moves every l2 of its rows by about 64 / 17776 / ln 2 = 5e-3.
+# is held to 1e-4; a dropped or doubled 128-key tile of near-uniform
+# attention moves every l2 of its rows by about 128 / 17776 / ln 2 = 1e-2.
 ATTN_RTOL, ATTN_ATOL, L2_ATOL, L2_MEAN_ATOL = 2 ** -7, 1e-3, 1.13e-2, 1e-4
 ATTN_REL_RMS = 2 ** -8
 # K8 vs its plain version: one bf16 ulp (2^-7 relative) + 1e-4
@@ -350,18 +352,18 @@ K6_T, K6_H, K6_SHORT_T = 13 * 30 * 45 + 226, 48, 1000
 # as in the request and B = 1 as in experiments/ab_attention4.py, and the
 # keys cut to the 17,550 video tokens (the joint sequence is [text;
 # video]); a x20-logit input at a small shape. K9 and K11 are held to
-# their plain versions at each kernel's key tile (64 and 128 keys: the
-# same rescale points) with K5's bounds. At JAX's 1024-key block every p is rounded at
-# another scale, so it may move by a bf16 ulp (2^-7 of it): o is still
-# held per element to K5's bound (2^-7 relative + 1e-3), l2 to
-# log2(1 + 2^-7). K9 against K6 on LayerNormed q, k (bounded logits):
-# the two round each p at scales 2^-m apart, so each p differs by up to
-# 2^-8 of it and o by up to 2^-8 of max|v - o|, plus a bf16 rounding of
-# each output: |o9 - o6| <= 2^-8 max|v| + 2^-7 |o6|. K11 against K9: K9
-# folds log2 e into q in bf16 (bf16(0.125 log2 e) is 0.18% above it), K11
-# does not, so their logits differ by that factor and by q's rounding at
-# two scales, which moves the softmax weights by about 0.2% of |s - mean
-# s|: o's relative RMS difference within 2^-6.
+# their plain versions at the kernels' 128-key tile (WGMMA_BLOCK_K: the
+# same rescale points) with K5's bounds. At JAX's 1024-key block every p
+# is rounded at another scale, so it may move by a bf16 ulp (2^-7 of it):
+# o is still held per element to K5's bound (2^-7 relative + 1e-3), l2 to
+# log2(1 + 2^-7). K9 against K6 on LayerNormed q, k (bounded logits): the
+# two round each p at scales 2^-m apart, so each p differs by up to 2^-8
+# of it and o by up to 2^-8 of max|v - o|, plus a bf16 rounding of each
+# output: |o9 - o6| <= 2^-8 max|v| + 2^-7 |o6|. K11 against K9: K9 folds
+# log2 e into q in bf16 (bf16(0.125 log2 e) is 0.18% above it), K11 does
+# not, so their logits differ by that factor and by q's rounding at two
+# scales, which moves the softmax weights by about 0.2% of |s - mean s|:
+# o's relative RMS difference within 2^-6.
 EXACT_T, EXACT_TEXT, EXACT_H = 13 * 30 * 45 + 226, 226, 48
 X20_SHAPE = (1, 2, 300, 200)          # B, H, T, Tk of the x20-logit input
 K9_K6_ULP, K11_K9_REL_RMS = 2 ** -8, 2 ** -6
@@ -372,7 +374,7 @@ EXPERIMENT_ITERS = 2
 # 18,432 (18 whole 1024-key blocks, no mask, the length where the
 # packed-bf16 probe runs), and 640,000 rows of width 24 from a table of
 # ab_gather2.P + 8 rows. K13a is held to its plain version at the
-# kernel's 64-key tile with K5's bounds: it has K9's rounding points but
+# kernel's 128-key tile with K5's bounds: it has K9's rounding points but
 # for l (the sum of the unrounded p). K13b's packed ex2.approx.ftz.bf16x2
 # is measured alone on every bf16 input of [-126, 0] against exp2 rounded
 # to bf16 and must stay within one bf16 ulp (2^-7 of p at most); then each
@@ -380,8 +382,8 @@ EXPERIMENT_ITERS = 2
 # version at its 128-key tile, and o = sum p v / sum p by at most 2^-7 / (1 - 2^-7) max|v - o|,
 # plus a bf16 rounding of each side's o (2^-7 |o| together). Such moves
 # are many and of either sign, so o's relative RMS difference stays near
-# their RMS (2^-7 / sqrt(3) at most): within 2^-7, where a dropped 64-key
-# tile moves it by about sqrt(64 / 18432) = 0.06. K13a against K9 on the
+# their RMS (2^-7 / sqrt(3) at most): within 2^-7, where a dropped 128-key
+# tile moves it by about sqrt(128 / 18432) = 0.08. K13a against K9 on the
 # same inputs: both form the same q', s, m', bf16(p) and PV product and
 # differ only in l, the sum of p against that of bf16(p), by at most 2^-9
 # of l, so o by 2^-9 of |o| before its bf16 rounding: K5's bounds again.
@@ -441,11 +443,13 @@ SOURCES = {
     "ln_modulate": "langscenex_tpu_torch/csrc/ln_modulate.cu",
     "flash_attention_backward":
         "langscenex_tpu_torch/csrc/flash_attention_backward.cu",
-    "flash_attention_online": "langscenex_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_online":
+        "langscenex_tpu_torch/csrc/flash_attention_sm90.cu",
     "flash_attention_h2": "langscenex_tpu_torch/csrc/flash_attention_sm90.cu",
     "flash_attention_backward_split":
         "langscenex_tpu_torch/csrc/flash_attention_backward.cu",
-    "flash_attention_exp2": "langscenex_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_exp2":
+        "langscenex_tpu_torch/csrc/flash_attention_sm90.cu",
     "flash_attention_exp2_bf16":
         "langscenex_tpu_torch/csrc/flash_attention_sm90.cu",
     "gather_rows": "langscenex_tpu_torch/csrc/gather_rows.cu",
@@ -614,10 +618,14 @@ def resource_field(line: str, field: str) -> int:
     raise RuntimeError(f"cuobjdump line has no {field}: {line!r}")
 
 
-def require_no_spill(name: str, what: str) -> None:
+def require_no_spill(name: str, what: str, count: int = 0) -> None:
     """Print the resources of each built kernel whose symbol holds
-    ``name`` and fail if one has local memory or a stack (a spill)."""
-    for line in kernel_resources(name):
+    ``name`` and fail if one has local memory or a stack (a spill), or,
+    with ``count``, if there are not that many of them (one per mode)."""
+    lines = kernel_resources(name)
+    require(not count or len(lines) == count, f"{what}: {len(lines)} "
+            f"kernels built, expected {count}")
+    for line in lines:
         print(f"{what}: {line}")
         require(resource_field(line, "LOCAL") == 0
                 and resource_field(line, "STACK") == 0,
@@ -1763,8 +1771,8 @@ def phase_exact(dev, results) -> dict:
         # ---- K9 against its plain version
         o9, l9 = flash_attention_online_kernel(q, k, v, sc)
         ro, rl2 = flash_attention_online_plain(q, k, v, sc,
-                                               block_k=KERNEL_BLOCK_K)
-        err9 = check_attention(f"K9 vs plain at its {KERNEL_BLOCK_K}-key "
+                                               block_k=WGMMA_BLOCK_K)
+        err9 = check_attention(f"K9 vs plain at its {WGMMA_BLOCK_K}-key "
                                f"tile, q, k, v {list(q.shape)}", o9, l9, ro,
                                rl2)
         del ro, rl2
@@ -1783,7 +1791,7 @@ def phase_exact(dev, results) -> dict:
             require(torch.equal(o, runs[what][0]), f"K9 {what}: the path's "
                     f"output differs from a second launch")
             ro, rl2 = flash_attention_online_plain(q1, kk, vv, sc,
-                                                   block_k=KERNEL_BLOCK_K)
+                                                   block_k=WGMMA_BLOCK_K)
             err9 = max(err9, check_attention(
                 f"K9 vs plain, {what}, q {list(q1.shape)}", o, l2, ro, rl2))
             ref = flash_attention_backward_plain(q1, kk, vv, o, l2, do, sc)
@@ -1799,7 +1807,7 @@ def phase_exact(dev, results) -> dict:
         kx, vx = randn(Bx, Hx, Tkx, D, mag=20.0), randn(Bx, Hx, Tkx, D)
         ox, lx = flash_attention_online_kernel(qx, kx, vx, sc)
         rox, rlx = flash_attention_online_plain(qx, kx, vx, sc,
-                                                block_k=KERNEL_BLOCK_K)
+                                                block_k=WGMMA_BLOCK_K)
         err9 = max(err9, check_attention(
             f"K9 vs plain, x20 logits {list(qx.shape)}, Tk {Tkx} (l2 up to "
             f"{float(lx.abs().max()):.4g})", ox, lx, rox, rlx, l2_mean=False))
@@ -1836,7 +1844,7 @@ def phase_exact(dev, results) -> dict:
     # ---- times: kernel, plain version, SDPA, bound
     ms9 = cuda_ms(lambda: flash_attention_online_kernel(q, k, v, sc), 5)
     plain9 = cuda_ms(lambda: flash_attention_online_plain(
-        q, k, v, sc, block_k=KERNEL_BLOCK_K), 1, warmup=1)
+        q, k, v, sc, block_k=WGMMA_BLOCK_K), 1, warmup=1)
     with torch.no_grad():
         lib9 = cuda_ms(lambda: sdpa(q, k, v), 5)
     b9 = bound(flops=4.0 * B * H * T * T * D, moved=nbytes(q, k, v, o9, l9))
@@ -1879,7 +1887,8 @@ def phase_exact(dev, results) -> dict:
     print(f"K7 on K9's l2 at Tk = {Tv}: kernel {ms7v:.4f} ms, bound "
           f"{b7v['bound_ms']:.4f} ms ({b7v['bound_by']})")
     # K11: one ex2 per score and one per row and key tile for the rescale
-    require_no_spill("flash_fwd_wgmma", "K11/K13b flash_fwd_wgmma")
+    require_no_spill("flash_fwd_wgmma", "K9/K11/K13a/K13b flash_fwd_wgmma",
+                     count=4)
     forward_terms("K11 flash_attention_h2", ms11, H, T, T,
                   H * T * (T + -(-T // WGMMA_BLOCK_K)), dev)
     del q, k, v, q1, k1, v1, do, runs, shapes, o9, l9, o1, l21, ov, l2v, h2
@@ -1964,9 +1973,9 @@ def phase_k13(dev, results) -> dict:
             require(torch.equal(o, path[T]), f"K13a T = {T}: the path's "
                     f"output differs from a second launch")
             ro = flash_attention_exp2_plain(q, k, v, sc,
-                                            block_k=KERNEL_BLOCK_K)
+                                            block_k=WGMMA_BLOCK_K)
             err_a = max(err_a, check_attention(
-                f"K13a vs plain at its {KERNEL_BLOCK_K}-key tile, q, k, v "
+                f"K13a vs plain at its {WGMMA_BLOCK_K}-key tile, q, k, v "
                 f"{list(q.shape)}", o, None, ro, None))
             del ro
             rj = flash_attention_exp2_plain(q, k, v, sc)
@@ -2038,21 +2047,24 @@ def phase_k13(dev, results) -> dict:
               + f"; scaled_dot_product_attention {lib:.4f} ms, bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}, "
               f"{4.0 * K13_H * T * T * D / 1e12:.3f} TFLOP at 989 TFLOP/s)")
-    # the two wgmma forwards at one shape: K11 issues one ex2 per score,
-    # K13b one packed ex2 per two; both one per row and key tile for the
-    # rescale. Their per-score ratio says whether the SFU bounds the design
+    # the four wgmma forwards at one shape: K9, K11 and K13a issue one ex2
+    # per score, K13b one packed ex2 per two; all one per row and key tile
+    # for the rescale. K13b / K11 says whether the SFU bounds the design,
+    # K9 / K13a what l from bf16(p) (and l2) costs over l from p
     rescales = K13_H * Tf * -(-Tf // WGMMA_BLOCK_K)
     ratio = ms[Tf]["K13b"] / ms[Tf]["K11"]
     print(f"wgmma forwards at [1, {K13_H}, {Tf}, {D}]: per-score ratio "
           f"K13b / K11 {ratio:.4f} (under about 0.9: the SFU co-bounds "
-          f"them)")
-    forward_terms("K11 flash_attention_h2", ms[Tf]["K11"], K13_H, Tf, Tf,
-                  K13_H * Tf * Tf + rescales, dev)
-    forward_terms("K13b flash_attention_exp2_bf16", ms[Tf]["K13b"], K13_H,
-                  Tf, Tf, K13_H * Tf * Tf / 2 + rescales, dev)
+          f"them), K9 / K13a {ms[Tf]['K9'] / ms[Tf]['K13a']:.4f}")
+    for what, n, exps in (
+            ("K9 flash_attention_online", "K9", K13_H * Tf * Tf),
+            ("K13a flash_attention_exp2", "K13a", K13_H * Tf * Tf),
+            ("K11 flash_attention_h2", "K11", K13_H * Tf * Tf),
+            ("K13b flash_attention_exp2_bf16", "K13b", K13_H * Tf * Tf / 2)):
+        forward_terms(what, ms[Tf][n], K13_H, Tf, Tf, exps + rescales, dev)
     q, k, v = qkv[Tf]
     plain_a = cuda_ms(lambda: flash_attention_exp2_plain(
-        q, k, v, sc, block_k=KERNEL_BLOCK_K), 1, warmup=1)
+        q, k, v, sc, block_k=WGMMA_BLOCK_K), 1, warmup=1)
     plain_b = cuda_ms(lambda: flash_attention_exp2_bf16_plain(
         q, k, v, sc, block_k=WGMMA_BLOCK_K), 1, warmup=1)
     print(f"K13a plain {plain_a:.4f} ms, K13b plain {plain_b:.4f} ms at "

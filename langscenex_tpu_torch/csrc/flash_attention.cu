@@ -1,10 +1,8 @@
-// Flash-attention forward on mma.sync, kernels K5 ([B, T, H, D], bounded
-// logits), K6 ([B, H, T, D], bounded logits, key length Tk that may differ
-// from T), K9 ([B, H, T, D], online softmax in the exp2 domain) and the
-// f32 exp2 probe of K13 (K13a, [B, H, T, D]): one device function read
-// through element strides, templated on its softmax, four entry points.
-// K11 and K13b run on the Hopper design of flash_attention_sm90.cu, where
-// these modes are meant to follow.
+// Flash-attention forward on mma.sync, kernels K5 ([B, T, H, D]) and K6
+// ([B, H, T, D], key length Tk that may differ from T), both with bounded
+// logits: one device function read through element strides, two entry
+// points. K9, K11 and K13a/b run on the Hopper design of
+// flash_attention_sm90.cu, where this mode is meant to follow.
 //
 // K5 replaces: langscenex_tpu/ops/flash_attention.py:991
 // _attn_kernel_nomax_t4 (reached via _flash_fwd_impl_bthd, :1043, from
@@ -13,56 +11,42 @@
 // bounded_logits=True) and attention_auto, :1189, on every shard of the
 // tensor-parallel DiT); its split-kv forms _t2 and _t3 (:838, :873) and
 // the lane-padded _attn_kernel_nomax (:82, K10) compute the same function
-// and differ only in MXU scheduling, so this kernel serves them too. K9
-// replaces :32 _attn_kernel (called at :182 from _flash_fwd_impl, through
-// flash_attention(bounded_logits=False) and attention_auto). K13a replaces
-// experiments/ab_attention2.py:46 _exp2_kernel (call :96, from
-// flash_exp2). The transposed accumulator of the TPU's bounded kernels exists to keep the
+// and differ only in MXU scheduling, so this kernel serves them too. The
+// transposed accumulator of the TPU's bounded kernels exists to keep the
 // MXU's output lanes full; on Hopper the mma tiles below have no such
-// padding, so only the function carries over. In [B, H, T, D] one head's rows are
-// contiguous: a 64-row k or v tile is one 8 KB read. The rounding points
-// are the TPU kernels':
-//   bounded (K5, K6; the DiT's qk-LayerNorm bounds the logits, so there is
-//   no running max):
-//     q' = bf16(q * bf16(scale * log2 e))          (the product in bf16)
-//     s  = k . q'   in f32;   p = exp2(s)
-//     P  = bf16(p)  before the PV product; the normalizer l = sum of P
-//     l  = max(l, 1e-30);  o = bf16(acc / l);  l2 = log2(l)  (kept for K7)
-//   online (K9), per 64-key tile, with a running row max m from -1e30:
-//     q', s as above;  m' = max(m, rowmax s);  p = exp2(s - m')
-//     a  = exp2(m - m');  acc = acc * a + bf16(p) V;  l = l * a + sum bf16(p)
-//     o  = bf16(acc / max(l, 1e-30));  l2 = m + log2(max(l, 1e-30))
-//   exp2 (K13a): K9's q', s, m' and a; p = exp2(s - m') and l summed from
-//     the unrounded p; bf16(p) in the PV product; no l2.
+// padding, so only the function carries over. In [B, H, T, D] one head's
+// rows are contiguous: a 64-row k or v tile is one 8 KB read. The
+// rounding points are the TPU kernels' (the DiT's qk-LayerNorm bounds the
+// logits, so there is no running max):
+//   q' = bf16(q * bf16(scale * log2 e))          (the product in bf16)
+//   s  = k . q'   in f32;   p = exp2(s)
+//   P  = bf16(p)  before the PV product; the normalizer l = sum of P
+//   l  = max(l, 1e-30);  o = bf16(acc / l);  l2 = log2(l)  (kept for K7)
 // kv rows past Tk contribute nothing: the staged k/v rows are zero, so no
 // garbage or NaN enters the sums, and p is set to 0 there, as the TPU
-// kernels' zero v columns, valid row and -1e9 bias column do; in the
-// online modes their s is set to -1e30 before the max, so that a row whose
-// logits are all below 0 does not take m = 0 from them.
+// kernels' zero v columns, valid row and -1e9 bias column do.
 //
 // Bound on the H100: operations. At the DiT's shape (q, k, v [2, 17776,
 // 48, 64] bf16) one call does 4 B H T Tk D = 7.77 TFLOP: 7.85 ms at
 // 989 TFLOP/s, against 874 MB of q, k, v, o (0.26 ms at 3.35 TB/s); a
 // tensor-parallel shard of 24 heads does half of both. Its
 // B H T^2 = 3.03e10 exps take about as long again on the SFU
-// (16 ex2/clk/SM); the online modes add one exp per row and tile for the
-// rescale, 1/64 of that. The SFU does not bound this design: halving the
-// exp instructions gained nothing on an H100 (PERF.md §6).
+// (16 ex2/clk/SM). The SFU does not bound this design: halving the exp
+// instructions gained nothing on an H100 (PERF.md §6).
 //
 // Design (simple and right first; the wgmma, TMA and warp-specialised
-// design of flash_attention_sm90.cu is to take these modes over): one block of 4 warps per (b, h, 64-query tile); each warp
-// owns 16 query rows. The scaled q tile is staged once into shared memory
-// and held as mma A fragments. kv tiles of 64 rows are double-buffered in
-// shared memory with cp.async (rows past T zero-filled), XOR-swizzled by
-// 16-byte chunk so ldmatrix is conflict-free. S = q'k^T and O += P V run
-// on the bf16 tensor cores through mma.sync.m16n8k16 with f32
-// accumulators; exp and the bf16 rounding of P happen in registers, and
-// the S accumulators are re-packed as the A fragments of the PV product
-// without touching shared memory. In the online modes a thread holds the
-// running max of its two rows (g and g + 8 of its warp's 16); the row max
-// of a tile is reduced over the quad of lanes that share the row with two
-// __shfl_xor_sync, and the rescale touches the thread's 32 accumulators
-// and two partial row sums once per tile.
+// design of flash_attention_sm90.cu is to take this mode over): one block
+// of 4 warps per (b, h, 64-query tile); each warp owns 16 query rows. The
+// scaled q tile is staged once into shared memory and held as mma A
+// fragments. kv tiles of 64 rows are double-buffered in shared memory
+// with cp.async (rows past T zero-filled), XOR-swizzled by 16-byte chunk
+// so ldmatrix is conflict-free. S = q'k^T and O += P V run on the bf16
+// tensor cores through mma.sync.m16n8k16 with f32 accumulators; exp and
+// the bf16 rounding of P happen in registers, and the S accumulators are
+// re-packed as the A fragments of the PV product without touching shared
+// memory. A thread sums the P of its two rows (g and g + 8 of its warp's
+// 16); the quad of lanes that share a row adds its parts with two
+// __shfl_xor_sync at the end.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -78,12 +62,9 @@ constexpr int FA_BQ = 64;       // queries per block
 constexpr int FA_BK = 64;       // kv rows per tile
 constexpr int FA_WARPS = 4;     // 16 query rows each
 constexpr int FA_THREADS = FA_WARPS * 32;
-constexpr float FA_NEG_INF = -1e30f;  // JAX's NEG_INF: finite, so m - m'
-                                       // is never inf - inf = NaN
 
-// The softmax of the device function: K5/K6's exp2 with no running max,
-// K9's online exp2, K13a's online exp2 with l from the unrounded p.
-enum class Softmax { kBounded, kOnline, kExp2 };
+// The softmax of the device function: K5/K6's exp2 with no running max.
+enum class Softmax { kBounded };
 
 template <Softmax MODE>
 __global__ void __launch_bounds__(FA_THREADS)
@@ -152,7 +133,6 @@ flash_fwd(const __nv_bfloat16* __restrict__ q,
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   }
   float lsum0 = 0.f, lsum1 = 0.f;  // rows g and g + 8 of this warp
-  float m0 = FA_NEG_INF, m1 = FA_NEG_INF;  // their running max (online)
   const int tq = lane & 3;
 
   for (int j = 0; j < n_kv; ++j) {
@@ -184,69 +164,25 @@ flash_fwd(const __nv_bfloat16* __restrict__ q,
 
     const int kv0 = j * FA_BK;
     const bool tail = kv0 + FA_BK > Tk;
-    if constexpr (MODE != Softmax::kBounded) {
-      // m' = max(m, rowmax S) over the valid keys, then the accumulators
-      // and partial row sums are rescaled by a = exp2(m - m')
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (tail && kv0 + n * 8 + 2 * tq + (e & 1) >= Tk) {
-            s[n][e] = FA_NEG_INF;
-          }
-        }
-        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float a0 = exp2f(m0 - mx0);
-      const float a1 = exp2f(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-      lsum0 *= a0;
-      lsum1 *= a1;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        acc[n][0] *= a0;
-        acc[n][1] *= a0;
-        acc[n][2] *= a1;
-        acc[n][3] *= a1;
-      }
-    }
 
-    // P = bf16(exp2(S)) (bounded) or bf16(exp2(S - m')), zero past Tk; the
-    // normalizer sums P itself, or (exp2) the unrounded p.
+    // P = bf16(exp2(S)), zero past Tk; the normalizer sums P itself
     unsigned pa[4][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       float p[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        if constexpr (MODE == Softmax::kBounded) {
-          p[e] = exp2f(s[n][e]);
-        } else {
-          p[e] = exp2f(s[n][e] - (e < 2 ? m0 : m1));
-        }
+        p[e] = exp2f(s[n][e]);
         if (tail && kv0 + n * 8 + 2 * tq + (e & 1) >= Tk) p[e] = 0.f;
       }
       const unsigned lo = pack_bf16(p[0], p[1]);
       const unsigned hi = pack_bf16(p[2], p[3]);
-      if constexpr (MODE == Softmax::kExp2) {
-        lsum0 += p[0] + p[1];
-        lsum1 += p[2] + p[3];
-      }
-      if constexpr (MODE != Softmax::kExp2) {
-        const float2 flo = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&lo));
-        const float2 fhi = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&hi));
-        lsum0 += flo.x + flo.y;
-        lsum1 += fhi.x + fhi.y;
-      }
+      const float2 flo = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&lo));
+      const float2 fhi = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&hi));
+      lsum0 += flo.x + flo.y;
+      lsum1 += fhi.x + fhi.y;
       // n-tile n holds kv columns 8n..8n+7: the A fragment of k-step n/2
       pa[n >> 1][(n & 1) * 2 + 0] = lo;
       pa[n >> 1][(n & 1) * 2 + 1] = hi;
@@ -292,18 +228,10 @@ flash_fwd(const __nv_bfloat16* __restrict__ q,
           __floats2bfloat162_rn(acc[n][2] / l1, acc[n][3] / l1);
     }
   }
-  if constexpr (MODE == Softmax::kBounded) {
-    if (tq == 0) {
-      float* lrow = l2 + ((long long)b * H + h) * T;
-      if (r0 < T) lrow[r0] = log2f(l0);
-      if (r1 < T) lrow[r1] = log2f(l1);
-    }
-  } else if constexpr (MODE == Softmax::kOnline) {
-    if (tq == 0) {
-      float* lrow = l2 + ((long long)b * H + h) * T;
-      if (r0 < T) lrow[r0] = m0 + log2f(l0);
-      if (r1 < T) lrow[r1] = m1 + log2f(l1);
-    }
+  if (tq == 0) {
+    float* lrow = l2 + ((long long)b * H + h) * T;
+    if (r0 < T) lrow[r0] = log2f(l0);
+    if (r1 < T) lrow[r1] = log2f(l1);
   }
 }
 
@@ -352,34 +280,6 @@ extern "C" int lsx_flash_attention_bhtd_fwd(
     cudaStream_t stream) {
   return launch_fwd<Softmax::kBounded>(
       q, k, v, o, l2, B, H, T, Tk, Strides{qsb, qst, qsh},
-      Strides{ksb, kst, ksh}, Strides{vsb, vst, vsh}, Strides{osb, ost, osh},
-      scale2, stream);
-}
-
-// K9: K6's operands and outputs, with the online softmax (l2 = m + log2 l,
-// which K7 takes as it takes K6's).
-extern "C" int lsx_flash_attention_online_fwd(
-    const void* q, const void* k, const void* v, void* o, void* l2, int B,
-    int H, int T, int Tk, long long qsb, long long qsh, long long qst,
-    long long ksb, long long ksh, long long kst, long long vsb, long long vsh,
-    long long vst, long long osb, long long osh, long long ost, float scale2,
-    cudaStream_t stream) {
-  return launch_fwd<Softmax::kOnline>(
-      q, k, v, o, l2, B, H, T, Tk, Strides{qsb, qst, qsh},
-      Strides{ksb, kst, ksh}, Strides{vsb, vst, vsh}, Strides{osb, ost, osh},
-      scale2, stream);
-}
-
-// K13a: o [B, H, T, 64] bf16 from K6's operands with the exp2 online
-// softmax whose l sums the unrounded p; scale2 as K9's. No l2.
-extern "C" int lsx_flash_attention_exp2_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
-    int T, int Tk, long long qsb, long long qsh, long long qst, long long ksb,
-    long long ksh, long long kst, long long vsb, long long vsh, long long vst,
-    long long osb, long long osh, long long ost, float scale2,
-    cudaStream_t stream) {
-  return launch_fwd<Softmax::kExp2>(
-      q, k, v, o, nullptr, B, H, T, Tk, Strides{qsb, qst, qsh},
       Strides{ksb, kst, ksh}, Strides{vsb, vst, vsh}, Strides{osb, ost, osh},
       scale2, stream);
 }

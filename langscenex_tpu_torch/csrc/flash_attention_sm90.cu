@@ -1,39 +1,50 @@
 // Flash-attention forward on Hopper (wgmma, TMA, warp specialisation),
-// kernels K11 ([B, H, T, D], online softmax in the natural-exp domain) and
-// K13b ([B, H, T, D], online softmax in the exp2 domain with p in packed
-// bf16), queries q [B, H, T, 64] and keys k, v [B, H, Tk, 64] read through
-// element strides, so that transpose(1, 2) views of [B, T, H, 64] tensors
-// load in place. One device function templated on its softmax; the other
-// forward modes (K5, K6, K9, K13a) still run on flash_attention.cu's
-// mma.sync design and are meant to move here as further modes.
+// kernels K9 (online softmax in the exp2 domain, with l2), K11 (online
+// softmax in the natural-exp domain), K13a (K9's exp2 softmax with l from
+// the unrounded p, no l2) and K13b (the exp2 softmax with p in packed
+// bf16), all on queries q [B, H, T, 64] and keys k, v [B, H, Tk, 64] read
+// through element strides, so that transpose(1, 2) views of [B, T, H, 64]
+// tensors load in place. One device function templated on its softmax;
+// the bounded forward (K5, K6) still runs on flash_attention.cu's
+// mma.sync design and is meant to move here as a further mode.
 //
-// K11 replaces: langscenex_tpu/ops/flash_attention.py:676 _attn_kernel_h2
+// K9 replaces: langscenex_tpu/ops/flash_attention.py:32 _attn_kernel
+// (called at :182 from _flash_fwd_impl, through flash_attention(
+// bounded_logits=False) and attention_auto); its l2 is the residual that
+// K7 reads in the split backward (K12). K11 replaces :676 _attn_kernel_h2
 // (called at :772 from flash_attention_h2); its head pairs packed
 // block-diagonally keep the MXU's 128-deep contraction full and carry no
-// function, so it is one head per block here. K13b replaces
-// experiments/ab_attention2.py:129 _exp2_bf16_kernel (call :165, from
+// function, so it is one head per block here. K13a replaces
+// experiments/ab_attention2.py:46 _exp2_kernel (call :96, from
+// flash_exp2), K13b :129 _exp2_bf16_kernel (call :165, from
 // flash_exp2_bf16). The rounding points are the TPU kernels', per tile of
 // 128 keys with a running row max m from -1e30:
 //   natural (K11): q' = bf16(q * bf16(scale)), s = q' . k in f32,
 //     m' = max(m, rowmax s), p = exp(s - m'), a = exp(m - m'),
 //     acc = acc a + bf16(p) V, l = l a + sum p (the unrounded f32 p);
-//   exp2 bf16 (K13b): q' = bf16(q * bf16(scale log2 e)), s and m' as
-//     above, d = bf16(s - m'), p = exp2(d) in bf16, two per
-//     ex2.approx.ftz.bf16x2, acc = acc a + p V, l = l a + sum p (those
-//     bf16 p), a = exp2(m - m') in f32;
-//   o = bf16(acc / max(l, 1e-30)), written for rows < T only. No l2.
-// K11's exp is ex2.approx.ftz of one FFMA, s log2 e - m' log2 e, in place
-// of the library expf: the FFMA's rounding moves p by under 2^-22 |s| of
-// it, far inside a bf16 ulp, and subnormal p (below 2^-126) flush to 0.
-// Keys past Tk arrive as zero rows; only the last tile, when Tk is not a
-// multiple of 128, sets their s to -1e30 before the max, which makes
-// their p exp(-1e30 - m') = 0 (m' is the max of at least one real key),
-// so a row whose logits are all below 0 does not take m = 0 from them.
+//   exp2 (K13a): q' = bf16(q * bf16(scale log2 e)), s and m' as above,
+//     p = exp2(s - m'), a = exp2(m - m'), acc and l as K11's;
+//   online (K9): K13a's, but l = l a + sum bf16(p), the P that enters the
+//     product, and l2 = m + log2(max(l, 1e-30)) for rows < T;
+//   exp2 bf16 (K13b): K13a's q', s and m', d = bf16(s - m'), p = exp2(d)
+//     in bf16, two per ex2.approx.ftz.bf16x2, acc = acc a + p V,
+//     l = l a + sum p (those bf16 p), a = exp2(m - m') in f32;
+//   o = bf16(acc / max(l, 1e-30)), written for rows < T only.
+// Every exp is one ex2.approx.ftz: of s - m' (K9, K13a), of one FFMA,
+// s log2 e - m' log2 e, in place of the library expf (K11; the FFMA's
+// rounding moves p by under 2^-22 |s| of it, far inside a bf16 ulp), or
+// packed (K13b); subnormal p (below 2^-126) flush to 0.
+// Keys past Tk arrive as zero rows; every tile that holds them (the last,
+// or a first one when Tk < 128) sets their s to -1e30 before the max,
+// which makes their p exp(-1e30 - m') = 0 (m' is the max of at least one
+// real key), so a row whose logits are all below 0 does not take m = 0
+// from them.
 //
 // Bound on the H100: operations. At [1, 48, 17776, 64] one call does
 // 4 H T Tk D = 3.88 TFLOP, 3.93 ms at 989 TFLOP/s, against 0.44 GB of q,
-// k, v and o; its H T Tk = 1.52e10 exps take about as long on the SFU
-// (16 ex2 per clock and SM), K13b's packed exps half of that.
+// k, v and o (K9 at B = 2: twice both); its H T Tk = 1.52e10 exps take
+// about as long on the SFU (16 ex2 per clock and SM), K13b's packed exps
+// half of that.
 //
 // Design (FlashAttention-3's forward in structure, Shah et al. 2024):
 // one block of three warpgroups per (b, h, 128-query tile):
@@ -53,11 +64,18 @@
 //   products run; the two consumers take turns on two named barriers
 //   (ping-pong, FlashAttention-3 §3.1), so that one warpgroup's exps run
 //   on the SFU while the other's products run on the tensor cores.
+// K9's l sums P itself, and the tensor cores sum it, as the TPU kernel
+// does with its column of ones beside V: each k-step of P V also issues
+// P times a K-major 128 x 8 tile of ones (wgmma.m64n8k16), whose
+// accumulator holds every row's sum and is rescaled with O's. Rounding p
+// to bf16 in f32 registers for an ALU sum instead (one cvt per pair, two
+// ops to unpack, in the softmax between a consumer's products) made K9
+// 7.5% slower (tools/ab_forward_sm90.py's variant lalu; PERF.md §6).
 // Measured on the H100 (PERF.md §6; tools/ab_forward_sm90.py):
 // ptxas serialises the products where it puts a wait in divergent code
 // (C7518, 45% of K11), keeps S registers alive into the next S (C7511)
 // or moves p out of them between two issues (C7513, 30% of K13b): hence
-// the peeled tiles, the write-only first k-step and K13b's f32 re-pack.
+// the peeled tiles, the write-only first k-step and the f32 re-pack.
 // Without the turns K11 is 24% slower; 3 stages beat 2 and 4; with no
 // exp of the scores it is only 9-12% faster, with no K/V reads from L2
 // no faster.
@@ -86,13 +104,19 @@ constexpr float FW_LOG2E = 1.4426950408889634f;
 constexpr int BAR_TURN = 1;  // named barriers 1, 2: consumer 0's, 1's turn
 
 // The softmax of the device function: K11's online natural exp, K13b's
-// online exp2 with p in packed bf16.
-enum class Softmax { kNatural, kExp2Bf16 };
+// online exp2 with p in packed bf16, K13a's online exp2, K9's online exp2
+// with l from bf16(p) and l2.
+enum class Softmax { kNatural, kExp2Bf16, kExp2, kOnline };
+
+// whether MODE's l is the tensor cores' sum of P
+template <Softmax MODE>
+constexpr bool L_MMA = MODE == Softmax::kOnline;
 
 struct __align__(1024) FwdSmem {
   __nv_bfloat16 q[FW_BQ * FW_D];
   __nv_bfloat16 k[FW_STAGES][FW_BK * FW_D];
   __nv_bfloat16 v[FW_STAGES][FW_BK * FW_D];
+  __nv_bfloat16 ones[8 * FW_D];  // one swizzle atom of ones (K9's l)
   uint64_t q_bar;
   uint64_t full[FW_STAGES];
   uint64_t empty[FW_STAGES];
@@ -100,13 +124,14 @@ struct __align__(1024) FwdSmem {
 
 // One tile's softmax on this thread's S accumulator (rows g and g + 8 of
 // its warp, columns 8i + 2tq + {0, 1}): m' = max(m, rowmax s) reduced over
-// the quad of lanes that share a row, a = exp(m - m'), l = l a + sum p.
-// p overwrites s in f32; K13b's packed bf16 p are unpacked for the sum
-// anyway and re-packed, exactly, once the last PV product is done. (Kept
-// packed they share registers with S, which the next S overwrites before
-// the PV product that reads p is issued: ptxas then moves them out
-// between the two issues and serialises the products.) With MASK, the
-// columns at or past `valid` are keys past Tk.
+// the quad of lanes that share a row, a = exp(m - m'), l = l a + sum p (but
+// K9's, which the tensor cores sum: L_MMA). p overwrites s in f32; K13b's
+// packed bf16 p are unpacked for the sum anyway and re-packed, exactly,
+// once the last PV product is done. (Kept packed they share registers with
+// S, which the next S overwrites before the PV product that reads p is
+// issued: ptxas then moves them out between the two issues and serialises
+// the products.) With MASK, the columns at or past `valid` are keys past
+// Tk.
 template <Softmax MODE, bool MASK>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], int valid,
                                              int tq, float& m0, float& m1,
@@ -150,7 +175,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], int valid,
         }
       }
     }
-  } else {
+  } else if constexpr (MODE == Softmax::kExp2Bf16) {
     a0 = exp2_ftz(m0 - mx0);
     a1 = exp2_ftz(m1 - mx1);
 #pragma unroll
@@ -170,9 +195,30 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], int valid,
       s[4 * i + 2] = fhi.x;
       s[4 * i + 3] = fhi.y;
     }
+  } else {
+    a0 = exp2_ftz(m0 - mx0);
+    a1 = exp2_ftz(m1 - mx1);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const float mx = e < 2 ? mx0 : mx1;
+        const float p0 = exp2_ftz(s[4 * i + e] - mx);
+        const float p1 = exp2_ftz(s[4 * i + e + 1] - mx);
+        s[4 * i + e] = p0;
+        s[4 * i + e + 1] = p1;
+        if (e < 2) {
+          sum0 += p0 + p1;
+        } else {
+          sum1 += p0 + p1;
+        }
+      }
+    }
   }
-  l0 = l0 * a0 + sum0;
-  l1 = l1 * a1 + sum1;
+  if constexpr (!L_MMA<MODE>) {
+    l0 = l0 * a0 + sum0;
+    l1 = l1 * a1 + sum1;
+  }
   m0 = mx0;
   m1 = mx1;
 }
@@ -188,10 +234,12 @@ __device__ __forceinline__ void pack_p(const float (&s)[64],
   }
 }
 
-__device__ __forceinline__ void rescale(float (&acc)[32], float a0,
+// rows g (a0) and g + 8 (a1) of an m64nN accumulator times their rescale
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], float a0,
                                         float a1) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < N / 4; ++i) {
     acc[4 * i] *= a0;
     acc[4 * i + 1] *= a0;
     acc[4 * i + 2] *= a1;
@@ -199,26 +247,41 @@ __device__ __forceinline__ void rescale(float (&acc)[32], float a0,
   }
 }
 
-// O += P V over one tile's 128 keys
-__device__ __forceinline__ void issue_pv(float (&acc)[32],
-                                         const uint32_t (&pa)[32],
-                                         const __nv_bfloat16* vt) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-    wgmma_rs<1>(acc, pa + 4 * kk, desc128(vt + kk * 16 * FW_D));
-  wgmma_commit();
-}
-
 // What a consumer carries from one key tile to the next.
 struct Carry {
   float acc[32];   // O, unnormalised
   float s[64];     // S, then p
   uint32_t pa[32]; // bf16(p) of the last tile, the A operand of its PV
+  float lacc[4];   // with L_MMA: P's row sums, rows row0 (0, 1), row0 + 8
   float m0, m1;    // running max of rows row0, row0 + 8
   float l0, l1;    // this thread's part of their normalizers
   float a0, a1;    // the last tile's rescale, applied to acc before its PV
 };
+
+// O's rescale and O += P V over one tile's 128 keys (with L_MMA, also the
+// row sums of P: P times the tile of ones)
+template <Softmax MODE>
+__device__ __forceinline__ void issue_pv(Carry& c, const __nv_bfloat16* vt,
+                                         const __nv_bfloat16* ones) {
+  rescale(c.acc, c.a0, c.a1);
+  if constexpr (L_MMA<MODE>) rescale(c.lacc, c.a0, c.a1);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_rs<1>(c.acc, c.pa + 4 * kk, desc128(vt + kk * 16 * FW_D));
+  if constexpr (L_MMA<MODE>) {
+    const uint64_t d1 = desc128(ones);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) wgmma_rs_n8(c.lacc, c.pa + 4 * kk, d1);
+  }
+  wgmma_commit();
+}
+
+template <Softmax MODE>
+__device__ __forceinline__ void fence_o(Carry& c) {
+  fence_regs(c.acc);
+  if constexpr (L_MMA<MODE>) fence_regs(c.lacc);
+}
 
 // One turn of a consumer on key tile j: wait for its (k, v) stage and for
 // its turn, issue S_j and (but on the first tile) O's rescale and
@@ -241,10 +304,7 @@ __device__ __forceinline__ void consumer_tile(FwdSmem& sm, int j, int Tk,
   for (int kk = 1; kk < 4; ++kk)
     wgmma_rs_n128<0, false>(c.s, qa + 4 * kk, desc128(sm.k[st] + kk * 16));
   wgmma_commit();
-  if constexpr (!FIRST) {
-    rescale(c.acc, c.a0, c.a1);
-    issue_pv(c.acc, c.pa, sm.v[(j - 1) % FW_STAGES]);
-  }
+  if constexpr (!FIRST) issue_pv<MODE>(c, sm.v[(j - 1) % FW_STAGES], sm.ones);
   bar_arrive(BAR_TURN + (wg ^ 1), FW_CONSUMERS);
   if constexpr (FIRST) {
     wgmma_wait<0>();
@@ -256,7 +316,7 @@ __device__ __forceinline__ void consumer_tile(FwdSmem& sm, int j, int Tk,
                            c.a0, c.a1);
   if constexpr (!FIRST) {
     wgmma_wait<0>();
-    fence_regs(c.acc);
+    fence_o<MODE>(c);
     mbar_arrive(&sm.empty[(j - 1) % FW_STAGES]);
   }
   pack_p(c.s, c.pa);
@@ -267,8 +327,9 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap v_map,
-                __nv_bfloat16* __restrict__ o, int T, int Tk, long long osb,
-                long long osh, long long ost, float scale_q) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ l2, int T,
+                int Tk, long long osb, long long osh, long long ost,
+                float scale_q) {
   extern __shared__ unsigned char smem_raw[];
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -284,6 +345,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
       mbar_init(&sm.empty[s], FW_CONSUMERS);
     }
     mbar_init_fence();
+  }
+  if constexpr (L_MMA<MODE>) {
+    // bf16 ones, two per word, visible to the tensor cores' reads
+    if (threadIdx.x < 8 * FW_D / 2)
+      reinterpret_cast<uint32_t*>(sm.ones)[threadIdx.x] = 0x3f803f80u;
+    fence_proxy_async();
   }
   __syncthreads();
 
@@ -331,6 +398,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
     Carry c;
 #pragma unroll
     for (int i = 0; i < 32; ++i) c.acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c.lacc[i] = 0.f;
     c.m0 = c.m1 = FW_NEG_INF;
     c.l0 = c.l1 = 0.f;
     // consumer 0 takes the first turn; each consumer hands the turn over
@@ -351,18 +420,20 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
         consumer_tile<MODE, false, false>(sm, n_kv - 1, Tk, wg, tq, qa, c);
       }
     }
-    rescale(c.acc, c.a0, c.a1);
-    issue_pv(c.acc, c.pa, sm.v[(n_kv - 1) % FW_STAGES]);
+    issue_pv<MODE>(c, sm.v[(n_kv - 1) % FW_STAGES], sm.ones);
     wgmma_wait<0>();
-    fence_regs(c.acc);
+    fence_o<MODE>(c);
     if (wg == 0) bar_sync(BAR_TURN, FW_CONSUMERS);
 
-    // the quad of a row holds its partial sums
-    float l0 = c.l0, l1 = c.l1;
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    // the tensor cores' row sums are whole (each column of the ones
+    // product holds one); otherwise the quad of a row holds its parts
+    float l0 = c.lacc[0], l1 = c.lacc[2];
+    if constexpr (!L_MMA<MODE>) {
+      l0 = c.l0 + __shfl_xor_sync(0xffffffffu, c.l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 = c.l1 + __shfl_xor_sync(0xffffffffu, c.l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    }
     l0 = fmaxf(l0, 1e-30f);
     l1 = fmaxf(l1, 1e-30f);
     const int r0 = q0 + row0;
@@ -381,17 +452,25 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
                                   c.acc[4 * i + 3] / l1);
       }
     }
+    if constexpr (MODE == Softmax::kOnline) {
+      if (tq == 0) {
+        float* lrow = l2 + ((long long)b * gridDim.y + h) * T;
+        if (r0 < T) lrow[r0] = c.m0 + log2f(l0);
+        if (r1 < T) lrow[r1] = c.m1 + log2f(l1);
+      }
+    }
   }
 }
 
 // q, k, v and o given by their (b, h, t) element strides (head-dim stride
 // 1, strides multiples of 8 and 16-byte aligned bases; the wrapper
-// checks). A missing entry point or a refused map returns its CUresult,
-// whose codes read as the cudaError_t of the same name; Tk = 0 (no key to
-// take the softmax over) returns cudaErrorInvalidValue.
+// checks); l2 [B*H, T] f32 for K9, else null. A missing entry point or a
+// refused map returns its CUresult, whose codes read as the cudaError_t
+// of the same name; Tk = 0 (no key to take the softmax over) returns
+// cudaErrorInvalidValue.
 template <Softmax MODE>
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int T, int Tk, long long qsb,
+                     void* l2, int B, int H, int T, int Tk, long long qsb,
                      long long qsh, long long qst, long long ksb,
                      long long ksh, long long kst, long long vsb,
                      long long vsh, long long vst, long long osb,
@@ -415,8 +494,8 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + FW_BQ - 1) / FW_BQ, H, B);
   flash_fwd_wgmma<MODE><<<grid, FW_THREADS, smem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), T, Tk, osb, osh,
-      ost, scale_q);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(l2), T, Tk, osb, osh, ost, scale_q);
   LSX_CHECK_LAUNCH();
   return 0;
 }
@@ -431,6 +510,21 @@ __global__ void exp2_bf16x2_probe(const uint32_t* __restrict__ x,
 
 }  // namespace
 
+// K9: o [B, H, T, 64] bf16 and l2 [B*H, T] f32 = m + log2 l (which K7
+// takes as it takes K6's) from q [B, H, T, 64] and k, v [B, H, Tk, 64]
+// bf16 with the online exp2 softmax whose l sums bf16(p); scale2 is
+// bf16(scale * log2 e) as a float.
+extern "C" int lsx_flash_attention_online_fwd(
+    const void* q, const void* k, const void* v, void* o, void* l2, int B,
+    int H, int T, int Tk, long long qsb, long long qsh, long long qst,
+    long long ksb, long long ksh, long long kst, long long vsb, long long vsh,
+    long long vst, long long osb, long long osh, long long ost, float scale2,
+    cudaStream_t stream) {
+  return launch_fwd_wgmma<Softmax::kOnline>(
+      q, k, v, o, l2, B, H, T, Tk, qsb, qsh, qst, ksb, ksh, kst, vsb, vsh,
+      vst, osb, osh, ost, scale2, stream);
+}
+
 // K11: o [B, H, T, 64] bf16 from q [B, H, T, 64] and k, v [B, H, Tk, 64]
 // bf16 with the natural-exp online softmax; scale1 is bf16(scale) as a
 // float. No l2.
@@ -441,8 +535,21 @@ extern "C" int lsx_flash_attention_h2_fwd(
     long long osb, long long osh, long long ost, float scale1,
     cudaStream_t stream) {
   return launch_fwd_wgmma<Softmax::kNatural>(
-      q, k, v, o, B, H, T, Tk, qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst,
-      osb, osh, ost, scale1, stream);
+      q, k, v, o, nullptr, B, H, T, Tk, qsb, qsh, qst, ksb, ksh, kst, vsb,
+      vsh, vst, osb, osh, ost, scale1, stream);
+}
+
+// K13a: K11's operands and output with the exp2 online softmax whose l
+// sums the unrounded p; scale2 as K9's. No l2.
+extern "C" int lsx_flash_attention_exp2_fwd(
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int T, int Tk, long long qsb, long long qsh, long long qst, long long ksb,
+    long long ksh, long long kst, long long vsb, long long vsh, long long vst,
+    long long osb, long long osh, long long ost, float scale2,
+    cudaStream_t stream) {
+  return launch_fwd_wgmma<Softmax::kExp2>(
+      q, k, v, o, nullptr, B, H, T, Tk, qsb, qsh, qst, ksb, ksh, kst, vsb,
+      vsh, vst, osb, osh, ost, scale2, stream);
 }
 
 // K13b: K11's operands and output with the exp2 online softmax whose p =
@@ -455,8 +562,8 @@ extern "C" int lsx_flash_attention_exp2_bf16_fwd(
     long long osb, long long osh, long long ost, float scale2,
     cudaStream_t stream) {
   return launch_fwd_wgmma<Softmax::kExp2Bf16>(
-      q, k, v, o, B, H, T, Tk, qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst,
-      osb, osh, ost, scale2, stream);
+      q, k, v, o, nullptr, B, H, T, Tk, qsb, qsh, qst, ksb, ksh, kst, vsb,
+      vsh, vst, osb, osh, ost, scale2, stream);
 }
 
 // y [n] bf16 = exp2(x [n] bf16) through K13b's packed instruction; n even.

@@ -1,5 +1,5 @@
 // Tensor-core and async-copy helpers of the mma.sync attention forward
-// (K5, K6, K9, K13a in flash_attention.cu): cp.async staging of 64-column
+// (K5, K6 in flash_attention.cu): cp.async staging of 64-column
 // bf16 tiles into XOR-swizzled shared memory, ldmatrix loads of mma
 // fragments, and the bf16 mma.sync.m16n8k16 with f32 accumulators.
 //

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) helpers of the attention kernels on wgmma, the backward
-// (K7, flash_attention_backward.cu) and the forward of K11 and K13b
-// (flash_attention_sm90.cu): mbarriers, TMA tile loads and tensor
+// (K7, flash_attention_backward.cu) and the forward of K9, K11, K13a and
+// K13b (flash_attention_sm90.cu): mbarriers, TMA tile loads and tensor
 // reductions, bulk copies, named barriers, register reallocation, the SFU
-// exps, the bf16 wgmma.mma_async.m64n64k16 and m64n128k16 with f32
+// exps, the bf16 wgmma.mma_async.m64n8k16, m64n64k16 and m64n128k16 with f32
 // accumulators, their operands read from 128-byte-swizzled shared memory
 // (both) or, for A, from registers; and on the host the tensor maps of
 // [B, T, H, 64] operands that both kernels load by TMA.
@@ -261,6 +261,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(TB));
+}
+
+// d += A B, m64n8k16, A from registers, B from shared memory (K-major):
+// an 8-column product, K9's row sums of P against a tile of ones
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t* a,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // the 64 accumulator operands of an m64n128 wgmma, with constraint C

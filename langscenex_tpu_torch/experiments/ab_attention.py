@@ -7,8 +7,7 @@ head-pair forward K11 (``flash_attention_h2``).
 
 The JAX script also swept flash_attention_h2's blocks (bq 512 and 1024,
 bk 512 and 1024): those chose the TPU's VMEM tiles. Each kernel here has
-one tile (K9 64 queries by 64 keys, K11 128 by 128), so each gets one
-line."""
+one tile (128 queries by 128 keys), so each gets one line."""
 from __future__ import annotations
 
 import torch

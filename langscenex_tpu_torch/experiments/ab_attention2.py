@@ -10,11 +10,10 @@ number of 1024-key blocks, no mask).
 
 The JAX script's probes ``flash_exp2`` and ``flash_exp2_bf16`` keep their
 signatures here. Their ``block_q`` and ``block_k`` are the TPU kernels'
-VMEM tiles; on the card each kernel has one tile (K13a 64 queries by 64
-keys, K13b 128 by 128), and they choose only the plain version's key
-block on the CPU. The JAX script
-also timed K9 with a 2048-query block ("bq2048"), a TPU tile with no
-counterpart here, so that row is left out. It never ran
+VMEM tiles; on the card each kernel has one tile (128 queries by 128
+keys), and they choose only the plain version's key block on the CPU. The
+JAX script also timed K9 with a 2048-query block ("bq2048"), a TPU tile
+with no counterpart here, so that row is left out. It never ran
 ``flash_exp2_bf16`` (its second ``__main__`` block is ``and False``),
 which runs here at each T that is a whole number of blocks and is refused
 at the others: there JAX's grid of T // block drops the last keys and

@@ -35,16 +35,17 @@ the valid keys, then l = max(l, 1e-30), o = acc / l and l2 = log2(l)
 
 The online forward (K9) has the same q' and s, and per block of keys a
 running row max m (from -1e30): m' = max(m, rowmax s), p = exp2(s − m'),
-acc = acc·exp2(m − m') + bf16(p)·v and l = l·exp2(m − m') + Σ bf16(p);
-o = acc / max(l, 1e-30) and l2 = m + log2 max(l, 1e-30). Where the
-rescales fall moves bf16(p) at rounding level, so its plain version takes
-the block: JAX's default 1024 on the CPU, the kernel's 64-key tile where
-it is held against the kernel. K11 is the same recurrence in the
-natural-exp domain: q scaled by bf16(scale), p = exp(s − m'), l summed
-from the unrounded p, bf16(p) in the PV product, no l2. K13a is K9's
-recurrence with l summed from the unrounded p, and no l2; K13b is K13a
-with p = exp2(bf16(s − m')) evaluated in bf16 (the kernel two at a time,
-packed), l summed from those bf16 p, the rescale exp2(m − m') in f32.
+acc = acc·exp2(m − m') + bf16(p)·v and l = l·exp2(m − m') + Σ bf16(p); o =
+acc / max(l, 1e-30) and l2 = m + log2 max(l, 1e-30). Where the rescales
+fall moves bf16(p) at rounding level, so its plain version takes the
+block: JAX's default 1024 on the CPU, the kernel's 128-key tile
+(``WGMMA_BLOCK_K``) where it is held against the kernel. K11 is the same
+recurrence in the natural-exp domain: q scaled by bf16(scale), p = exp(s −
+m'), l summed from the unrounded p, bf16(p) in the PV product, no l2. K13a
+is K9's recurrence with l summed from the unrounded p, and no l2; K13b is
+K13a with p = exp2(bf16(s − m')) evaluated in bf16 (the kernel two at a
+time, packed), l summed from those bf16 p, the rescale exp2(m − m') in
+f32.
 
 The backward recomputes p = exp2(s − l2) from the saved l2 with the TPU
 kernel's rounding points: ds = p·(dp − dvec) rounded to the working
@@ -83,11 +84,9 @@ from .. import _build
 
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30            # the online softmax's initial max (JAX's NEG_INF)
-KERNEL_HEAD_DIM = 64       # csrc/flash_attention.cu
-KERNEL_BLOCK_K = 64        # keys per tile of the mma.sync forwards (K5, K6,
-                           # K9, K13a)
-WGMMA_BLOCK_K = 128        # keys per tile of the wgmma forwards (K11, K13b,
-                           # csrc/flash_attention_sm90.cu)
+KERNEL_HEAD_DIM = 64       # csrc/flash_attention{,_sm90}.cu
+WGMMA_BLOCK_K = 128        # keys per tile of the wgmma forwards (K9, K11,
+                           # K13a/b, csrc/flash_attention_sm90.cu)
 WGMMA_Q_TILE = 128         # queries per block of the wgmma forwards
 KERNEL_Q_TILE = 64         # queries per step of K7
 KERNEL_BWD_KEYS = 128      # keys per block of K7
@@ -195,7 +194,7 @@ def flash_attention_online_plain(q, k, v, scale: float,
     """K9's plain version: q [B,H,T,D], k, v [B,H,Tk,D] -> (o [B,H,T,D] in
     q's dtype, l2 [B·H, T] f32 = m + log2 max(l, 1e-30)), with JAX's
     rounding points and its rescale after every ``block_k`` keys (JAX's
-    default block by default; the kernel's tile is ``KERNEL_BLOCK_K``)."""
+    default block by default; the kernel's tile is ``WGMMA_BLOCK_K``)."""
     B, H, T, _ = q.shape
     o, m, l = _online_plain(q, k, v, _scale2(scale, q.dtype).to(q.device),
                             block_k, q_chunk, "online")
@@ -218,7 +217,7 @@ def flash_attention_exp2_plain(q, k, v, scale: float,
                                q_chunk: int = PLAIN_Q_CHUNK):
     """K13a's plain version: q [B,H,T,D], k, v [B,H,Tk,D] -> o [B,H,T,D] in
     q's dtype. K9's q', s and running max per block of ``block_k`` keys
-    (JAX's 1024 by default; the kernel's tile is ``KERNEL_BLOCK_K``), the
+    (JAX's 1024 by default; the kernel's tile is ``WGMMA_BLOCK_K``), the
     normalizer summed from the unrounded p, bf16(p) in the PV product."""
     return _online_plain(q, k, v, _scale2(scale, q.dtype).to(q.device),
                          block_k, q_chunk, "exp2")[0]
@@ -357,9 +356,9 @@ def flash_attention_kernel(q, k, v, scale: float):
 def flash_attention_online_kernel(q, k, v, scale: float):
     """Launch K9, the online softmax, on K6's operands -> (o [B,H,T,64]
     bf16 laid out as K6's, l2 = m + log2 l [B·H, T] f32). Its rescale falls
-    after every 64-key tile (``KERNEL_BLOCK_K``), where JAX's falls after
+    after every 128-key tile (``WGMMA_BLOCK_K``), where JAX's falls after
     every ``block_k`` keys; :func:`flash_attention_online_plain` with
-    ``block_k=KERNEL_BLOCK_K`` has its rounding points."""
+    ``block_k=WGMMA_BLOCK_K`` has its rounding points."""
     return _launch_bhtd("K9", "lsx_flash_attention_online_fwd",
                         "flash_attention_online", q, k, v,
                         float(_scale2(scale, torch.bfloat16)))
@@ -381,8 +380,8 @@ def flash_attention_h2_kernel(q, k, v, scale: float):
 def flash_attention_exp2_kernel(q, k, v, scale: float):
     """Launch K13a, the exp2 online softmax whose normalizer sums the
     unrounded p, on K6's operands -> o [B,H,T,64] bf16 laid out as K6's.
-    Its rescale falls after every 64-key tile: its plain version is
-    :func:`flash_attention_exp2_plain` with ``block_k=KERNEL_BLOCK_K``."""
+    Its rescale falls after every 128-key tile: its plain version is
+    :func:`flash_attention_exp2_plain` with ``block_k=WGMMA_BLOCK_K``."""
     return _launch_bhtd("K13a", "lsx_flash_attention_exp2_fwd",
                         "flash_attention_exp2", q, k, v,
                         float(_scale2(scale, torch.bfloat16)),
@@ -585,7 +584,7 @@ def flash_attention(q, k, v, scale: Optional[float] = None,
     80, as under the DiT's qk-LayerNorm) K6 with no running max, and K7
     backward for both. On CPU tensors their plain versions, K9's with
     JAX's default block of 1024 keys. One difference from a CPU call: on
-    the card K9 rescales after every 64-key tile, so bf16(p), and so o,
+    the card K9 rescales after every 128-key tile, so bf16(p), and so o,
     may round differently, at the 2⁻⁸ level."""
     _check_bhtd(q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])

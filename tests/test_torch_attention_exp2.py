@@ -64,15 +64,21 @@ def _close(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("T,Tk", [(200, 200), (130, 200)])
-def test_flash_exp2_matches_jax(jab2, T, Tk, dtype):
-    # JAX's flash_exp2 with 64-row blocks (queries and keys padded to 256,
-    # the padded keys masked before the max) against the port's flash_exp2
-    # on CPU tensors, K13a's plain version at the same 64-key block
+@pytest.mark.parametrize("T,Tk,block", [
+    pytest.param(200, 200, 64, id="200-200"),
+    pytest.param(130, 200, 64, id="130-200"),
+    pytest.param(256, 256, 128, id="256-256-128"),
+    pytest.param(130, 300, 128, id="130-300-128")])
+def test_flash_exp2_matches_jax(jab2, T, Tk, block, dtype):
+    # JAX's flash_exp2 with square blocks of 64 rows (queries and keys
+    # padded to 256, the padded keys masked before the max) or of 128, the
+    # key tile of K13a's kernel (WGMMA_BLOCK_K; at Tk = 300 a masked key
+    # tail), against the port's flash_exp2 on CPU tensors, K13a's plain
+    # version at the same key block
     (jq, jk, jv), (tq, tk, tv) = _inputs(T, Tk, dtype, seed=T + Tk)
     with pltpu.force_tpu_interpret_mode():
-        want = jab2.flash_exp2(jq, jk, jv, block_q=64, block_k=64)
-    got = ab_attention2.flash_exp2(tq, tk, tv, 64, 64)
+        want = jab2.flash_exp2(jq, jk, jv, block_q=block, block_k=block)
+    got = ab_attention2.flash_exp2(tq, tk, tv, block, block)
     assert got.shape == want.shape and got.dtype == tq.dtype
     _close(got, want, dtype)
 

@@ -78,12 +78,13 @@ def _close_l2(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("T,Tk,bk", [(256, 256, 128), (130, 70, 32),
-                                     (384, 640, 256)])
+                                     (384, 640, 256), (200, 330, 128)])
 def test_k9_plain_matches_jax_kernel(T, Tk, bk, dtype):
     # o and l2 of _flash_fwd_impl(bounded_logits=False), K9 in interpret
     # mode, with the plain version rescaling at JAX's key block bk: several
-    # blocks at every shape, a padded kv tail (-1e9 bias column) at 70 and
-    # 640 keys, a query tail at 130
+    # blocks at every shape, a padded kv tail (-1e9 bias column) at 70, 330
+    # and 640 keys (330 at the 128-key tile of K9's kernel), a query tail
+    # at 130 and 200
     (jq, jk, jv), (tq, tk, tv) = _cast(_mk(T, Tk, seed=T + Tk), dtype)
     with pltpu.force_tpu_interpret_mode():
         o, l2 = jfa._flash_fwd_impl(jq, jk, jv, SCALE, 128, bk, False)

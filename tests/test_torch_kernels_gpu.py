@@ -472,10 +472,12 @@ def _online_inputs(rng, B, H, T, Tk, device, view, mag):
 # 64, 128 keys): T = 100 leaves the second consumer a partial tile, T = 1
 # none; Tk = 130 and 257 have a masked last tile, above and below T; 3
 # heads give an odd B·H; a negative mag gives a row whose logits are all
-# below 0 (_online_inputs)
+# below 0 (_online_inputs); B = 2 with Tk < 128 (a masked first tile) and
+# with a masked last tile
 WGMMA_EDGES = [(1, 3, 100, 100, False, 1.0), (1, 3, 100, 257, True, 1.0),
                (1, 3, 200, 130, True, 1.0), (1, 3, 1, 257, False, 1.0),
-               (1, 3, 200, 200, False, -1.0), (1, 3, 200, 257, True, 20.0)]
+               (1, 3, 200, 200, False, -1.0), (1, 3, 200, 257, True, 20.0),
+               (2, 3, 200, 100, True, -1.0), (2, 3, 130, 300, False, 1.0)]
 
 
 @pytest.mark.gpu
@@ -487,15 +489,15 @@ WGMMA_EDGES = [(1, 3, 100, 100, False, 1.0), (1, 3, 100, 257, True, 1.0),
                                                (1, 2, 128, 192, False, 20.0),
                                                *WGMMA_EDGES])
 def test_online_kernels_match_plain(cuda, B, H, T, Tk, view, mag):
-    # K9 and K11 against their plain versions at each kernel's key tile
-    # (the same rescale points: 64 keys for K9, 128 for K11), Tk != T,
-    # tails, views, x20 logits (where K6's bounded softmax overflows) and
-    # the edges of K11's tiling. As K6's bounds: o within 2^-7 relative +
+    # K9 and K11 against their plain versions at the kernels' 128-key tile
+    # (the same rescale points), Tk != T, tails, views, x20 logits (where
+    # K6's bounded softmax overflows) and the edges of the wgmma forward's
+    # tiling. As K6's bounds: o within 2^-7 relative +
     # 1e-3; K9's l2 within log2(1 + 2^-7) < 1.13e-2 (a p one bf16 ulp away
     # moves l by at most 2^-7 of it) and, at unit logits, within 1e-4 on
     # average over the rows
     from langscenex_tpu_torch.ops.flash_attention import (
-        KERNEL_BLOCK_K, WGMMA_BLOCK_K, flash_attention_h2_kernel,
+        WGMMA_BLOCK_K, flash_attention_h2_kernel,
         flash_attention_h2_plain, flash_attention_online_kernel,
         flash_attention_online_plain)
     rng = np.random.default_rng(26)
@@ -508,7 +510,7 @@ def test_online_kernels_match_plain(cuda, B, H, T, Tk, view, mag):
                                     "flash_attention_online": 1,
                                     "flash_attention_h2": 1}
     ro, rl2 = flash_attention_online_plain(q, k, v, 0.125,
-                                           block_k=KERNEL_BLOCK_K)
+                                           block_k=WGMMA_BLOCK_K)
     rh = flash_attention_h2_plain(q, k, v, 0.125, block_k=WGMMA_BLOCK_K)
     assert o.shape == oh.shape == (B, H, T, 64) and l2.shape == (B * H, T)
     for got, ref in ((o, ro), (oh, rh)):
@@ -523,11 +525,14 @@ def test_online_kernels_match_plain(cuda, B, H, T, Tk, view, mag):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,T,Tk,view", [(1, 3, 300, 130, False),
                                            (2, 2, 130, 200, True),
-                                           (1, 2, 64, 640, False)])
+                                           (1, 2, 64, 640, False),
+                                           (2, 3, 200, 100, True),
+                                           (2, 2, 130, 257, False)])
 def test_backward_kernel_with_own_key_length_matches_plain(cuda, B, H, T, Tk,
                                                            view):
     # K7 with Tk != T (K12's split backward, served by K7) on K9's o and
-    # l2, against the plain backward on the same: K7's bounds (see
+    # l2 (Tk < 128 and Tk % 128 != 0 among them, B = 2), against the plain
+    # backward on the same: K7's bounds (see
     # test_flash_attention_backward_kernel_matches_plain)
     from langscenex_tpu_torch.ops.flash_attention import (
         flash_attention_backward_kernel, flash_attention_backward_plain,
@@ -665,9 +670,9 @@ def test_ln_modulate_kernel_matches_plain(cuda, H, dtype):
                                                (1, 2, 128, 192, False, 20.0),
                                                *WGMMA_EDGES])
 def test_exp2_kernels_match_plain(cuda, B, H, T, Tk, view, mag):
-    # K13a and K13b against their plain versions at each kernel's key tile
-    # (the same rescale points: 64 keys for K13a, 128 for K13b), Tk != T,
-    # tails, views, odd B·H, x20 logits and the edges of K13b's tiling.
+    # K13a and K13b against their plain versions at the kernels' 128-key
+    # tile (the same rescale points), Tk != T, tails, views, odd B·H, x20
+    # logits and the edges of the wgmma forward's tiling.
     # K13a has K9's rounding points but for l: o within K9's
     # bound, 2^-7 relative + 1e-3. K13b's packed exp is within one bf16
     # ulp of exp2 rounded to bf16 (test_packed_exp2_within_one_ulp), so
@@ -676,7 +681,7 @@ def test_exp2_kernels_match_plain(cuda, B, H, T, Tk, view, mag):
     # side's o; the many moves have either sign, so o's relative RMS
     # difference stays within 2^-7
     from langscenex_tpu_torch.ops.flash_attention import (
-        KERNEL_BLOCK_K, WGMMA_BLOCK_K, flash_attention_exp2_bf16_kernel,
+        WGMMA_BLOCK_K, flash_attention_exp2_bf16_kernel,
         flash_attention_exp2_bf16_plain, flash_attention_exp2_kernel,
         flash_attention_exp2_plain)
     rng = np.random.default_rng(27)
@@ -688,7 +693,7 @@ def test_exp2_kernels_match_plain(cuda, B, H, T, Tk, view, mag):
     assert _build.launch_counts == {**{n: 0 for n in _build.launch_counts},
                                     "flash_attention_exp2": 1,
                                     "flash_attention_exp2_bf16": 1}
-    ro = flash_attention_exp2_plain(q, k, v, 0.125, block_k=KERNEL_BLOCK_K)
+    ro = flash_attention_exp2_plain(q, k, v, 0.125, block_k=WGMMA_BLOCK_K)
     rb = flash_attention_exp2_bf16_plain(q, k, v, 0.125,
                                          block_k=WGMMA_BLOCK_K).float()
     assert o.shape == ob.shape == (B, H, T, 64)

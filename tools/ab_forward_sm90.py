@@ -1,25 +1,29 @@
-"""Variants of the wgmma attention forward (K11, K13b), timed in turns on
-one card.
+"""Variants of the wgmma attention forward (K9, K11, K13a, K13b), timed in
+turns on one card.
 
 Each variant is a copy of ``langscenex_tpu_torch/csrc/flash_attention_sm90.cu``
 with a few text edits (``VARIANTS``), built with the port's nvcc flags into
 ``build/variants/<name>/`` (one nvcc per variant, all started together)
 and loaded with ctypes under the port's C signatures. ``base`` is the
-source as it stands. For each length of ``--tokens`` the script runs K11
-and K13b of every variant at [1, 48, T, 64] on seeded bf16 inputs, says
-whether each output equals the port's own build bit for bit (variants that
-drop work differ, and are for timing only), then times them with CUDA
-events in turns (the variants in order, then in reverse) beside
-``scaled_dot_product_attention``, and prints ptxas's registers, spills and
-C75xx performance notes for each build. Needs a card with ``nvcc``:
+source as it stands. For each length of ``--tokens`` the script runs K9,
+K11, K13a and K13b of every variant at [B, 48, T, 64] on seeded bf16
+inputs, says whether each output (K9's o and l2) equals the port's own
+build bit for bit (variants that drop work, or sum K9's l another way,
+differ), then times them with CUDA events in turns (the variants in
+order, then in reverse, ``--rounds`` times) beside
+``scaled_dot_product_attention``, and prints ptxas's registers, spills
+and C75xx performance notes for each mode of each build. Needs a card
+with ``nvcc``:
 
-    python3 tools/ab_forward_sm90.py [--variants base,nopp] [--tokens 17776]
+    python3 tools/ab_forward_sm90.py [--variants base,lalu] [--tokens 17776]
+        [--batch 1] [--kernels K9,K13a] [--rounds 1] [--iters 5]
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -34,7 +38,11 @@ import torch  # noqa: E402
 import langscenex_tpu_torch.ops.flash_attention as fa  # noqa: E402
 from langscenex_tpu_torch import _build  # noqa: E402
 
-ENTRIES = ("lsx_flash_attention_h2_fwd", "lsx_flash_attention_exp2_bf16_fwd")
+ENTRIES = ("lsx_flash_attention_online_fwd", "lsx_flash_attention_h2_fwd",
+           "lsx_flash_attention_exp2_fwd",
+           "lsx_flash_attention_exp2_bf16_fwd")
+# the kernels of flash_fwd_wgmma's modes, in the order of its Softmax enum
+MODES = ("K11", "K13b", "K13a", "K9")
 # name -> [(text, replacement)] applied to the source
 VARIANTS = {
     "base": [],
@@ -49,7 +57,20 @@ VARIANTS = {
     # no exp of the scores on the SFU: p is the exp's argument (timing
     # only; the rescale's exps stay)
     "nosfu": [("exp2_ftz(fmaf(", "(fmaf("),
+              ("exp2_ftz(s[4 * i + e", "(s[4 * i + e"),
               ("exp2_bf16x2(pack_bf16(", "(pack_bf16(")],
+    # K9's l summed from bf16(p) rounded in f32 registers (a cvt and two
+    # unpacking ops per pair) instead of by the tensor cores against ones
+    "lalu": [("L_MMA = MODE == Softmax::kOnline;", "L_MMA = false;"),
+             ("        const float p0 = exp2_ftz(s[4 * i + e] - mx);\n"
+              "        const float p1 = exp2_ftz(s[4 * i + e + 1] - mx);\n",
+              "        float p0 = exp2_ftz(s[4 * i + e] - mx);\n"
+              "        float p1 = exp2_ftz(s[4 * i + e + 1] - mx);\n"
+              "        if constexpr (MODE == Softmax::kOnline) {\n"
+              "          const uint32_t pb = pack_bf16(p0, p1);\n"
+              "          p0 = __uint_as_float(pb << 16);\n"
+              "          p1 = __uint_as_float(pb & 0xffff0000u);\n"
+              "        }\n")],
     # the producer loads the (k, v) tiles of even j only, or of the first
     # stages only, and completes the other stages' barriers with no bytes,
     # so the consumers reuse stale tiles: the K/V traffic from L2 halves
@@ -90,13 +111,9 @@ def build(names):
         log = proc.communicate()[0].splitlines()
         if proc.returncode:
             raise RuntimeError(f"variant {name} failed:\n" + "\n".join(log))
-        notes = sorted({line.split("(C75")[1][:2] for line in log
-                        if "(C75" in line})
-        regs = [line.split(":", 1)[1].strip() for line in log
-                if "registers" in line and "Used" in line]
-        spills = sorted({line.strip() for line in log if "spill" in line})
-        print(f"{name}: ptxas {regs[:2]}, {spills}, C75 notes "
-              f"{['C75' + n for n in notes] or 'none'}")
+        for mode, (regs, spills, notes) in ptxas_report(log).items():
+            print(f"{name} {mode}: ptxas {regs} registers, {spills}, C75 "
+                  f"notes {sorted(notes) or 'none'}")
         lib = ctypes.CDLL(str(out / "lib.so"))
         ns = types.SimpleNamespace()
         for entry in ENTRIES:
@@ -106,6 +123,31 @@ def build(names):
             setattr(ns, entry, fn)
         libs[name] = ns
     return libs
+
+
+def ptxas_report(log) -> dict:
+    """{kernel: (registers, spill line, C75xx notes)} from ptxas -v's log,
+    the wgmma forward's modes named by MODES."""
+    def label(fn):
+        mode = re.search(r"SoftmaxE(\d)E", fn)
+        return MODES[int(mode.group(1))] if mode else fn
+    out, fn = {}, None
+    for line in log:
+        entry = re.search(r"entry function '([^']+)'", line)
+        if entry:
+            fn = label(entry.group(1))
+            out[fn] = ["?", "", set()]
+        elif fn is None:
+            continue
+        elif "(C75" in line:
+            mode = re.search(r"SoftmaxE(\d)E", line)
+            out[MODES[int(mode.group(1))] if mode else fn][2].add(
+                "C75" + line.split("(C75")[1][:2])
+        elif "Used" in line and "registers" in line:
+            out[fn][0] = line.split("Used")[1].split("registers")[0].strip()
+        elif "spill" in line:
+            out[fn][1] = line.strip()
+    return out
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -122,12 +164,19 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def as_tuple(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", default=",".join(VARIANTS))
     ap.add_argument("--tokens", type=int, nargs="+", default=[17776, 18432])
     ap.add_argument("--heads", type=int, default=48)
+    ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--kernels", default="K9,K13a,K11,K13b")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_forward_sm90: no CUDA device", file=sys.stderr)
@@ -139,13 +188,16 @@ def main(argv=None) -> int:
     names = args.variants.split(",")
     libs = build(names)
     own = _build.library
-    kernels = {"K11": fa.flash_attention_h2_kernel,
+    kernels = {"K9": fa.flash_attention_online_kernel,
+               "K13a": fa.flash_attention_exp2_kernel,
+               "K11": fa.flash_attention_h2_kernel,
                "K13b": fa.flash_attention_exp2_bf16_kernel}
+    kernels = {kn: kernels[kn] for kn in args.kernels.split(",")}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
     sc = 0.125
     for T in args.tokens:
-        q, k, v = (torch.randn((1, args.heads, T, 64), generator=gen,
+        q, k, v = (torch.randn((args.batch, args.heads, T, 64), generator=gen,
                                device=dev).to(torch.bfloat16)
                    for _ in range(3))
         runs = {(n, kn): [] for n in names for kn in kernels}
@@ -155,12 +207,15 @@ def main(argv=None) -> int:
                 for n in names:
                     _build.library = lambda n=n: libs[n]
                     for kn, fn in kernels.items():
-                        o = fn(q, k, v, sc)
-                        if not torch.equal(o, ref[kn]):
-                            err = (o.float() - ref[kn].float()).abs().max()
-                            print(f"  T={T} {n} {kn}: differs from the port's "
-                                  f"build, max |diff| {float(err):.3e}")
-                for n in names + names[::-1]:
+                        outs = fn(q, k, v, sc)
+                        for what, o, r in zip(("o", "l2"), as_tuple(outs),
+                                              as_tuple(ref[kn])):
+                            if not torch.equal(o, r):
+                                err = (o.float() - r.float()).abs().max()
+                                print(f"  T={T} {n} {kn}: {what} differs from "
+                                      f"the port's build, max |diff| "
+                                      f"{float(err):.3e}")
+                for n in (names + names[::-1]) * args.rounds:
                     _build.library = lambda n=n: libs[n]
                     for kn, fn in kernels.items():
                         runs[(n, kn)].append(cuda_ms(
@@ -170,13 +225,17 @@ def main(argv=None) -> int:
             sdpa = [cuda_ms(lambda: torch.nn.functional
                             .scaled_dot_product_attention(q, k, v),
                             args.iters) for _ in range(2)]
-        print(f"T={T}: scaled_dot_product_attention "
+        print(f"B={args.batch} T={T}: scaled_dot_product_attention "
               f"{' / '.join('%.4f' % x for x in sdpa)} ms")
         for n in names:
-            k11, k13 = runs[(n, "K11")], runs[(n, "K13b")]
-            print(f"T={T} {n}: K11 {' / '.join('%.4f' % x for x in k11)} ms, "
-                  f"K13b {' / '.join('%.4f' % x for x in k13)} ms, "
-                  f"K13b / K11 {sum(k13) / sum(k11):.4f}", flush=True)
+            t = {kn: runs[(n, kn)] for kn in kernels}
+            ratios = [f"{a} / {b} {sum(t[a]) / sum(t[b]):.4f}"
+                      for a, b in (("K13b", "K11"), ("K9", "K13a"))
+                      if a in t and b in t]
+            print(f"B={args.batch} T={T} {n}: " + ", ".join(
+                f"{kn} {' / '.join('%.4f' % x for x in t[kn])} ms "
+                f"(mean {sum(t[kn]) / len(t[kn]):.4f})" for kn in kernels)
+                + "; " + ", ".join(ratios), flush=True)
     return 0
 
 
