@@ -47,7 +47,8 @@ Phases (any failure raises, so the exit code is non-zero):
      K5 and K8 against
      their plain versions on the real layer-0 inputs (q, k, v
      [2, 17776, 48, 64], x [2, 17776, 3072]), with CUDA-event times of
-     kernel, plain and (K5) scaled_dot_product_attention;
+     kernel, plain and (K5) scaled_dot_product_attention, and K5's tensor
+     and SFU terms;
  10. the full-width DiT through the kernels and through the plain path on
      the same weights and inputs: the residual stream after 2 blocks and
      the 42-layer noise prediction, within stated bounds;
@@ -82,7 +83,8 @@ Phases (any failure raises, so the exit code is non-zero):
      [2, 48, 17776, 64] (one device function: bit-identical o and l2),
      against its plain version at a TP=2 shard's [2, 24, 17776, 64] and at
      1,000 queries over 17,776 keys (K5's bounds), CUDA-event times of K6,
-     the plain version and scaled_dot_product_attention with the bound;
+     the plain version and scaled_dot_product_attention with the bound
+     and K6's tensor and SFU terms;
      and K7 reading [B, H, T, D] views of a LoRA shard [1, 24, 17776, 64]
      against its plain version, with its time;
  18. configuration trimap-dit-5b-49x480x720-tp2: two ranks on cuda:0 over
@@ -114,7 +116,7 @@ Phases (any failure raises, so the exit code is non-zero):
      bounds), K11 against its plain version at its 128-key tile and
      against K9; CUDA-event times of K9, K11 and K7 on K9's l2 beside their
      plain versions, scaled_dot_product_attention and the bound, the wgmma
-     forward's cuobjdump resources in each of its four modes (no spill),
+     forward's cuobjdump resources in each of its five modes (no spill),
      K11's tensor and SFU terms and the K/V bytes it reads from L2; and the
      ported
      experiments ab_attention and ab_attention4 through their main.
@@ -438,8 +440,9 @@ SOURCES = {
     "compact_pairs": "langscenex_tpu_torch/csrc/compaction.cu",
     "blend_forward": "langscenex_tpu_torch/csrc/blend.cu",
     "blend_backward": "langscenex_tpu_torch/csrc/blend_backward.cu",
-    "flash_attention": "langscenex_tpu_torch/csrc/flash_attention.cu",
-    "flash_attention_bhtd": "langscenex_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention": "langscenex_tpu_torch/csrc/flash_attention_sm90.cu",
+    "flash_attention_bhtd":
+        "langscenex_tpu_torch/csrc/flash_attention_sm90.cu",
     "ln_modulate": "langscenex_tpu_torch/csrc/ln_modulate.cu",
     "flash_attention_backward":
         "langscenex_tpu_torch/csrc/flash_attention_backward.cu",
@@ -632,9 +635,9 @@ def require_no_spill(name: str, what: str, count: int = 0) -> None:
                 f"{what} spills to local memory: {line}")
 
 
-def forward_terms(what: str, ms: float, H: int, T: int, Tk: int,
+def forward_terms(what: str, ms: float, B: int, H: int, T: int, Tk: int,
                   exps: float, dev) -> None:
-    """Print a wgmma forward's time beside its tensor term (4 H T Tk 64
+    """Print a wgmma forward's time beside its tensor term (4 B H T Tk 64
     flops at the bf16 peak) and its SFU term (``exps`` ex2 instructions,
     16 per clock and SM at nvidia-smi's maximum SM clock), and the K and V
     bytes its blocks of WGMMA_Q_TILE queries read from L2 per call with
@@ -644,10 +647,10 @@ def forward_terms(what: str, ms: float, H: int, T: int, Tk: int,
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0])
-    tensor_ms = 4.0 * H * T * Tk * 64 / PEAK_BF16_FLOPS * 1e3
+    tensor_ms = 4.0 * B * H * T * Tk * 64 / PEAK_BF16_FLOPS * 1e3
     sfu_ms = exps / (16 * sms) / (mhz * 1e3)
-    kv = -(-T // WGMMA_Q_TILE) * H * Tk * 64 * 2 * 2
-    print(f"{what} at [1, {H}, {T}, 64], Tk {Tk}: {ms:.4f} ms; tensor term "
+    kv = B * -(-T // WGMMA_Q_TILE) * H * Tk * 64 * 2 * 2
+    print(f"{what} at [{B}, {H}, {T}, 64], Tk {Tk}: {ms:.4f} ms; tensor term "
           f"{tensor_ms:.4f} ms (989 TFLOP/s), SFU term {sfu_ms:.4f} ms "
           f"({exps:.4g} ex2 at 16 per clock on {sms} SMs at {mhz:.0f} MHz); "
           f"K/V read from L2 {kv / 1e9:.3f} GB per call, "
@@ -1178,15 +1181,13 @@ def phase_dit_kernels(dev, dit, model_in, txt, tt, results) -> None:
     B, T, H, D = q.shape
     attn_bound = bound(flops=4.0 * B * H * T * T * D,
                        moved=nbytes(q, k, v, o, l2))
-    n_exp = B * H * T * T
-    sfu_cycles = n_exp / (16 * torch.cuda.get_device_properties(
-        dev).multi_processor_count)
     print(f"K5 flash_attention q,k,v {list(q.shape)} {q.dtype}: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
           f"{lib_ms:.4f} ms, bound {attn_bound['bound_ms']:.4f} ms "
           f"({attn_bound['bound_by']}, {4.0 * B * H * T * T * D / 1e12:.3f} "
-          f"TFLOP); {n_exp:.4g} exp2 = {sfu_cycles:.4g} SFU cycles per SM "
-          f"at 16 ex2/clk")
+          f"TFLOP)")
+    # the bounded mode: one ex2 per score, none for a rescale
+    forward_terms("K5 flash_attention", ms, B, H, T, T, B * H * T * T, dev)
     results["flash_attention"] = dict(max_abs_err=err, ms=ms,
                                       plain_ms=plain_ms, **attn_bound,
                                       library_ms=lib_ms)
@@ -1642,6 +1643,8 @@ def phase_k6(dev, results) -> None:
               f"{full_lib:.4f} ms, bound {full_bound['bound_ms']:.4f} ms "
               f"({full_bound['bound_by']}, {4.0 * B * H * T * T * D / 1e12:.3f}"
               f" TFLOP at 989 TFLOP/s)")
+        forward_terms("K6 flash_attention_bhtd", full_ms, B, H, T, T,
+                      B * H * T * T, dev)
         del o6, l6
         # a TP=2 shard's heads, and 1,000 queries over all keys
         qs, ks, vs = (t[:, :H // 2] for t in (qh, kh, vh))
@@ -1669,6 +1672,8 @@ def phase_k6(dev, results) -> None:
               f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
               f"{k6_bound['bound_ms']:.4f} ms ({k6_bound['bound_by']}, "
               f"{4.0 * B * Hs * T * T * D / 1e12:.3f} TFLOP)")
+        forward_terms("K6 flash_attention_bhtd", ms, B, Hs, T, T,
+                      B * Hs * T * T, dev)
         results["flash_attention_bhtd"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, **k6_bound,
             library_ms=lib_ms)
@@ -1887,9 +1892,9 @@ def phase_exact(dev, results) -> dict:
     print(f"K7 on K9's l2 at Tk = {Tv}: kernel {ms7v:.4f} ms, bound "
           f"{b7v['bound_ms']:.4f} ms ({b7v['bound_by']})")
     # K11: one ex2 per score and one per row and key tile for the rescale
-    require_no_spill("flash_fwd_wgmma", "K9/K11/K13a/K13b flash_fwd_wgmma",
-                     count=4)
-    forward_terms("K11 flash_attention_h2", ms11, H, T, T,
+    require_no_spill("flash_fwd_wgmma",
+                     "K5/K6/K9/K11/K13a/K13b flash_fwd_wgmma", count=5)
+    forward_terms("K11 flash_attention_h2", ms11, 1, H, T, T,
                   H * T * (T + -(-T // WGMMA_BLOCK_K)), dev)
     del q, k, v, q1, k1, v1, do, runs, shapes, o9, l9, o1, l21, ov, l2v, h2
     torch.cuda.empty_cache()
@@ -2061,7 +2066,8 @@ def phase_k13(dev, results) -> dict:
             ("K13a flash_attention_exp2", "K13a", K13_H * Tf * Tf),
             ("K11 flash_attention_h2", "K11", K13_H * Tf * Tf),
             ("K13b flash_attention_exp2_bf16", "K13b", K13_H * Tf * Tf / 2)):
-        forward_terms(what, ms[Tf][n], K13_H, Tf, Tf, exps + rescales, dev)
+        forward_terms(what, ms[Tf][n], 1, K13_H, Tf, Tf, exps + rescales,
+                      dev)
     q, k, v = qkv[Tf]
     plain_a = cuda_ms(lambda: flash_attention_exp2_plain(
         q, k, v, sc, block_k=WGMMA_BLOCK_K), 1, warmup=1)

@@ -1,50 +1,68 @@
-// Flash-attention forward on Hopper (wgmma, TMA, warp specialisation),
-// kernels K9 (online softmax in the exp2 domain, with l2), K11 (online
-// softmax in the natural-exp domain), K13a (K9's exp2 softmax with l from
-// the unrounded p, no l2) and K13b (the exp2 softmax with p in packed
-// bf16), all on queries q [B, H, T, 64] and keys k, v [B, H, Tk, 64] read
-// through element strides, so that transpose(1, 2) views of [B, T, H, 64]
-// tensors load in place. One device function templated on its softmax;
-// the bounded forward (K5, K6) still runs on flash_attention.cu's
-// mma.sync design and is meant to move here as a further mode.
+// Flash-attention forward on Hopper (wgmma, TMA, warp specialisation):
+// one device function templated on its softmax, on queries q [B, H, T, 64]
+// and keys k, v [B, H, Tk, 64] read through element strides, so that
+// transpose(1, 2) views of [B, T, H, 64] tensors, and the strided q, k, v
+// views of one [B, T, 3, H, 64] tensor, load in place. Five modes:
+// K5 and K6 (the bounded softmax, with l2), K9 (online softmax in the
+// exp2 domain, with l2), K11 (online softmax in the natural-exp domain),
+// K13a (K9's exp2 softmax with l from the unrounded p, no l2) and K13b
+// (the exp2 softmax with p in packed bf16).
 //
-// K9 replaces: langscenex_tpu/ops/flash_attention.py:32 _attn_kernel
-// (called at :182 from _flash_fwd_impl, through flash_attention(
-// bounded_logits=False) and attention_auto); its l2 is the residual that
-// K7 reads in the split backward (K12). K11 replaces :676 _attn_kernel_h2
-// (called at :772 from flash_attention_h2); its head pairs packed
-// block-diagonally keep the MXU's 128-deep contraction full and carry no
-// function, so it is one head per block here. K13a replaces
-// experiments/ab_attention2.py:46 _exp2_kernel (call :96, from
-// flash_exp2), K13b :129 _exp2_bf16_kernel (call :165, from
-// flash_exp2_bf16). The rounding points are the TPU kernels', per tile of
-// 128 keys with a running row max m from -1e30:
+// K5 replaces: langscenex_tpu/ops/flash_attention.py:991
+// _attn_kernel_nomax_t4 (called at :1071 from _flash_fwd_impl_bthd,
+// through attention_bthd), on [B, T, H, 64] operands. K6 replaces :796
+// _attn_kernel_nomax_t (called at :960 from _flash_fwd_impl_t, through
+// flash_attention(bounded_logits=True) and attention_auto, on every shard
+// of the tensor-parallel DiT), on [B, H, T, 64] ones with a key length Tk
+// of their own; the lane-padded _attn_kernel_nomax (:82, K10) and the
+// split-kv _attn_kernel_nomax_t2 and _t3 (:838, :873, K12) compute the same
+// function and differ only in MXU scheduling, so K6's kernel serves them.
+// K5 and K6 are one kernel with two tensor maps: on the same tensors they
+// agree bit for bit. K9 replaces :32 _attn_kernel (called at :182 from
+// _flash_fwd_impl, through flash_attention(bounded_logits=False) and
+// attention_auto); its l2 is the residual that K7 reads in the split
+// backward (K12). K11 replaces :676 _attn_kernel_h2 (called at :772 from
+// flash_attention_h2); its head pairs packed block-diagonally keep the
+// MXU's 128-deep contraction full and carry no function, so it is one head
+// per block here. K13a replaces experiments/ab_attention2.py:46
+// _exp2_kernel (call :96, from flash_exp2), K13b :129 _exp2_bf16_kernel
+// (call :165, from flash_exp2_bf16). The rounding points are the TPU
+// kernels', per tile of 128 keys:
+//   bounded (K5, K6): q' = bf16(q * bf16(scale log2 e)), s = q' . k in
+//     f32, p = exp2(s) with no running max (the DiT's qk-LayerNorm bounds
+//     the logits), acc = acc + bf16(p) V, l = l + sum bf16(p), and
+//     l2 = log2(max(l, 1e-30)) for rows < T;
+// and, with a running row max m from -1e30:
 //   natural (K11): q' = bf16(q * bf16(scale)), s = q' . k in f32,
 //     m' = max(m, rowmax s), p = exp(s - m'), a = exp(m - m'),
 //     acc = acc a + bf16(p) V, l = l a + sum p (the unrounded f32 p);
-//   exp2 (K13a): q' = bf16(q * bf16(scale log2 e)), s and m' as above,
-//     p = exp2(s - m'), a = exp2(m - m'), acc and l as K11's;
+//   exp2 (K13a): K5's q', s and m' as above, p = exp2(s - m'),
+//     a = exp2(m - m'), acc and l as K11's;
 //   online (K9): K13a's, but l = l a + sum bf16(p), the P that enters the
 //     product, and l2 = m + log2(max(l, 1e-30)) for rows < T;
 //   exp2 bf16 (K13b): K13a's q', s and m', d = bf16(s - m'), p = exp2(d)
 //     in bf16, two per ex2.approx.ftz.bf16x2, acc = acc a + p V,
 //     l = l a + sum p (those bf16 p), a = exp2(m - m') in f32;
 //   o = bf16(acc / max(l, 1e-30)), written for rows < T only.
-// Every exp is one ex2.approx.ftz: of s - m' (K9, K13a), of one FFMA,
-// s log2 e - m' log2 e, in place of the library expf (K11; the FFMA's
-// rounding moves p by under 2^-22 |s| of it, far inside a bf16 ulp), or
-// packed (K13b); subnormal p (below 2^-126) flush to 0.
+// Every exp is one ex2.approx.ftz: of s (K5, K6), of s - m' (K9, K13a), of
+// one FFMA, s log2 e - m' log2 e, in place of the library expf (K11; the
+// FFMA's rounding moves p by under 2^-22 |s| of it, far inside a bf16
+// ulp), or packed (K13b); subnormal p (below 2^-126) flush to 0, which
+// moves a bounded row's l by under Tk 2^-126, and only where it is below
+// 1e-30 anyway.
 // Keys past Tk arrive as zero rows; every tile that holds them (the last,
-// or a first one when Tk < 128) sets their s to -1e30 before the max,
-// which makes their p exp(-1e30 - m') = 0 (m' is the max of at least one
-// real key), so a row whose logits are all below 0 does not take m = 0
-// from them.
+// or a first one when Tk < 128) sets their s to -1e30, which makes their
+// p 0: exp2(-1e30) in the bounded mode, exp(-1e30 - m') in the others (m'
+// is the max of at least one real key, so a row whose logits are all
+// below 0 does not take m = 0 from them).
 //
 // Bound on the H100: operations. At [1, 48, 17776, 64] one call does
 // 4 H T Tk D = 3.88 TFLOP, 3.93 ms at 989 TFLOP/s, against 0.44 GB of q,
-// k, v and o (K9 at B = 2: twice both); its H T Tk = 1.52e10 exps take
-// about as long on the SFU (16 ex2 per clock and SM), K13b's packed exps
-// half of that.
+// k, v and o (K5 and K9 at the DiT's B = 2: twice both, 7.85 ms; K6 at a
+// tensor-parallel shard of 24 heads and B = 2: 3.93 ms); its H T Tk =
+// 1.52e10 exps take about as long on the SFU (16 ex2 per clock and SM),
+// K13b's packed exps half of that. The bounded mode issues no exp for a
+// rescale and no max.
 //
 // Design (FlashAttention-3's forward in structure, Shah et al. 2024):
 // one block of three warpgroups per (b, h, 128-query tile):
@@ -64,10 +82,11 @@
 //   products run; the two consumers take turns on two named barriers
 //   (ping-pong, FlashAttention-3 §3.1), so that one warpgroup's exps run
 //   on the SFU while the other's products run on the tensor cores.
-// K9's l sums P itself, and the tensor cores sum it, as the TPU kernel
-// does with its column of ones beside V: each k-step of P V also issues
-// P times a K-major 128 x 8 tile of ones (wgmma.m64n8k16), whose
-// accumulator holds every row's sum and is rescaled with O's. Rounding p
+// The bounded mode's and K9's l sum P itself, and the tensor cores sum it,
+// as the TPU kernels do with their row or column of ones beside V: each
+// k-step of P V also issues P times a K-major 128 x 8 tile of ones
+// (wgmma.m64n8k16), whose accumulator holds every row's sum (rescaled
+// with O's in K9; the bounded mode has no rescale). Rounding p
 // to bf16 in f32 registers for an ALU sum instead (one cvt per pair, two
 // ops to unpack, in the softmax between a consumer's products) made K9
 // 7.5% slower (tools/ab_forward_sm90.py's variant lalu; PERF.md §6).
@@ -105,27 +124,30 @@ constexpr int BAR_TURN = 1;  // named barriers 1, 2: consumer 0's, 1's turn
 
 // The softmax of the device function: K11's online natural exp, K13b's
 // online exp2 with p in packed bf16, K13a's online exp2, K9's online exp2
-// with l from bf16(p) and l2.
-enum class Softmax { kNatural, kExp2Bf16, kExp2, kOnline };
+// with l from bf16(p) and l2, K5's and K6's exp2 with no running max, l
+// from bf16(p) and l2.
+enum class Softmax { kNatural, kExp2Bf16, kExp2, kOnline, kBounded };
 
 // whether MODE's l is the tensor cores' sum of P
 template <Softmax MODE>
-constexpr bool L_MMA = MODE == Softmax::kOnline;
+constexpr bool L_MMA = MODE == Softmax::kOnline || MODE == Softmax::kBounded;
 
 struct __align__(1024) FwdSmem {
   __nv_bfloat16 q[FW_BQ * FW_D];
   __nv_bfloat16 k[FW_STAGES][FW_BK * FW_D];
   __nv_bfloat16 v[FW_STAGES][FW_BK * FW_D];
-  __nv_bfloat16 ones[8 * FW_D];  // one swizzle atom of ones (K9's l)
+  __nv_bfloat16 ones[8 * FW_D];  // one swizzle atom of ones (L_MMA)
   uint64_t q_bar;
   uint64_t full[FW_STAGES];
   uint64_t empty[FW_STAGES];
 };
 
 // One tile's softmax on this thread's S accumulator (rows g and g + 8 of
-// its warp, columns 8i + 2tq + {0, 1}): m' = max(m, rowmax s) reduced over
-// the quad of lanes that share a row, a = exp(m - m'), l = l a + sum p (but
-// K9's, which the tensor cores sum: L_MMA). p overwrites s in f32; K13b's
+// its warp, columns 8i + 2tq + {0, 1}): p = exp2(s) in the bounded mode,
+// which has no max, no rescale and an l that the tensor cores sum;
+// otherwise m' = max(m, rowmax s) reduced over the quad of lanes that
+// share a row, a = exp(m - m'), l = l a + sum p (but K9's, which the
+// tensor cores sum: L_MMA). p overwrites s in f32; K13b's
 // packed bf16 p are unpacked for the sum anyway and re-packed, exactly,
 // once the last PV product is done. (Kept packed they share registers with
 // S, which the next S overwrites before the PV product that reads p is
@@ -146,81 +168,89 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], int valid,
       }
     }
   }
-  float mx0 = m0, mx1 = m1;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
-    mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
-  }
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  float sum0 = 0.f, sum1 = 0.f;
-  if constexpr (MODE == Softmax::kNatural) {
-    a0 = exp2_ftz((m0 - mx0) * FW_LOG2E);
-    a1 = exp2_ftz((m1 - mx1) * FW_LOG2E);
-    const float b0 = mx0 * FW_LOG2E, b1 = mx1 * FW_LOG2E;
+  if constexpr (MODE == Softmax::kBounded) {
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2_ftz(fmaf(s[4 * i + e], FW_LOG2E,
-                                      -(e < 2 ? b0 : b1)));
-        s[4 * i + e] = p;
-        if (e < 2) {
-          sum0 += p;
-        } else {
-          sum1 += p;
-        }
-      }
-    }
-  } else if constexpr (MODE == Softmax::kExp2Bf16) {
-    a0 = exp2_ftz(m0 - mx0);
-    a1 = exp2_ftz(m1 - mx1);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const uint32_t lo = exp2_bf16x2(pack_bf16(s[4 * i] - mx0,
-                                                s[4 * i + 1] - mx0));
-      const uint32_t hi = exp2_bf16x2(pack_bf16(s[4 * i + 2] - mx1,
-                                                s[4 * i + 3] - mx1));
-      const float2 flo = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&lo));
-      const float2 fhi = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&hi));
-      sum0 += flo.x + flo.y;
-      sum1 += fhi.x + fhi.y;
-      s[4 * i] = flo.x;
-      s[4 * i + 1] = flo.y;
-      s[4 * i + 2] = fhi.x;
-      s[4 * i + 3] = fhi.y;
+      for (int e = 0; e < 4; ++e) s[4 * i + e] = exp2_ftz(s[4 * i + e]);
     }
   } else {
-    a0 = exp2_ftz(m0 - mx0);
-    a1 = exp2_ftz(m1 - mx1);
+    float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    float sum0 = 0.f, sum1 = 0.f;
+    if constexpr (MODE == Softmax::kNatural) {
+      a0 = exp2_ftz((m0 - mx0) * FW_LOG2E);
+      a1 = exp2_ftz((m1 - mx1) * FW_LOG2E);
+      const float b0 = mx0 * FW_LOG2E, b1 = mx1 * FW_LOG2E;
 #pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const float mx = e < 2 ? mx0 : mx1;
-        const float p0 = exp2_ftz(s[4 * i + e] - mx);
-        const float p1 = exp2_ftz(s[4 * i + e + 1] - mx);
-        s[4 * i + e] = p0;
-        s[4 * i + e + 1] = p1;
-        if (e < 2) {
-          sum0 += p0 + p1;
-        } else {
-          sum1 += p0 + p1;
+      for (int i = 0; i < 16; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2_ftz(fmaf(s[4 * i + e], FW_LOG2E,
+                                        -(e < 2 ? b0 : b1)));
+          s[4 * i + e] = p;
+          if (e < 2) {
+            sum0 += p;
+          } else {
+            sum1 += p;
+          }
+        }
+      }
+    } else if constexpr (MODE == Softmax::kExp2Bf16) {
+      a0 = exp2_ftz(m0 - mx0);
+      a1 = exp2_ftz(m1 - mx1);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const uint32_t lo = exp2_bf16x2(pack_bf16(s[4 * i] - mx0,
+                                                  s[4 * i + 1] - mx0));
+        const uint32_t hi = exp2_bf16x2(pack_bf16(s[4 * i + 2] - mx1,
+                                                  s[4 * i + 3] - mx1));
+        const float2 flo = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&lo));
+        const float2 fhi = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&hi));
+        sum0 += flo.x + flo.y;
+        sum1 += fhi.x + fhi.y;
+        s[4 * i] = flo.x;
+        s[4 * i + 1] = flo.y;
+        s[4 * i + 2] = fhi.x;
+        s[4 * i + 3] = fhi.y;
+      }
+    } else {
+      a0 = exp2_ftz(m0 - mx0);
+      a1 = exp2_ftz(m1 - mx1);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const float mx = e < 2 ? mx0 : mx1;
+          const float p0 = exp2_ftz(s[4 * i + e] - mx);
+          const float p1 = exp2_ftz(s[4 * i + e + 1] - mx);
+          s[4 * i + e] = p0;
+          s[4 * i + e + 1] = p1;
+          if (e < 2) {
+            sum0 += p0 + p1;
+          } else {
+            sum1 += p0 + p1;
+          }
         }
       }
     }
+    if constexpr (!L_MMA<MODE>) {
+      l0 = l0 * a0 + sum0;
+      l1 = l1 * a1 + sum1;
+    }
+    m0 = mx0;
+    m1 = mx1;
   }
-  if constexpr (!L_MMA<MODE>) {
-    l0 = l0 * a0 + sum0;
-    l1 = l1 * a1 + sum1;
-  }
-  m0 = mx0;
-  m1 = mx1;
 }
 
 // bf16(P) as the register A operand of the PV product: k-step kk of 16
@@ -253,18 +283,20 @@ struct Carry {
   float s[64];     // S, then p
   uint32_t pa[32]; // bf16(p) of the last tile, the A operand of its PV
   float lacc[4];   // with L_MMA: P's row sums, rows row0 (0, 1), row0 + 8
-  float m0, m1;    // running max of rows row0, row0 + 8
-  float l0, l1;    // this thread's part of their normalizers
+  float m0, m1;    // running max of rows row0, row0 + 8 (not kBounded)
+  float l0, l1;    // this thread's part of their normalizers (not L_MMA)
   float a0, a1;    // the last tile's rescale, applied to acc before its PV
 };
 
-// O's rescale and O += P V over one tile's 128 keys (with L_MMA, also the
-// row sums of P: P times the tile of ones)
+// O's rescale (none in the bounded mode) and O += P V over one tile's 128
+// keys (with L_MMA, also the row sums of P: P times the tile of ones)
 template <Softmax MODE>
 __device__ __forceinline__ void issue_pv(Carry& c, const __nv_bfloat16* vt,
                                          const __nv_bfloat16* ones) {
-  rescale(c.acc, c.a0, c.a1);
-  if constexpr (L_MMA<MODE>) rescale(c.lacc, c.a0, c.a1);
+  if constexpr (MODE != Softmax::kBounded) {
+    rescale(c.acc, c.a0, c.a1);
+    if constexpr (L_MMA<MODE>) rescale(c.lacc, c.a0, c.a1);
+  }
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk)
@@ -452,11 +484,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
                                   c.acc[4 * i + 3] / l1);
       }
     }
-    if constexpr (MODE == Softmax::kOnline) {
+    if constexpr (MODE == Softmax::kOnline || MODE == Softmax::kBounded) {
       if (tq == 0) {
+        const float m0 = MODE == Softmax::kOnline ? c.m0 : 0.f;
+        const float m1 = MODE == Softmax::kOnline ? c.m1 : 0.f;
         float* lrow = l2 + ((long long)b * gridDim.y + h) * T;
-        if (r0 < T) lrow[r0] = c.m0 + log2f(l0);
-        if (r1 < T) lrow[r1] = c.m1 + log2f(l1);
+        if (r0 < T) lrow[r0] = m0 + log2f(l0);
+        if (r1 < T) lrow[r1] = m1 + log2f(l1);
       }
     }
   }
@@ -464,10 +498,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
 
 // q, k, v and o given by their (b, h, t) element strides (head-dim stride
 // 1, strides multiples of 8 and 16-byte aligned bases; the wrapper
-// checks); l2 [B*H, T] f32 for K9, else null. A missing entry point or a
-// refused map returns its CUresult, whose codes read as the cudaError_t
-// of the same name; Tk = 0 (no key to take the softmax over) returns
-// cudaErrorInvalidValue.
+// checks); l2 [B*H, T] f32 for K5, K6 and K9, else null. A missing entry
+// point or a refused map returns its CUresult, whose codes read as the
+// cudaError_t of the same name; Tk = 0 (no key to take the softmax over)
+// returns cudaErrorInvalidValue (the wrappers refuse it first).
 template <Softmax MODE>
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
                      void* l2, int B, int H, int T, int Tk, long long qsb,
@@ -509,6 +543,37 @@ __global__ void exp2_bf16x2_probe(const uint32_t* __restrict__ x,
 }
 
 }  // namespace
+
+// K5: o [B, T, H, 64] bf16 and l2 [B*H, T] f32 = log2 l from q, k, v
+// [B, T, H, 64] bf16 with the bounded exp2 softmax (no running max), each
+// given by its (b, t, h) element strides, so the strided views of one
+// [B, T, 3, H, 64] tensor load in place; scale2 is bf16(scale * log2 e)
+// as a float. K6's kernel with Tk = T.
+extern "C" int lsx_flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, void* l2, int B,
+    int T, int H, long long qsb, long long qst, long long qsh, long long ksb,
+    long long kst, long long ksh, long long vsb, long long vst, long long vsh,
+    long long osb, long long ost, long long osh, float scale2,
+    cudaStream_t stream) {
+  return launch_fwd_wgmma<Softmax::kBounded>(
+      q, k, v, o, l2, B, H, T, T, qsb, qsh, qst, ksb, ksh, kst, vsb, vsh,
+      vst, osb, osh, ost, scale2, stream);
+}
+
+// K6: K5's function on q [B, H, T, 64] and k, v [B, H, Tk, 64] bf16, each
+// given by its (b, h, t) element strides (so a transpose(1, 2) view of
+// [B, T, H, 64] tensors is read in place) -> o [B, H, T, 64] bf16 and l2
+// [B*H, T] f32 = log2 l.
+extern "C" int lsx_flash_attention_bhtd_fwd(
+    const void* q, const void* k, const void* v, void* o, void* l2, int B,
+    int H, int T, int Tk, long long qsb, long long qsh, long long qst,
+    long long ksb, long long ksh, long long kst, long long vsb, long long vsh,
+    long long vst, long long osb, long long osh, long long ost, float scale2,
+    cudaStream_t stream) {
+  return launch_fwd_wgmma<Softmax::kBounded>(
+      q, k, v, o, l2, B, H, T, Tk, qsb, qsh, qst, ksb, ksh, kst, vsb, vsh,
+      vst, osb, osh, ost, scale2, stream);
+}
 
 // K9: o [B, H, T, 64] bf16 and l2 [B*H, T] f32 = m + log2 l (which K7
 // takes as it takes K6's) from q [B, H, T, 64] and k, v [B, H, Tk, 64]

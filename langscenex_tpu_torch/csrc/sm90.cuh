@@ -1,6 +1,6 @@
 // Hopper (sm_90a) helpers of the attention kernels on wgmma, the backward
-// (K7, flash_attention_backward.cu) and the forward of K9, K11, K13a and
-// K13b (flash_attention_sm90.cu): mbarriers, TMA tile loads and tensor
+// (K7, flash_attention_backward.cu) and the forward of K5, K6, K9, K11,
+// K13a and K13b (flash_attention_sm90.cu): mbarriers, TMA tile loads and tensor
 // reductions, bulk copies, named barriers, register reallocation, the SFU
 // exps, the bf16 wgmma.mma_async.m64n8k16, m64n64k16 and m64n128k16 with f32
 // accumulators, their operands read from 128-byte-swizzled shared memory

@@ -25,13 +25,20 @@ Port of ``langscenex_tpu/ops/flash_attention.py``:
   (K13b), forward only, which the port's
   ``experiments/ab_attention2.py`` calls through the wrappers here.
 
+All six forwards are modes of one kernel on the card
+(``csrc/flash_attention_sm90.cu``, wgmma and TMA, 128-key tiles); K5 and
+K6 are its bounded mode through two entry points, so on the same tensors
+(K6 on the [B, H, T, D] views of K5's) they agree bit for bit.
+
 The bounded forward (K5, K6): the logits are bounded by the DiT's
 qk-LayerNorm, so there is no running max, and the rounding points are
 the TPU kernels': q is multiplied by ``scale·log2(e)`` in the working
 dtype, s = q'·kᵀ in f32, p = exp2(s) is rounded to the working dtype
 before the PV product, the normalizer is the sum of those rounded p over
 the valid keys, then l = max(l, 1e-30), o = acc / l and l2 = log2(l)
-(kept for the backward, K7).
+(kept for the backward, K7). With no rescale, where the kernel's key
+tiles fall moves no rounding point: only the order of the f32 sums
+differs from the plain version's.
 
 The online forward (K9) has the same q' and s, and per block of keys a
 running row max m (from -1e30): m' = max(m, rowmax s), p = exp2(s − m'),
@@ -84,10 +91,10 @@ from .. import _build
 
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30            # the online softmax's initial max (JAX's NEG_INF)
-KERNEL_HEAD_DIM = 64       # csrc/flash_attention{,_sm90}.cu
-WGMMA_BLOCK_K = 128        # keys per tile of the wgmma forwards (K9, K11,
-                           # K13a/b, csrc/flash_attention_sm90.cu)
-WGMMA_Q_TILE = 128         # queries per block of the wgmma forwards
+KERNEL_HEAD_DIM = 64       # csrc/flash_attention{_sm90,_backward}.cu
+WGMMA_BLOCK_K = 128        # keys per tile of the wgmma forward (K5, K6,
+                           # K9, K11, K13a/b, csrc/flash_attention_sm90.cu)
+WGMMA_Q_TILE = 128         # queries per block of the wgmma forward
 KERNEL_Q_TILE = 64         # queries per step of K7
 KERNEL_BWD_KEYS = 128      # keys per block of K7
 ONLINE_BLOCK_K = 1024      # JAX's default key block of K9
@@ -297,8 +304,10 @@ def _device_check(what: str, tensors) -> None:
 
 
 def attention_bthd_kernel(q, k, v, scale: float):
-    """Launch K5: q, k, v [B,T,H,64] bf16 on one CUDA device ->
-    (o [B,T,H,64] bf16, l2 [B·H, T] f32)."""
+    """Launch K5: q, k, v [B,T,H,64] bf16 on one CUDA device (any strides
+    with the head dim contiguous; the q, k, v views of one [B,T,3,H,64]
+    tensor are read in place) -> (o [B,T,H,64] bf16, l2 [B·H, T] f32).
+    K6's kernel, the bounded mode of the wgmma forward, with Tk = T."""
     _check(q, k, v)
     B, T, H, D = q.shape
     _kernel_checks("K5", (q, k, v), D)
@@ -322,11 +331,15 @@ def _launch_bhtd(what: str, entry: str, counter: str, q, k, v,
                  q_scale: float, with_l2: bool = True):
     """Launch one of the [B, H, T, D] forward kernels (K6, K9, K11, K13a/b)
     through its C entry ``entry``: o laid out as a [B, T, H, 64] tensor
-    and, with ``with_l2``, l2 [B·H, T] f32."""
+    and, with ``with_l2``, l2 [B·H, T] f32. No key (Tk = 0) raises: the
+    softmax has nothing to normalise over."""
     _check_bhtd(q, k, v)
     B, H, T, D = q.shape
     Tk = k.shape[2]
     _kernel_checks(what, (q, k, v), D)
+    if Tk == 0:
+        raise ValueError(f"attention kernel {what} takes at least one key, "
+                         f"got k, v {tuple(k.shape)}")
     _device_check(what, (q, k, v))
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
     o = _bthd(torch.empty((B, T, H, D), dtype=q.dtype, device=q.device))

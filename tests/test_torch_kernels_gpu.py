@@ -8,6 +8,7 @@ machine without JAX:
 Without a CUDA device the ``gpu`` cases skip (a CUDA kernel has no CPU
 mode); the device contract of the wrappers is checked on any machine."""
 import dataclasses
+import itertools
 import math
 
 import numpy as np
@@ -394,6 +395,128 @@ def test_flash_attention_bhtd_kernel_matches_plain(cuda, B, H, T, Tk, view):
     torch.testing.assert_close(o.float(), ro.float(), atol=1e-3,
                                rtol=2 ** -7)
     torch.testing.assert_close(l2, rl2, atol=1e-4, rtol=1e-5)
+
+
+def _bounded_inputs(rng, B, H, T, Tk, device, layout, logits):
+    """(q [B, H, T, 64], k, v [B, H, Tk, 64] bf16, scale) for the bounded
+    forward (K5 on their transpose(1, 2) views, K6 on them). ``layout``:
+    ``"bhtd"`` contiguous [B, H, n, 64] tensors, ``"bthd"`` views of
+    contiguous [B, n, H, 64] ones, ``"qkv"`` views of one
+    [B, T, 3, H, 64] tensor (Tk = T). ``logits``: ``"unit"`` unit-normal
+    entries at scale 1/8; ``"low"`` as unit, then k = |k| and q's first
+    row -16 in every entry, so that its logits lie below about -100 and
+    its l under 1e-30 (the max(l, 1e-30) path, with o = acc / 1e-30 not
+    0); ``"high"`` integer q in [-3, 3] and k in [-1, 1] at scale
+    1/log2(e), so that q' = q and every logit is an integer, exact in any
+    order of summation, up to about 60: p up to about 2^60."""
+    def draw(shape, kind):
+        if logits == "high" and kind != "v":
+            top = 3 if kind == "q" else 1
+            return rng.integers(-top, top + 1, size=shape).astype(np.float32)
+        return rng.normal(size=shape).astype(np.float32)
+
+    def put(x):
+        return torch.from_numpy(x).to(device, torch.bfloat16)
+
+    if layout == "qkv":
+        x = put(np.stack([draw((B, T, H, 64), kind) for kind in "qkv"], 2))
+        q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+    else:
+        def mk(n, kind):
+            if layout == "bthd":
+                return put(draw((B, n, H, 64), kind)).transpose(1, 2)
+            return put(draw((B, H, n, 64), kind))
+        q, k, v = mk(T, "q"), mk(Tk, "k"), mk(Tk, "v")
+    if logits == "low":
+        k.abs_()
+        q[:, :, 0] = -16.0
+    return q, k, v, (1.0 / math.log2(math.e) if logits == "high" else 0.125)
+
+
+# the bounded forward (K5, K6) beyond the cases above: every T of (1, 129,
+# 300) with every Tk of (1, 100, 127, 128, 129, 257) (the edges of the
+# 128-key tile), B = 1 and 2, on contiguous tensors and transpose(1, 2)
+# views; the qkv layout; rows whose logits all lie far below 0; logits up
+# to about 60
+BOUNDED_CASES = [
+    *[(1 + i % 2, 3, T, Tk, ("bhtd", "bthd")[i % 2], "unit")
+      for i, (T, Tk) in enumerate(itertools.product(
+          (1, 129, 300), (1, 100, 127, 128, 129, 257)))],
+    (2, 3, 129, 129, "qkv", "unit"), (1, 3, 257, 257, "qkv", "unit"),
+    (2, 1, 1, 1, "qkv", "unit"),
+    (2, 3, 300, 257, "bthd", "low"), (1, 3, 129, 100, "bhtd", "low"),
+    (2, 3, 257, 257, "bthd", "low"), (1, 3, 129, 129, "qkv", "low"),
+    (2, 3, 300, 257, "bhtd", "high"), (1, 2, 129, 129, "qkv", "high"),
+    (2, 3, 300, 300, "bthd", "high"), (1, 2, 257, 257, "bhtd", "high")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,Tk,layout,logits", BOUNDED_CASES)
+def test_bounded_kernels_at_key_tile_edges(cuda, B, H, T, Tk, layout,
+                                           logits):
+    # K6 against its plain version and, where T == Tk, K5 on the
+    # [B, T, H, D] views of the same tensors, bit for bit K6's. o within
+    # 2^-7 relative + 1e-3, as above. l2: with integer logits ("high") s is
+    # exact in any order of summation, and l2 is held within 1e-4 + 1e-5
+    # relative, as above; otherwise s's f32 sums run in another order than
+    # the plain version's and can move a p across a bf16 rounding boundary.
+    # Any number of p one bf16 ulp away move l by at most 2^-7 of it: each
+    # l2 within log2(1 + 2^-7) < 1.13e-2 (K9's bound) and, on average over
+    # the rows, within 1e-4. (On an H100 one row in each of four unit cases
+    # here moved by 2.1e-4 to 5.1e-4: one p of about a tenth of its row's
+    # l, one ulp away.) A row whose logits all lie below about -100 takes
+    # l2 = log2(1e-30) exactly, and o = acc / 1e-30, not 0
+    from langscenex_tpu_torch.ops.flash_attention import (
+        attention_bthd_kernel, flash_attention_kernel, flash_attention_plain)
+    q, k, v, sc = _bounded_inputs(np.random.default_rng(24), B, H, T, Tk,
+                                  cuda, layout, logits)
+    _build.reset_launch_counts()
+    o, l2 = flash_attention_kernel(q, k, v, sc)
+    torch.cuda.synchronize()
+    assert _build.launch_counts == {**{n: 0 for n in _build.launch_counts},
+                                    "flash_attention_bhtd": 1}
+    ro, rl2 = flash_attention_plain(q, k, v, sc)
+    assert o.shape == (B, H, T, 64) and l2.shape == (B * H, T)
+    assert bool(torch.isfinite(o.float()).all())
+    torch.testing.assert_close(o.float(), ro.float(), atol=1e-3,
+                               rtol=2 ** -7)
+    if logits == "high":
+        torch.testing.assert_close(l2, rl2, atol=1e-4, rtol=1e-5)
+        s = q.float() @ k.float().transpose(-1, -2)
+        assert float(s.max()) >= 50.0
+    else:
+        torch.testing.assert_close(l2, rl2, atol=1.13e-2, rtol=1e-5)
+        assert float((l2 - rl2).abs().mean()) < 1e-4
+    if logits == "low":
+        floor = float(np.log2(np.float32(1e-30)))
+        for x in (l2, rl2):
+            assert bool((x.view(B, H, T)[:, :, 0] == floor).all())
+        assert float(ro[:, :, 0].float().abs().max()) > 0
+    if T == Tk:
+        o5, l5 = attention_bthd_kernel(
+            *(t.transpose(1, 2) for t in (q, k, v)), sc)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["flash_attention"] == 1
+        assert torch.equal(o5.transpose(1, 2), o) and torch.equal(l5, l2)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention_kernel",
+                                    "flash_attention_online_kernel",
+                                    "flash_attention_h2_kernel",
+                                    "flash_attention_exp2_kernel",
+                                    "flash_attention_exp2_bf16_kernel"])
+def test_forward_wrappers_refuse_no_keys(kernel):
+    # Tk = 0 leaves the softmax nothing to normalise over: the wrappers of
+    # the [B, H, T, D] forwards (K6, K9, K11, K13a/b) raise before any
+    # launch, on the card and, ahead of their device check, on the CPU
+    from langscenex_tpu_torch.ops import flash_attention as fa
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    q = torch.zeros((1, 2, 4, 64), dtype=torch.bfloat16, device=dev)
+    kv = torch.zeros((1, 2, 0, 64), dtype=torch.bfloat16, device=dev)
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="at least one key"):
+        getattr(fa, kernel)(q, kv, kv, 0.125)
+    assert not any(_build.launch_counts.values())
 
 
 @pytest.mark.gpu

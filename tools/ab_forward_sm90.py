@@ -1,22 +1,24 @@
-"""Variants of the wgmma attention forward (K9, K11, K13a, K13b), timed in
-turns on one card.
+"""Variants of the wgmma attention forward (K6, K9, K11, K13a, K13b),
+timed in turns on one card.
 
 Each variant is a copy of ``langscenex_tpu_torch/csrc/flash_attention_sm90.cu``
 with a few text edits (``VARIANTS``), built with the port's nvcc flags into
 ``build/variants/<name>/`` (one nvcc per variant, all started together)
 and loaded with ctypes under the port's C signatures. ``base`` is the
-source as it stands. For each length of ``--tokens`` the script runs K9,
-K11, K13a and K13b of every variant at [B, 48, T, 64] on seeded bf16
-inputs, says whether each output (K9's o and l2) equals the port's own
-build bit for bit (variants that drop work, or sum K9's l another way,
-differ), then times them with CUDA events in turns (the variants in
-order, then in reverse, ``--rounds`` times) beside
-``scaled_dot_product_attention``, and prints ptxas's registers, spills
-and C75xx performance notes for each mode of each build. Needs a card
-with ``nvcc``:
+source as it stands. For each length of ``--tokens`` the script runs the
+chosen kernels (K6, the bounded mode that K5 shares; K9, K11, K13a and
+K13b) of every variant at [B, 48, T, 64] on seeded bf16 inputs, says
+whether each output (K6's and K9's o and l2) equals the port's own build
+bit for bit (variants that drop work, or sum K9's l another way, differ),
+then times them with CUDA events in turns (the variants in order, then
+in reverse, ``--rounds`` times) beside ``scaled_dot_product_attention``,
+prints the per-score ratios K13b / K11, K9 / K13a and K6 / K9 (what the
+online softmax's max and rescale cost over the bounded one), and prints
+ptxas's registers, spills and C75xx performance notes for each mode of
+each build. Needs a card with ``nvcc``:
 
     python3 tools/ab_forward_sm90.py [--variants base,lalu] [--tokens 17776]
-        [--batch 1] [--kernels K9,K13a] [--rounds 1] [--iters 5]
+        [--batch 1] [--kernels K6,K9] [--rounds 1] [--iters 5]
 """
 from __future__ import annotations
 
@@ -40,9 +42,12 @@ from langscenex_tpu_torch import _build  # noqa: E402
 
 ENTRIES = ("lsx_flash_attention_online_fwd", "lsx_flash_attention_h2_fwd",
            "lsx_flash_attention_exp2_fwd",
-           "lsx_flash_attention_exp2_bf16_fwd")
-# the kernels of flash_fwd_wgmma's modes, in the order of its Softmax enum
-MODES = ("K11", "K13b", "K13a", "K9")
+           "lsx_flash_attention_exp2_bf16_fwd",
+           "lsx_flash_attention_bhtd_fwd")
+# flash_fwd_wgmma's modes in the order of its Softmax enum, each with the
+# kernels it serves
+MODES = (("kNatural", "K11"), ("kExp2Bf16", "K13b"), ("kExp2", "K13a"),
+         ("kOnline", "K9"), ("kBounded", "K5/K6"))
 # name -> [(text, replacement)] applied to the source
 VARIANTS = {
     "base": [],
@@ -61,16 +66,19 @@ VARIANTS = {
               ("exp2_bf16x2(pack_bf16(", "(pack_bf16(")],
     # K9's l summed from bf16(p) rounded in f32 registers (a cvt and two
     # unpacking ops per pair) instead of by the tensor cores against ones
-    "lalu": [("L_MMA = MODE == Softmax::kOnline;", "L_MMA = false;"),
-             ("        const float p0 = exp2_ftz(s[4 * i + e] - mx);\n"
-              "        const float p1 = exp2_ftz(s[4 * i + e + 1] - mx);\n",
-              "        float p0 = exp2_ftz(s[4 * i + e] - mx);\n"
-              "        float p1 = exp2_ftz(s[4 * i + e + 1] - mx);\n"
-              "        if constexpr (MODE == Softmax::kOnline) {\n"
-              "          const uint32_t pb = pack_bf16(p0, p1);\n"
-              "          p0 = __uint_as_float(pb << 16);\n"
-              "          p1 = __uint_as_float(pb & 0xffff0000u);\n"
-              "        }\n")],
+    # (the bounded mode's stays on the tensor cores)
+    "lalu": [("L_MMA = MODE == Softmax::kOnline || "
+              "MODE == Softmax::kBounded;",
+              "L_MMA = MODE == Softmax::kBounded;"),
+             ("          const float p0 = exp2_ftz(s[4 * i + e] - mx);\n"
+              "          const float p1 = exp2_ftz(s[4 * i + e + 1] - mx);\n",
+              "          float p0 = exp2_ftz(s[4 * i + e] - mx);\n"
+              "          float p1 = exp2_ftz(s[4 * i + e + 1] - mx);\n"
+              "          if constexpr (MODE == Softmax::kOnline) {\n"
+              "            const uint32_t pb = pack_bf16(p0, p1);\n"
+              "            p0 = __uint_as_float(pb << 16);\n"
+              "            p1 = __uint_as_float(pb & 0xffff0000u);\n"
+              "          }\n")],
     # the producer loads the (k, v) tiles of even j only, or of the first
     # stages only, and completes the other stages' barriers with no bytes,
     # so the consumers reuse stale tiles: the K/V traffic from L2 halves
@@ -127,10 +135,10 @@ def build(names):
 
 def ptxas_report(log) -> dict:
     """{kernel: (registers, spill line, C75xx notes)} from ptxas -v's log,
-    the wgmma forward's modes named by MODES."""
+    the wgmma forward's modes named by the kernels of MODES."""
     def label(fn):
         mode = re.search(r"SoftmaxE(\d)E", fn)
-        return MODES[int(mode.group(1))] if mode else fn
+        return MODES[int(mode.group(1))][1] if mode else fn
     out, fn = {}, None
     for line in log:
         entry = re.search(r"entry function '([^']+)'", line)
@@ -141,7 +149,7 @@ def ptxas_report(log) -> dict:
             continue
         elif "(C75" in line:
             mode = re.search(r"SoftmaxE(\d)E", line)
-            out[MODES[int(mode.group(1))] if mode else fn][2].add(
+            out[MODES[int(mode.group(1))][1] if mode else fn][2].add(
                 "C75" + line.split("(C75")[1][:2])
         elif "Used" in line and "registers" in line:
             out[fn][0] = line.split("Used")[1].split("registers")[0].strip()
@@ -176,7 +184,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--kernels", default="K9,K13a,K11,K13b")
+    ap.add_argument("--kernels", default="K6,K9,K13a,K11,K13b")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_forward_sm90: no CUDA device", file=sys.stderr)
@@ -188,7 +196,8 @@ def main(argv=None) -> int:
     names = args.variants.split(",")
     libs = build(names)
     own = _build.library
-    kernels = {"K9": fa.flash_attention_online_kernel,
+    kernels = {"K6": fa.flash_attention_kernel,
+               "K9": fa.flash_attention_online_kernel,
                "K13a": fa.flash_attention_exp2_kernel,
                "K11": fa.flash_attention_h2_kernel,
                "K13b": fa.flash_attention_exp2_bf16_kernel}
@@ -230,7 +239,8 @@ def main(argv=None) -> int:
         for n in names:
             t = {kn: runs[(n, kn)] for kn in kernels}
             ratios = [f"{a} / {b} {sum(t[a]) / sum(t[b]):.4f}"
-                      for a, b in (("K13b", "K11"), ("K9", "K13a"))
+                      for a, b in (("K13b", "K11"), ("K9", "K13a"),
+                                   ("K6", "K9"))
                       if a in t and b in t]
             print(f"B={args.batch} T={T} {n}: " + ", ".join(
                 f"{kn} {' / '.join('%.4f' % x for x in t[kn])} ms "
