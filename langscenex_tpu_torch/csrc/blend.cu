@@ -1,4 +1,4 @@
-// Per-tile front-to-back alpha blend (forward).
+// Per-tile front-to-back alpha blend (forward, K1).
 //
 // Replaces: langscenex_tpu/ops/rasterize_pallas.py:_fwd_kernel (reached via
 // _blend_fwd_impl, blend_pairs and blend_tiles_pallas). Same semantics:
@@ -12,24 +12,33 @@
 // T_excl > 0.5. dx, dy are taken relative to the tile centre as in the
 // TPU kernel (f32 cancellation at global pixel coordinates).
 //
-// Bound on the H100: the per-pixel exp/log1p/exp chain and the 16 FMAs
-// per (pair, pixel), i.e. SFU and FP32 issue, not memory — a tile's pairs
-// are read once from HBM (22 floats each) and reused by all 1,024 pixels
-// from shared memory.
+// Bound on the H100: issue, not memory. A tile's pairs are read once from
+// HBM (22 floats each) and reused by all its pixels from shared memory;
+// per (pair, pixel) evaluation the step issues the power's FMAs and an
+// exp, per gated one a log1p, per included one an exp of log T and the C
+// channel FMAs (chip_smoke.blend_bound counts them from the inputs).
 //
-// Design: one block per tile, one thread per pixel (tile_w * tile_h <=
-// 1024 threads, pixels flattened y-major p = y * tile_w + x). The tile's
-// pairs are staged 256 at a time into shared memory (~23 KB: sid and a
-// 22-float row gathered from the per-splat payload, so no per-pair
-// payload is built in HBM). Each thread walks the batch sequentially with
-// its T in a register; the block exits early once __syncthreads_count of
-// done pixels reaches the tile size. observe is counted per batch in
-// shared memory with integer atomics and flushed with one global integer
-// atomicAdd per pair — integer sums are order-free, so observe is exact.
-// Channel accumulators stay in registers. No wgmma/TMA: later work. The
-// per-pixel step is lsx::blend_power, blend_alpha and blend_log_t_next
-// (common.cuh), which the backward (blend_backward.cu) re-runs bit for
-// bit.
+// Design: K2's block decomposition. A block of 256 threads, one per
+// pixel, takes a 256-pixel part of a tile (pixels flattened y-major,
+// p = y * tile_w + x; pixels past a smaller tile sit idle) and walks the
+// tile's whole list with its own early exit (__syncthreads_count of done
+// pixels), so a 32x32 tile is four blocks and the longest tiles no longer hold a
+// 1,024-thread block to the end of their slowest warp. Pairs are staged
+// 128 at a time by cp.async one batch ahead of the walk (lsx::PairPipe:
+// ids and 22-float rows gathered from the per-splat payload, so no
+// per-pair payload is built in HBM). Each thread walks the batch
+// sequentially with its log T in a register; channel accumulators stay in
+// registers (64 a thread at four blocks an SM, no spill), as many as the
+// channels rounded up to four (a template parameter: a predicated FMA of
+// an absent channel still issues). Every lane steps through every pair of
+// the batch until its warp is done, so the warp reconverges at each pair:
+// with lanes leaving the loop at their own stop, the warp's lanes drifted
+// apart and the walk took nine times as long. observe is
+// counted per batch in shared memory with integer atomics and flushed with
+// one global integer atomicAdd per pair and part — integer sums are
+// order-free, so observe is exact. The per-pixel step is lsx::blend_power,
+// blend_alpha and blend_log_t_next (common.cuh), which the backward
+// (blend_backward.cu) re-runs bit for bit.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -40,56 +49,68 @@ using lsx::BLEND_GEOM;
 using lsx::BLEND_MAX_CH;
 using lsx::BLEND_MAX_ROW;
 
-constexpr int BATCH = 256;
+constexpr int BATCH = 128;
 constexpr int MAX_PIX = 1024;
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(MAX_PIX)
+template <int NCH>
+__global__ void __launch_bounds__(lsx::BLEND_PART, 4)
 blend_forward(const int* __restrict__ point_list,
               const int* __restrict__ tile_starts,
               const int* __restrict__ tile_counts,
               const float* __restrict__ payload, float* __restrict__ accum,
               float* __restrict__ final_T, int* __restrict__ observe,
-              int grid_x, int tile_w, int tile_h, int n_ch, int row_stride,
-              int n_splats) {
-  __shared__ float s_row[BATCH * BLEND_MAX_ROW];
-  __shared__ int s_sid[BATCH];
+              int grid_x, int tile_w, int tile_h, int n_parts, int n_ch,
+              int row_stride, int n_splats) {
+  __shared__ lsx::PairStage<BATCH> stage;
   __shared__ int s_obs[BATCH];
 
-  const int t = blockIdx.x;
+  constexpr int nt = lsx::BLEND_PART;
+  const int tid = threadIdx.x;
+  const int t = blockIdx.x / n_parts;
   const int npx = tile_w * tile_h;
-  const int p = threadIdx.x;
-  const int start = tile_starts[t];
-  const int count = tile_counts[t];
+  const int p = (blockIdx.x - t * n_parts) * nt + tid;   // pixel in tile
+  const bool active = p < npx;
   const float tile_cx = (float)((t % grid_x) * tile_w + tile_w / 2);
   const float tile_cy = (float)((t / grid_x) * tile_h + tile_h / 2);
   const float vx = (float)(p % tile_w) - (float)(tile_w / 2);
   const float vy = (float)(p / tile_w) - (float)(tile_h / 2);
 
-  float acc[BLEND_MAX_CH];
+  float acc[NCH];
 #pragma unroll
-  for (int c = 0; c < BLEND_MAX_CH; ++c) acc[c] = 0.0f;
+  for (int c = 0; c < NCH; ++c) acc[c] = 0.0f;
   float log_t = 0.0f;
-  int done = 0;
+  int done = active ? 0 : 1;
+  for (int i = tid; i < BATCH; i += nt) s_obs[i] = 0;
 
-  for (int b0 = 0; b0 < count; b0 += BATCH) {
-    // barrier: every pixel finished the previous batch (and its observe
-    // flush), and the whole-tile early exit
-    if (__syncthreads_count(done) == npx) break;
-    const int nb = min(BATCH, count - b0);
-    for (int i = p; i < nb; i += npx) s_obs[i] = 0;
-    lsx::stage_rows(point_list, start + b0, nb, payload, row_stride,
-                    n_splats, s_sid, s_row);
-    __syncthreads();
-
-    if (!done) {
-      for (int i = 0; i < nb; ++i) {
-        const float* row = &s_row[i * BLEND_MAX_ROW];
+  const lsx::PairPipe<BATCH> pipe{stage, point_list, payload,
+                                  tile_starts[t], tile_counts[t],
+                                  row_stride, n_splats};
+  pipe.prologue();
+  const int nb_all = pipe.batches();
+  for (int k = 0; k < nb_all; ++k) {
+    lsx::cp_async_wait_all();
+    // barrier: batch k's rows and k + 1's ids have landed, the
+    // previous batch's observe flush is done; and the part's early exit
+    if (__syncthreads_count(done) == nt) break;
+    pipe.ahead(k);
+    const int nb = pipe.size(k);
+    const float* rows = stage.row[k & 1];
+    // the walk: every lane steps through every pair until its whole warp
+    // is done, so the warp reconverges at each pair (a lane that left the
+    // loop at its own pair would let the warp's lanes drift apart, each
+    // group walking on alone)
+    for (int i = 0; i < nb; ++i) {
+      if (__all_sync(FULL, done)) break;            // warp-uniform
+      const float* row = &rows[i * BLEND_MAX_ROW];
+      do {  // the per-pixel step; K2 runs it as written here
+        if (done) break;
         lsx::BlendSample s;
         const float power =
             lsx::blend_power(row, tile_cx, tile_cy, vx, vy, s);
-        if (power > 0.0f) continue;
+        if (power > 0.0f) break;
         lsx::blend_alpha(row[5], power, s);
-        if (s.alpha < lsx::BLEND_ALPHA_MIN) continue;
+        if (s.alpha < lsx::BLEND_ALPHA_MIN) break;
         const float next = lsx::blend_log_t_next(log_t, s.alpha);
         if (next < lsx::BLEND_LOG_T_EPS) {
           done = 1;
@@ -99,23 +120,26 @@ blend_forward(const int* __restrict__ point_list,
         log_t = next;
         const float w = s.alpha * t_excl;
 #pragma unroll
-        for (int ch = 0; ch < BLEND_MAX_CH; ++ch) {
+        for (int ch = 0; ch < NCH; ++ch) {
           if (ch < n_ch) acc[ch] += w * row[BLEND_GEOM + ch];
         }
         if (t_excl > 0.5f) atomicAdd(&s_obs[i], 1);
-      }
+      } while (false);
     }
     __syncthreads();
-    for (int i = p; i < nb; i += npx) {
-      if (s_obs[i] != 0 && s_sid[i] < n_splats) {
-        atomicAdd(&observe[s_sid[i]], s_obs[i]);
+    const int* sid = stage.sid[k % 3];
+    for (int i = tid; i < nb; i += nt) {
+      if (s_obs[i] != 0 && sid[i] < n_splats) {
+        atomicAdd(&observe[sid[i]], s_obs[i]);
       }
+      s_obs[i] = 0;
     }
   }
 
+  if (!active) return;
   const size_t base = (size_t)t * n_ch * npx;
 #pragma unroll
-  for (int ch = 0; ch < BLEND_MAX_CH; ++ch) {
+  for (int ch = 0; ch < NCH; ++ch) {
     if (ch < n_ch) accum[base + (size_t)ch * npx + p] = acc[ch];
   }
   final_T[(size_t)t * npx + p] = expf(log_t);
@@ -143,9 +167,13 @@ extern "C" int lsx_blend_forward(const int* point_list, const int* tile_starts,
                                   stream);
   if (e != cudaSuccess) return (int)e;
   if (n_tiles <= 0) return 0;
-  blend_forward<<<n_tiles, npx, 0, stream>>>(
+  const int n_parts = (npx + lsx::BLEND_PART - 1) / lsx::BLEND_PART;
+  const auto kernel = lsx::by_channels(n_ch, blend_forward<4>,
+                                       blend_forward<8>, blend_forward<12>,
+                                       blend_forward<16>);
+  kernel<<<n_tiles * n_parts, lsx::BLEND_PART, 0, stream>>>(
       point_list, tile_starts, tile_counts, payload, accum, final_T, observe,
-      grid_x, tile_w, tile_h, n_ch, row_stride, n_splats);
+      grid_x, tile_w, tile_h, n_parts, n_ch, row_stride, n_splats);
   LSX_CHECK_LAUNCH();
   return (int)cudaGetLastError();
 }

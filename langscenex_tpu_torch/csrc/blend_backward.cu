@@ -11,32 +11,60 @@
 //   chg = sum_c ch_c g_c,   contrib = w chg,   w = alpha T_excl
 //   suffix = tot - inclusive prefix of contrib,  tot = sum_c acc_c g_c
 //   dalpha = T_excl chg - (suffix + T_final g_T) / max(1 - alpha, 1e-6)
-//   dpower = dalpha alpha, dop = dalpha e      (zero where op e >= 0.99)
+//   dop = dalpha e, dpower = dop op = dalpha alpha (zero where op e >= 0.99)
 //   d(x, y, a, b, c) = dpower * d(power)/d(.) at (dx, dy) from the tile
 //   centre, dch_c = g_c w, and the two densification rows
 //   |dpower d(power)/dx|, |dpower d(power)/dy| summed over pixels.
 // The suffix is formed as total minus prefix, exactly as the TPU kernel
-// does, so the rounding follows the reference; a back-to-front walk would
-// need a per-pixel last-contributor index from K1 and round differently.
+// does, so the rounding follows the reference.
 //
 // Output: grad [n_splats, 8 + C] rows (dx, dy, da, db, dc, dop, dch[C],
 // abs_x, abs_y) summed over every pair of the splat — the per-splat
 // reduction the JAX package leaves to the VJP of its payload gather.
 //
-// Bound on the H100: the per-(pair, pixel) recurrence (SFU exp/log1p/exp,
-// as in K1) plus the per-pair reduction of up to 24 sums over the tile's
-// pixels. Design: one block per tile and one thread per pixel, like K1;
-// pairs are staged 128 at a time in shared memory. For each pair a warp
-// whose pixels include none of it skips the pair (__any_sync), otherwise
-// it reduces each value with a butterfly of shuffles and lane 0 adds the
-// warp's sum into the pair's shared row with a shared-memory atomic; a
-// warp whose pixels are all done leaves the batch. After the batch each
-// pair's row is added into the splat's output row with global float
-// atomics. Float atomics make the summation order vary from run to run,
-// so the result is reproducible to rounding, not bit for bit; the
-// tolerances that hold it against the plain version say so. No wgmma/TMA:
-// later work.
+// Bound on the H100: issue. Per (pair, pixel) evaluation the recurrence
+// of K1 (FP32 and SFU), and per pair the reduction of 8 + C sums over the
+// tile's pixels. Reduced across lanes, one warp butterfly per value and
+// pair (the first port's design), that reduction took 110 shuffles and 22
+// shared atomics per pair and warp, most of K2's time. The TPU kernel
+// forms the same sums as products over the tile's pixels; so does this
+// design, in FP32 FMAs:
+//   1. the walk, one thread per pixel, runs K1's step over a batch of 16
+//      pairs and writes each (pair, pixel)'s w and dop into shared memory
+//      (zeros where the pair is not included), and one ballot per pair and
+//      warp records which pixels included it;
+//   2. the products, one thread per (pair, 16-pixel slice): each thread
+//      sums its pair's 8 + C values over its slice's pixels from shared
+//      memory (dch_c += w g_c against the tile's g staged once; the
+//      geometry and abs rows from dpower and the pixel's offset, as the
+//      plain version forms them), skipping slices that no pixel of the
+//      pair included; the 16 slices of a pair then meet in one
+//      transposing reduction (15 shuffles for 16 sums, 30 for 32), after
+//      which each lane holds one or two of the pair's sums and adds them
+//      into the splat's row with global float atomics.
+// The moments of dpower over the pixel basis, as the TPU kernel takes
+// them, would cost as many FMAs here (the abs rows need the per-pixel
+// pass anyway) and cancel for splats far from the tile; the direct form
+// keeps the plain version's rounding. A slice reads its pixels rotated by
+// its index, so the 16 slices of a pair hit 16 banks.
+//
+// Blocks are decoupled from the tile: a block of 256 threads takes one
+// 256-pixel part of a tile (pixels flattened y-major; pixels past a
+// smaller tile sit idle) and walks the tile's whole list with its own
+// early exit, so a 32x32 tile is four blocks, 1,380
+// blocks fill 132 SMs four deep, and a part whose pixels are all done
+// leaves while the others go on. Pair rows arrive by cp.async one batch
+// ahead (lsx::PairPipe, shared with K1). The values, g and the staging
+// take 50 KB of dynamic shared memory at C = 14; 64 registers a thread
+// (__launch_bounds__(256, 4)) hold the walk's state and the products'
+// 8 + C sums without a spill, C rounded up to four (a template parameter:
+// a predicated FMA of an absent channel still issues). Float atomics make
+// the summation order vary from run to run, so the result is reproducible
+// to rounding, not bit for bit; the tolerances that hold it against the
+// plain version say so.
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 #include "common.cuh"
 
@@ -46,19 +74,40 @@ using lsx::BLEND_GEOM;
 using lsx::BLEND_MAX_CH;
 using lsx::BLEND_MAX_ROW;
 
-constexpr int BATCH = 128;
+constexpr int BATCH = 16;       // pairs per batch
+constexpr int SLICE = 16;       // pixels per product task
+constexpr int PART = lsx::BLEND_PART;
 constexpr int MAX_PIX = 1024;
-constexpr int OUT_MAX = BLEND_MAX_ROW + 2;  // 6 geometry + 16 ch + 2 abs
 constexpr unsigned FULL = 0xffffffffu;
 
-// Warp sum of v; lane 0 adds it to *dst (skipped when it is zero).
-__device__ __forceinline__ void warp_add(float v, float* dst, int lane) {
+// One level of the transposing reduction over the lanes that differ in
+// bit h: a lane keeps the half of its N slots that its bit selects, summed
+// with its partner's.
+template <int N>
+__device__ __forceinline__ void transpose_level(float* v, int si, int h) {
+  const bool up = (si & h) != 0;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  if (lane == 0 && v != 0.0f) atomicAdd(dst, v);
+  for (int j = 0; j < N / 2; ++j) {
+    const float send = up ? v[j] : v[j + N / 2];
+    const float keep = up ? v[j + N / 2] : v[j];
+    v[j] = keep + __shfl_xor_sync(FULL, send, h);
+  }
 }
 
-__global__ void __launch_bounds__(MAX_PIX)
+struct Shared {
+  lsx::PairStage<BATCH> stage;
+  unsigned hit[BATCH][PART / 32];   // per pair and warp: pixels included
+  float2 val[BATCH][PART];          // per pair and pixel: (w, dop)
+  float2 v[PART];                   // pixel offset from the tile centre
+  float g[1];                       // [n_ch][PART] upstream gradient
+};
+
+__host__ __device__ constexpr size_t shared_bytes(int n_ch) {
+  return sizeof(Shared) + sizeof(float) * ((size_t)n_ch * PART);
+}
+
+template <int NCH>
+__global__ void __launch_bounds__(PART, 4)
 blend_backward(const int* __restrict__ point_list,
                const int* __restrict__ tile_starts,
                const int* __restrict__ tile_counts,
@@ -67,55 +116,69 @@ blend_backward(const int* __restrict__ point_list,
                const float* __restrict__ final_T,
                const float* __restrict__ g_accum,
                const float* __restrict__ g_T, float* __restrict__ grad,
-               int grid_x, int tile_w, int tile_h, int n_ch, int row_stride,
-               int n_splats) {
-  __shared__ float s_row[BATCH * BLEND_MAX_ROW];
-  __shared__ int s_sid[BATCH];
-  __shared__ float s_grad[BATCH * OUT_MAX];
-
-  const int t = blockIdx.x;
+               int grid_x, int tile_w, int tile_h, int n_parts, int n_ch,
+               int row_stride, int n_splats) {
+  constexpr int N_OUT = BLEND_GEOM + NCH + 2;   // the row's sums
+  extern __shared__ float4 smem_raw[];
+  Shared& sm = *reinterpret_cast<Shared*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int t = blockIdx.x / n_parts;
   const int npx = tile_w * tile_h;
-  const int p = threadIdx.x;
-  const int lane = p & 31;
+  const int p = (blockIdx.x - t * n_parts) * PART + tid;   // pixel in tile
+  const bool active = p < npx;
   const int out_stride = BLEND_GEOM + n_ch + 2;
-  const int start = tile_starts[t];
-  const int count = tile_counts[t];
   const float tile_cx = (float)((t % grid_x) * tile_w + tile_w / 2);
   const float tile_cy = (float)((t / grid_x) * tile_h + tile_h / 2);
   const float vx = (float)(p % tile_w) - (float)(tile_w / 2);
   const float vy = (float)(p / tile_w) - (float)(tile_h / 2);
+  sm.v[tid] = make_float2(vx, vy);
 
-  // the pixel's upstream gradient and tot = sum_c acc_c g_c
-  const size_t pix = (size_t)t * npx + p;
+  // the pixel's upstream gradient (staged for the products) and
+  // tot = sum_c acc_c g_c
+  float tot = 0.0f, tail = 0.0f;
   const size_t cbase = (size_t)t * n_ch * npx + p;
-  float g[BLEND_MAX_CH];
-  float tot = 0.0f;
-#pragma unroll
-  for (int c = 0; c < BLEND_MAX_CH; ++c) {
-    g[c] = 0.0f;
-    if (c < n_ch) {
-      g[c] = g_accum[cbase + (size_t)c * npx];
-      tot += accum[cbase + (size_t)c * npx] * g[c];
-    }
+  for (int c = 0; c < n_ch; ++c) {
+    const float gc = active ? g_accum[cbase + (size_t)c * npx] : 0.0f;
+    sm.g[c * PART + tid] = gc;
+    if (active) tot += accum[cbase + (size_t)c * npx] * gc;
   }
-  const float tail = final_T[pix] * g_T[pix];
+  if (active) tail = final_T[(size_t)t * npx + p] * g_T[(size_t)t * npx + p];
   float log_t = 0.0f;
   float prefix = 0.0f;
-  int done = 0;
+  int done = active ? 0 : 1;
 
-  for (int b0 = 0; b0 < count; b0 += BATCH) {
-    // barrier: every warp finished the previous batch and its flush, and
-    // the whole-tile early exit (as in K1)
-    if (__syncthreads_count(done) == npx) break;
-    const int nb = min(BATCH, count - b0);
-    for (int e = p; e < nb * OUT_MAX; e += npx) s_grad[e] = 0.0f;
-    lsx::stage_rows(point_list, start + b0, nb, payload, row_stride,
-                    n_splats, s_sid, s_row);
-    __syncthreads();
+  const lsx::PairPipe<BATCH> pipe{sm.stage, point_list, payload,
+                                  tile_starts[t], tile_counts[t],
+                                  row_stride, n_splats};
+  pipe.prologue();
+  // the product task of this thread: pair ti of the batch, slice si
+  const int ti = tid / SLICE;
+  const int si = tid % SLICE;
+  const int nb_all = pipe.batches();
 
+  for (int k = 0; k < nb_all; ++k) {
+    lsx::cp_async_wait_all();
+    // barrier: batch k's rows and k + 1's ids have landed, the
+    // products of batch k - 1 are done; and the part's early exit
+    if (__syncthreads_count(done) == PART) break;
+    pipe.ahead(k);
+    const int nb = pipe.size(k);
+    const float* rows = sm.stage.row[k & 1];
+    // the walk's copy of the pixel's g, for chg (loaded per batch, so no
+    // register holds it through the products)
+    float g[NCH];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) g[c] = c < n_ch ? sm.g[c * PART + tid] : 0.0f;
+
+    // ---- 1. the walk: K1's step, (w, dop) per pair and pixel ----------
     for (int i = 0; i < nb; ++i) {
-      if (__all_sync(FULL, done)) break;          // warp-uniform
-      const float* row = &s_row[i * BLEND_MAX_ROW];
+      if (__all_sync(FULL, done)) {                 // warp-uniform
+        for (int j = i + lane; j < nb; j += 32) sm.hit[j][warp] = 0u;
+        break;
+      }
+      const float* row = &rows[i * BLEND_MAX_ROW];
       lsx::BlendSample s;
       bool inc = false;
       float t_excl = 0.0f;
@@ -135,58 +198,110 @@ blend_backward(const int* __restrict__ point_list,
         t_excl = expf(log_t);
         log_t = next;
       } while (false);
-      if (!__any_sync(FULL, inc)) continue;       // warp-uniform
-
       float w = 0.0f, dop = 0.0f;
-      float d_x = 0.0f, d_y = 0.0f, d_a = 0.0f, d_b = 0.0f, d_c = 0.0f;
       if (inc) {
         w = s.alpha * t_excl;
         float chg = 0.0f;
 #pragma unroll
-        for (int c = 0; c < BLEND_MAX_CH; ++c) {
+        for (int c = 0; c < NCH; ++c) {
           if (c < n_ch) chg += row[BLEND_GEOM + c] * g[c];
         }
         prefix += w * chg;
         const float suffix = tot - prefix;
+        // the fast division (about 2 ulp) decides nothing: the gates and
+        // the stop are K1's, bit for bit
         const float dalpha =
             t_excl * chg -
-            (suffix + tail) / fmaxf(1.0f - s.alpha, 1e-6f);
-        if (s.ealpha < lsx::BLEND_ALPHA_MAX) {
-          const float dpower = dalpha * s.alpha;
-          dop = dalpha * s.e;
-          const float a = row[2], b = row[3], c = row[4];
-          d_x = dpower * -(a * s.dx + b * s.dy);
-          d_y = dpower * -(c * s.dy + b * s.dx);
-          d_a = dpower * (-0.5f * s.dx * s.dx);
-          d_b = dpower * -(s.dx * s.dy);
-          d_c = dpower * (-0.5f * s.dy * s.dy);
-        }
+            __fdividef(suffix + tail, fmaxf(1.0f - s.alpha, 1e-6f));
+        if (s.ealpha < lsx::BLEND_ALPHA_MAX) dop = dalpha * s.e;
       }
-      float* out = &s_grad[i * OUT_MAX];
-      warp_add(d_x, out + 0, lane);
-      warp_add(d_y, out + 1, lane);
-      warp_add(d_a, out + 2, lane);
-      warp_add(d_b, out + 3, lane);
-      warp_add(d_c, out + 4, lane);
-      warp_add(dop, out + 5, lane);
-#pragma unroll
-      for (int c = 0; c < BLEND_MAX_CH; ++c) {
-        if (c < n_ch) warp_add(w * g[c], out + BLEND_GEOM + c, lane);
-      }
-      warp_add(fabsf(d_x), out + BLEND_GEOM + n_ch, lane);
-      warp_add(fabsf(d_y), out + BLEND_GEOM + n_ch + 1, lane);
+      sm.val[i][tid] = make_float2(w, dop);
+      const unsigned m = __ballot_sync(FULL, inc);
+      if (lane == 0) sm.hit[i][warp] = m;
     }
     __syncthreads();
-    for (int e = p; e < nb * out_stride; e += npx) {
-      const int i = e / out_stride;
-      const int r = e - i * out_stride;
-      const float v = s_grad[i * OUT_MAX + r];
-      const int sid = s_sid[i];
-      if (v != 0.0f && sid < n_splats) {
-        atomicAdd(&grad[(size_t)sid * out_stride + r], v);
+
+    // ---- 2. the products: pair ti's sums over slice si ---------------
+    float acc[N_OUT];
+#pragma unroll
+    for (int j = 0; j < N_OUT; ++j) acc[j] = 0.0f;
+    const int s0 = si * SLICE;
+    const unsigned hits =
+        ti < nb ? (sm.hit[ti][s0 >> 5] >> (s0 & 31)) & 0xffffu : 0u;
+    if (hits) {
+      const float* row = &rows[ti * BLEND_MAX_ROW];
+      const float x0 = __fsub_rn(row[0], tile_cx);
+      const float y0 = __fsub_rn(row[1], tile_cy);
+      const float a = row[2], b = row[3], c = row[4], op = row[5];
+      for (int kk = 0; kk < SLICE; ++kk) {
+        const int q = s0 + ((kk + si) & (SLICE - 1));
+        const float2 wd = sm.val[ti][q];
+        const float2 v = sm.v[q];
+        const float dx = __fsub_rn(x0, v.x);
+        const float dy = __fsub_rn(y0, v.y);
+        const float dpower = wd.y * op;
+        const float gx = dpower * -(a * dx + b * dy);
+        const float gy = dpower * -(c * dy + b * dx);
+        acc[0] += gx;
+        acc[1] += gy;
+        acc[2] += dpower * (-0.5f * dx * dx);
+        acc[3] += dpower * -(dx * dy);
+        acc[4] += dpower * (-0.5f * dy * dy);
+        acc[5] += wd.y;
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+          if (ch < n_ch) acc[BLEND_GEOM + ch] += wd.x * sm.g[ch * PART + q];
+        }
+        acc[N_OUT - 2] += fabsf(gx);
+        acc[N_OUT - 1] += fabsf(gy);
+      }
+    }
+    if (!__any_sync(FULL, hits != 0u)) continue;   // warp-uniform
+    const int sid = ti < nb ? sm.stage.sid[k % 3][ti] : n_splats;
+    float* out = grad + (size_t)sid * out_stride;
+    // slot j of a pair's row: its column, or -1 for an absent channel
+    auto column = [&](int j) {
+      return j < BLEND_GEOM + n_ch ? j
+             : j == N_OUT - 2     ? out_stride - 2
+             : j == N_OUT - 1     ? out_stride - 1 : -1;
+    };
+    // the 16 slices of a pair meet in one transposing reduction of V
+    // slots: at the level of h a lane keeps the half of its slots that its
+    // bit h selects, summed with its partner's, so lane si ends with slots
+    // si * V / 16 + j (15 V / 16 shuffles, not 4 N_OUT)
+    constexpr int V = (N_OUT + SLICE - 1) / SLICE * SLICE;
+    float v[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = j < N_OUT ? acc[j] : 0.0f;
+    transpose_level<V>(v, si, 8);
+    transpose_level<V / 2>(v, si, 4);
+    transpose_level<V / 4>(v, si, 2);
+    transpose_level<V / 8>(v, si, 1);
+    if (sid < n_splats) {
+#pragma unroll
+      for (int j = 0; j < V / SLICE; ++j) {
+        const int col = column(si * (V / SLICE) + j);
+        if (col >= 0 && v[j] != 0.0f) atomicAdd(out + col, v[j]);
       }
     }
   }
+}
+
+// Raises an instance's dynamic shared-memory limit to what its channels
+// take, once per device (a bit per device), not on every launch.
+template <int NCH>
+cudaError_t allow_shared() {
+  static std::atomic<unsigned long long> ready{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (ready.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(blend_backward<NCH>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)shared_bytes(NCH));
+  if (e == cudaSuccess) ready.fetch_or(bit, std::memory_order_relaxed);
+  return e;
 }
 
 }  // namespace
@@ -214,9 +329,19 @@ extern "C" int lsx_blend_backward(const int* point_list,
       grad, 0, sizeof(float) * out_stride * (size_t)n_splats, stream);
   if (e != cudaSuccess) return (int)e;
   if (n_tiles <= 0) return 0;
-  blend_backward<<<n_tiles, npx, 0, stream>>>(
+  const int n_parts = (npx + PART - 1) / PART;
+  const auto prepare = lsx::by_channels(n_ch, allow_shared<4>,
+                                        allow_shared<8>, allow_shared<12>,
+                                        allow_shared<16>);
+  e = prepare();
+  if (e != cudaSuccess) return (int)e;
+  const auto kernel = lsx::by_channels(n_ch, blend_backward<4>,
+                                       blend_backward<8>, blend_backward<12>,
+                                       blend_backward<16>);
+  kernel<<<n_tiles * n_parts, PART, shared_bytes(n_ch), stream>>>(
       point_list, tile_starts, tile_counts, payload, accum, final_T, g_accum,
-      g_T, grad, grid_x, tile_w, tile_h, n_ch, row_stride, n_splats);
+      g_T, grad, grid_x, tile_w, tile_h, n_parts, n_ch, row_stride,
+      n_splats);
   LSX_CHECK_LAUNCH();
   return (int)cudaGetLastError();
 }

@@ -72,27 +72,103 @@ __device__ __forceinline__ float blend_log_t_next(float log_t, float alpha) {
   return __fadd_rn(log_t, log1pf(-alpha));
 }
 
-// Stage ``nb`` pairs of a tile into shared memory: their splat ids and
-// payload rows (stride BLEND_MAX_ROW). A sentinel id (>= n_splats, a pair
-// dropped by the budget) stages a zero row, which never touches a pixel.
-// Called by every thread of the block; the caller synchronises.
-__device__ __forceinline__ void stage_rows(const int* point_list, int first,
-                                           int nb, const float* payload,
-                                           int row_stride, int n_splats,
-                                           int* s_sid, float* s_row) {
-  const int nthreads = blockDim.x;
-  for (int i = threadIdx.x; i < nb; i += nthreads) {
-    s_sid[i] = point_list[first + i];
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < nb * row_stride; e += nthreads) {
-    const int i = e / row_stride;
-    const int r = e - i * row_stride;
-    const int sid = s_sid[i];
-    s_row[i * BLEND_MAX_ROW + r] =
-        sid < n_splats ? payload[(size_t)sid * row_stride + r] : 0.0f;
-  }
+// The threads of a block of K1 or K2, one per pixel of a 256-pixel part
+// of a tile (the 16-pixel slices of a pair in K2 meet in xor shuffles).
+// Pixels past the tile are idle.
+constexpr int BLEND_PART = 256;
+
+// K1's and K2's instance for n_ch channels: the one of the channels
+// rounded up to four (4, 8, 12 or 16).
+template <typename K>
+inline K by_channels(int n_ch, K c4, K c8, K c12, K c16) {
+  return n_ch <= 4 ? c4 : n_ch <= 8 ? c8 : n_ch <= 12 ? c12 : c16;
 }
+
+// ---- staging a tile's pairs, one batch ahead (cp.async) ---------------
+// A block walks its tile's pairs in batches of BATCH. Their splat ids and
+// payload rows (stride BLEND_MAX_ROW) are copied into shared memory by
+// cp.async one batch ahead of the walk: the rows of batch k + 1 and the ids
+// of batch k + 2 are in flight while the block works on batch k (ids in
+// three buffers, rows in two). A sentinel id (>= n_splats, a pair dropped
+// by the budget) stages a zero row (cp.async's zero fill), which never
+// touches a pixel: its power is 0 and its alpha 0.
+template <int BATCH>
+struct PairStage {
+  int sid[3][BATCH];
+  float row[2][BATCH * BLEND_MAX_ROW];
+};
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(__cvta_generic_to_global(gmem)), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The pairs of one tile: ``first`` in the point list and ``count`` of
+// them, staged by a block of blockDim.x threads. Every thread calls each
+// method; the caller commits and waits (below).
+template <int BATCH>
+struct PairPipe {
+  PairStage<BATCH>& st;
+  const int* point_list;
+  const float* payload;
+  int first, count, row_stride, n_splats;
+
+  __device__ int batches() const { return (count + BATCH - 1) / BATCH; }
+  __device__ int size(int k) const { return min(BATCH, count - k * BATCH); }
+
+  // issue the copies of batch k's ids
+  __device__ void ids(int k) const {
+    if (k >= batches()) return;
+    const int nb = size(k);
+    int* dst = st.sid[k % 3];
+    for (int i = threadIdx.x; i < nb; i += blockDim.x) {
+      cp_async4(&dst[i], point_list + first + k * BATCH + i, true);
+    }
+  }
+  // issue the copies of batch k's rows (its ids have landed): a warp
+  // copies a row, one lane per float
+  __device__ void rows(int k) const {
+    if (k >= batches()) return;
+    const int nb = size(k);
+    const int* sid = st.sid[k % 3];
+    float* dst = st.row[k & 1];
+    const int r = threadIdx.x & 31;
+    if (r >= row_stride) return;
+    for (int i = threadIdx.x >> 5; i < nb; i += blockDim.x >> 5) {
+      const bool ok = sid[i] < n_splats;
+      cp_async4(&dst[i * BLEND_MAX_ROW + r],
+                payload + (ok ? (size_t)sid[i] * row_stride + r : 0), ok);
+    }
+  }
+  // before the loop: ids of batches 0 and 1, then rows of batch 0
+  __device__ void prologue() const {
+    ids(0);
+    ids(1);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    rows(0);
+    cp_async_commit();
+  }
+  // at the top of batch k, after the barrier that follows
+  // cp_async_wait_all(): rows of k + 1 and ids of k + 2, in flight while
+  // the block works on batch k
+  __device__ void ahead(int k) const {
+    rows(k + 1);
+    ids(k + 2);
+    cp_async_commit();
+  }
+};
 
 __device__ __forceinline__ unsigned warp_inclusive_scan(unsigned v) {
   const int lane = threadIdx.x & 31;

@@ -3,15 +3,19 @@
 
 Port of the JAX ``ops/rasterize_pallas.py`` blend: ``_fwd_kernel`` and
 ``_bwd_kernel`` behind the custom VJP ``blend_pairs`` and
-``blend_tiles_pallas``. The CUDA forward (``csrc/blend.cu``) runs one
-block per tile and one thread per pixel, walks the tile's depth-sorted
-pairs front to back with the log-space transmittance recurrence of the
-TPU kernel, and gathers each pair's row from a per-splat payload [P, 6 +
-C] (x, y, conic a/b/c, opacity, C <= 16 channels) into shared memory. The
-CUDA backward (``csrc/blend_backward.cu``) re-walks the pairs in forward
-order with the same per-pixel step and forms suffix = total - inclusive
-prefix, as the TPU kernel does; it reduces each pair's gradient over the
-tile's pixels and adds it into a per-splat row with float atomics.
+``blend_tiles_pallas``. Both CUDA kernels run one thread per pixel in
+blocks of up to 256 pixels, several blocks per tile, each walking its
+tile's depth-sorted pairs front to back with the log-space transmittance
+recurrence of the TPU kernel and gathering each pair's row from a
+per-splat payload [P, 6 + C] (x, y, conic a/b/c, opacity, C <= 16
+channels) into shared memory by cp.async, one batch ahead. The forward
+(``csrc/blend.cu``) accumulates the channels in registers. The backward
+(``csrc/blend_backward.cu``) re-walks the pairs in forward order with the
+same per-pixel step, forms suffix = total - inclusive prefix as the TPU
+kernel does, writes each (pair, pixel)'s weight and opacity gradient to
+shared memory, then forms each pair's sums over the pixels as products,
+one thread per pair and 16-pixel slice, and adds them into a per-splat
+row with float atomics.
 
 :func:`blend_tiles` keeps the ``blend_tiles_pallas`` contract ``(accum
 [n_tiles, C, npx], T [n_tiles, npx], observe [P] int32)`` with the
@@ -69,9 +73,13 @@ class _Chunk(NamedTuple):
     dx: torch.Tensor           # mean - pixel, global coordinates
     dy: torch.Tensor
     conic: torch.Tensor        # [n_tiles, CH, 3]
+    power: torch.Tensor
     e: torch.Tensor            # exp(power)
     ealpha: torch.Tensor       # opacity * e
     alpha: torch.Tensor        # min(0.99, ealpha)
+    gate: torch.Tensor         # in range, power <= 0 and alpha >= 1/255
+    T_incl: torch.Tensor       # T after the pair were every gated pair taken
+    done_in: torch.Tensor      # [n_tiles, npx] done before the chunk
     include: torch.Tensor
     T_excl: torch.Tensor
     w: torch.Tensor            # alpha * T_excl where included, else 0
@@ -125,9 +133,11 @@ def _plain_chunks(lists: TileLists, mean2d, conic, opacity, grid_x: int,
         T_excl = T[:, None, :] * torch.exp(cum_incl - log1m)
         w = torch.where(include, alpha * T_excl, 0.0)
         T = T * torch.exp(torch.where(include, log1m, 0.0).sum(1))
+        done_in = done
         done = done | (m & (T_incl < T_EPS)).any(1)
         yield _Chunk(ids=ids, in_range=in_range, dx=dx, dy=dy, conic=co,
-                     e=e, ealpha=ealpha, alpha=alpha, include=include,
+                     power=power, e=e, ealpha=ealpha, alpha=alpha, gate=m,
+                     T_incl=T_incl, done_in=done_in, include=include,
                      T_excl=T_excl, w=w, T=T, done=done)
 
 
@@ -201,6 +211,30 @@ def blend_backward_plain(lists: TileLists, mean2d, conic, opacity, channels,
                         per_pair.reshape(-1, per_pair.shape[-1]))
         prefix = prefix + contrib.sum(1)
     return grad[:P]
+
+
+def blend_work(lists: TileLists, mean2d, conic, opacity, grid_x: int,
+               grid_y: int, tile_w: int, tile_h: int,
+               chunk: int = 128) -> dict:
+    """What the blend's per-pixel step does on these inputs, counted over
+    (pair, pixel) evaluations, whatever implements it (K1, K2 or the plain
+    versions): ``walked`` the pairs each pixel walks up to and including
+    the one that stops it (T < 1e-4), ``live`` those of them with power
+    <= 0 (an exp), ``gated`` those also with alpha >= 1/255 (a log1p), and
+    ``included`` those that blend (an exp of log T and the channel
+    products). The counts of a kernel's bound: see chip_smoke.py."""
+    n = dict(walked=0, live=0, gated=0, included=0)
+    for st in _plain_chunks(lists, mean2d, conic, opacity, grid_x, grid_y,
+                            tile_w, tile_h, chunk):
+        stop = (st.gate & (st.T_incl < T_EPS)).int()
+        walked = (st.in_range[..., None] & ~st.done_in[:, None, :]
+                  & (torch.cumsum(stop, 1) - stop == 0))
+        live = walked & (st.power <= 0.0)
+        n["walked"] += int(walked.sum())
+        n["live"] += int(live.sum())
+        n["gated"] += int((live & (st.alpha >= ALPHA_MIN)).sum())
+        n["included"] += int(st.include.sum())
+    return n
 
 
 def _check_inputs(lists: TileLists, n_tiles: int, tile_w: int, tile_h: int,

@@ -20,6 +20,7 @@ from langscenex_tpu_torch.ops.compaction import (compact_pairs,
                                                  compact_pairs_plain)
 from langscenex_tpu_torch.ops.rasterize import RasterConfig, rasterize
 from langscenex_tpu_torch import _build
+from langscenex_tpu_torch.ops.binning import TileLists
 from langscenex_tpu_torch.ops.rasterize import prepare_blend
 from langscenex_tpu_torch.ops.rasterize_cuda import (blend_backward,
                                                      blend_backward_plain,
@@ -214,7 +215,8 @@ def _k2_scene(rng, P, W, H, dense, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dense,tile", [(False, (32, 32)), (True, (32, 32)),
-                                        (False, (128, 8))])
+                                        (False, (128, 8)), (False, (16, 16)),
+                                        (True, (16, 8))])
 def test_blend_backward_kernel_matches_plain(cuda, dense, tile):
     # K2 against the plain backward on the same lists, forward outputs and
     # upstream gradients. Float atomics sum pairs in a varying order, so
@@ -256,6 +258,117 @@ def test_blend_backward_kernel_matches_plain(cuda, dense, tile):
     bad = ((got - ref).abs() > 2e-3 * scale + 5e-3 * ref.abs()).any(1)
     assert float(bad.float().mean()) <= 0.01
     assert bool((got[:, 20:] >= 0).all())
+
+
+# K1 and K2 on synthetic tile lists, for the edges of their design: tiles
+# of one part (16x16, 16x8), a tile with no pairs, a tile whose 256-pixel
+# parts stop at different pairs (opaque splats over its top rows only), 3
+# and 16 channels, opacity 1 (alpha clamped at 0.99 near the means, dop
+# and dpower zero there) and lists longer than a batch of either kernel
+# that no pixel stops in.
+BLEND_CASES = {
+    "16x16": dict(tile=(16, 16)),
+    "16x8": dict(tile=(16, 8)),
+    "empty tile": dict(empty=True),
+    "parts stop apart": dict(top_cover=True, n=120),
+    "3 channels": dict(C=3),
+    "16 channels": dict(C=16),
+    "opacity 1": dict(opacity=1.0),
+    "long lists": dict(n=900, opacity=0.08),
+}
+
+
+def _synthetic_blend(rng, device, tile=(32, 32), C=14, n=300, empty=False,
+                     top_cover=False, opacity=None):
+    """A 3x2 grid of tiles, P splats with random means, conics and
+    channels, and each tile's list ``n`` random splats in a random depth
+    order (tile 1 none with ``empty``; with ``top_cover`` tile 0's list
+    starts with 40 opaque splats wide in x and narrow in y over its top
+    eight rows)."""
+    tw, th = tile
+    gx, gy = 3, 2
+    P = 2 * n
+    mean = np.stack([rng.uniform(-8, gx * tw + 8, P),
+                     rng.uniform(-8, gy * th + 8, P)], -1)
+    sig = rng.uniform(1.5, 10.0, (P, 2))
+    ang = rng.uniform(0, np.pi, P)
+    if top_cover:
+        mean[:40] = np.stack([rng.uniform(0, tw, 40),
+                              rng.uniform(1, 6, 40)], -1)
+        sig[:40], ang[:40] = (tw, 2.0), 0.0
+    cs_, sn = np.cos(ang), np.sin(ang)
+    rot = np.stack([np.stack([cs_, -sn], -1), np.stack([sn, cs_], -1)], -2)
+    cov = rot @ (sig[:, :, None] ** 2 * np.swapaxes(rot, 1, 2))
+    inv = np.linalg.inv(cov)
+    conic = np.stack([inv[:, 0, 0], inv[:, 0, 1], inv[:, 1, 1]], -1)
+    op = (np.full(P, opacity) if opacity is not None
+          else rng.uniform(0.2, 0.95, P))
+    if top_cover:
+        op[:40] = 0.97
+    lists = []
+    for t in range(gx * gy):
+        ids = rng.permutation(P)[:n]
+        if top_cover and t == 0:
+            ids = np.concatenate([np.arange(40), ids[~np.isin(ids,
+                                                              np.arange(40))]])
+        if empty and t == 1:
+            ids = ids[:0]
+        lists.append(ids.astype(np.int32))
+    counts = np.array([len(x) for x in lists], np.int32)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    t = lambda a, dt=torch.float32: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(device=device, dtype=dt)
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    tl = TileLists(t(np.concatenate(lists), torch.int32), t(starts,
+                   torch.int32), t(counts, torch.int32), zero,
+                   zero.bool(), zero.bool(), zero)
+    ch = rng.uniform(-1, 1, (P, C))
+    return (tl, t(mean), t(conic), t(op), t(ch), gx, gy), RasterConfig(
+        tile_w=tw, tile_h=th)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BLEND_CASES))
+def test_blend_kernels_match_plain_at_design_edges(cuda, case):
+    # bounds as in the tests above: K1's of the dense blend test, K2's of
+    # the JAX package's Pallas-vs-XLA gradients for all but 1% of splats
+    from langscenex_tpu_torch.ops.rasterize_cuda import (blend_forward,
+                                                         blend_tiles_plain)
+    rng = np.random.default_rng(sorted(BLEND_CASES).index(case))
+    args, cfg = _synthetic_blend(rng, cuda, **BLEND_CASES[case])
+    lists, P, C = args[0], args[1].shape[0], args[4].shape[1]
+    n_tiles, npx = args[5] * args[6], cfg.tile_w * cfg.tile_h
+    _build.reset_launch_counts()
+    accum, T, obs = blend_forward(*args, cfg)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["blend_forward"] == 1
+    ra, rT, robs = blend_tiles_plain(*args, cfg.tile_w, cfg.tile_h,
+                                     cfg.chunk)
+    torch.testing.assert_close(accum, ra, atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(T, rT, atol=1e-4, rtol=0)
+    od = (obs.long() - robs.long()).abs()
+    assert int(od.max()) <= 2 and float((od > 0).float().mean()) < 0.02
+    if BLEND_CASES[case].get("empty"):
+        assert int(lists.tile_counts[1]) == 0
+        assert bool((T[1] == 1).all()) and bool((accum[1] == 0).all())
+    if BLEND_CASES[case].get("top_cover"):
+        # the top part of tile 0 stops, its other parts walk on
+        assert float(T[0, :256].max()) < 0.01 < float(T[0, 256:].max())
+    g_accum = torch.from_numpy(rng.normal(size=(n_tiles, C, npx)).astype(
+        np.float32)).to(cuda)
+    g_T = torch.from_numpy(rng.normal(size=(n_tiles, npx)).astype(
+        np.float32)).to(cuda)
+    got = blend_backward(*args[:5], accum, T, g_accum, g_T, *args[5:], cfg)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["blend_backward"] == 1
+    ref = blend_backward_plain(*args[:5], accum, T, g_accum, g_T, *args[5:],
+                               cfg.tile_w, cfg.tile_h, cfg.chunk)
+    assert got.shape == ref.shape == (P, 8 + C)
+    assert bool(torch.isfinite(got).all())
+    scale = ref.abs().amax(0, keepdim=True).clamp(min=1e-3)
+    bad = ((got - ref).abs() > 2e-3 * scale + 5e-3 * ref.abs()).any(1)
+    assert float(bad.float().mean()) <= 0.01
+    assert bool((got[:, -2:] >= 0).all())
 
 
 def _qkv(rng, B, T, H, device, layout=None):
