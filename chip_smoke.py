@@ -14,7 +14,11 @@ Phases (any failure raises, so the exit code is non-zero):
      device queued behind a spin beside torch.sort(stable=True), and on
      all-equal keys, a constant top digit, the int32 extremes, 2^20 keys
      and lengths around its 2,048-key tile (all exact), K3
-     compaction on the render scene's enumerated stream (exact), K1 blend
+     compaction on the render scene's enumerated stream (exact; timed
+     queued behind a spin and paced by the host beside
+     torch.nonzero_static's index map, with its needed-bytes bound; one
+     device kernel a call, counted from a torch.profiler trace, and its
+     cuobjdump resources, no spill), K1 blend
      forward and K2 blend backward (random upstream gradients, 14
      channels and the abs hook) on the render scene's identity-view tile
      lists (stated tolerances), timed in turns, each with its bound (the
@@ -45,7 +49,8 @@ Phases (any failure raises, so the exit code is non-zero):
      K1 and K2 against their plain versions on that step's real inputs
      (its first view's lists, means, conics, opacities and 8 channels,
      and the loss's upstream gradients), timed and bounded as in phase 3
-     (the kernels line's field_* keys);
+     (the kernels line's field_* keys), and K3 bit for bit on every
+     stream the step compacts, its first view's timed as in phase 3;
   8. train profile: host wall time, device busy time and idle share of
      that step;
   9. configuration trimap-dit-5b-49x480x720 (the JAX package's full-scale
@@ -148,9 +153,10 @@ Phases (any failure raises, so the exit code is non-zero):
      main.
 Every kernel's bound is computed from this run's shapes: the larger of
 its operations over the bf16 tensor-core peak and its bytes (each input
-read once, each output written once) over the HBM rate; K1's and K2's
-the largest of their bytes, FP32 operations at 67 TFLOP/s and SFU
-operations at 16 per clock and SM (blend_bound).
+read once, each output written once) over the HBM rate; K3's reads only
+the sids of the valid slots (compact_bound); K1's and K2's the largest of
+their bytes, FP32 operations at 67 TFLOP/s and SFU operations at 16 per
+clock and SM (blend_bound).
 Prints a JSON line of per-kernel results, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -171,6 +177,7 @@ import torch
 
 from langscenex_tpu_torch import _build
 from langscenex_tpu_torch.convert import gather_lora, shard_lora
+from langscenex_tpu_torch.ops import binning
 from langscenex_tpu_torch.ops.binning import enumerate_pairs
 from langscenex_tpu_torch.models.cogvideox.pipeline import (PipelineConfig,
                                                            denoise_loop,
@@ -422,6 +429,9 @@ PACKED_EXP_ULP, K13B_REL_RMS = 2 ** -7, 2 ** -7
 # K4: calls per timing, the passes of its LSD sort, and its time at 2^19
 # pairs on an H100 before the onesweep design (PERF.md §6)
 SORT_ITERS, SORT_PASSES, K4_BEFORE_MS = 50, 4, 0.6311
+# K3: device activities (kernels and memsets) one compact_pairs call runs,
+# and calls per timing
+K3_KERNELS_PER_CALL, K3_ITERS = 1, 50
 # K7 at the LoRA shape on an H100 before the wgmma design (PERF.md §6)
 K7_BEFORE_MS = 69.6828
 # the card's published peaks (H100 SXM): bf16 dense tensor cores, HBM3
@@ -798,22 +808,19 @@ def phase_kernels(dev, state_gpu, results) -> None:
     require(ps.rank_key, "slice scene should take the rank-key path")
     sent = (bi.grid_x * bi.grid_y) << 22
     args = (ps.key, ps.sid, sent, ps.out_len, sent, P)
-    got, ref = compact_pairs(*args), compact_pairs_plain(*args)
-    require(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
-            "compact_pairs differs from the argsort reference")
-    gs, rs = sort_pairs_plain(*got), sort_pairs_plain(*ref)
+    results["compact_pairs"] = check_compaction(dev, "render scene", args)
+    gs = sort_pairs_plain(*compact_pairs(*args))
+    rs = sort_pairs_plain(*compact_pairs_plain(*args))
     require(torch.equal(gs[0], rs[0]) and torch.equal(gs[1], rs[1]),
             "compact_pairs differs after the sort")
-    compact_err = pair_err(got, ref)
-    ms = cuda_ms(lambda: compact_pairs(*args), 20)
-    plain_ms = cuda_ms(lambda: compact_pairs_plain(*args), 20)
-    n_valid = int((ps.key < sent).sum())
-    print(f"K3 compact_pairs {ps.key.numel()} slots -> {ps.out_len} "
-          f"({n_valid} valid): exact; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
-    results["compact_pairs"] = dict(
-        max_abs_err=compact_err, ms=ms, plain_ms=plain_ms,
-        **bound(moved=nbytes(ps.key, ps.sid, *got)), library_ms=None)
+    kernels = device_kernels(lambda: compact_pairs(*args))
+    print(f"K3 compact_pairs: {len(kernels)} device kernel(s) per call "
+          f"(torch.profiler): {kernels}")
+    require(len(kernels) == K3_KERNELS_PER_CALL,
+            f"compact_pairs launched {len(kernels)} device kernels in one "
+            f"call, expected {K3_KERNELS_PER_CALL}")
+    results["compact_pairs"]["kernels_per_call"] = len(kernels)
+    require_no_spill("compact_pairs", "K3 compact_pairs", count=1)
 
     # ---- K1 and K2 on the slice scene's lists (14 channels) -------------
     bargs = (bi.lists, proc.mean2d, proc.conic, bi.opacity, bi.channels,
@@ -828,6 +835,82 @@ def phase_kernels(dev, state_gpu, results) -> None:
     results["blend_forward"], results["blend_backward"] = k1, k2
     require_no_spill("blend_forward", "K1 blend_forward", count=4)
     require_no_spill("blend_backward", "K2 blend_backward", count=4)
+
+
+def compact_bound(n: int, n_valid: int, out_len: int) -> dict:
+    """K3's bound on this run's stream: the bytes the function needs over
+    the HBM rate. It reads every key (4 n), the sids of the valid slots
+    only (4 n_valid: an invalid slot's sid never reaches the output) and
+    writes both outputs (8 out_len)."""
+    terms = {"keys": 4 * n, "valid sids": 4 * n_valid, "outputs": 8 * out_len}
+    moved = sum(terms.values())
+    return dict(bound_ms=moved / PEAK_HBM_BYTES * 1e3, bound_by="bytes",
+                bytes=moved, terms=terms)
+
+
+def compact_library(key: torch.Tensor, sent_min: int, out_len: int):
+    """(name, fn) of one PyTorch call that computes K3's index map: the
+    valid slots in order at a static size with a fill (no host sync), or,
+    where this build has no CUDA nonzero_static, the valid keys by
+    masked_select (which syncs the host for its size). A yardstick only:
+    the gather of key and sid through the map is left out."""
+    def static():
+        return torch.nonzero_static(key < sent_min, size=out_len,
+                                    fill_value=-1)
+    try:
+        static()
+    except (NotImplementedError, RuntimeError) as e:
+        print(f"nonzero_static does not run here ({type(e).__name__}); "
+              f"the yardstick is masked_select, which syncs the host")
+        return "torch.masked_select(key, key < sent_min) (host sync)", (
+            lambda: torch.masked_select(key, key < sent_min))
+    return ("torch.nonzero_static(key < sent_min, size=out_len, "
+            "fill_value=-1) (index map only)", static)
+
+
+def check_compaction(dev, what: str, args) -> dict:
+    """K3 bit for bit against its plain version on one stream (``args`` as
+    compact_pairs takes them), its time queued behind a spin (the device's)
+    and paced by the host, the plain version's, the library yardstick's
+    and the needed-bytes bound with its terms. Returns its kernels-line
+    entry."""
+    key, sid, sent_min, out_len = args[:4]
+    got, ref = compact_pairs(*args), compact_pairs_plain(*args)
+    require(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+            f"compact_pairs ({what}) differs from the argsort reference")
+    ms = time_ms(lambda: compact_pairs(*args), K3_ITERS, dev, queued=True)
+    paced = cuda_ms(lambda: compact_pairs(*args), K3_ITERS)
+    plain_ms = cuda_ms(lambda: compact_pairs_plain(*args), 20)
+    lib_name, lib_fn = compact_library(key, sent_min, out_len)
+    lib_ms = time_ms(lib_fn, K3_ITERS, dev, queued=True)
+    n_valid = int((key < sent_min).sum())
+    b = compact_bound(key.numel(), n_valid, out_len)
+    print(f"K3 compact_pairs ({what}) {key.numel()} slots -> {out_len} "
+          f"({n_valid} valid): exact; kernel {ms:.4f} ms on the device "
+          f"({paced:.4f} ms host-paced), plain {plain_ms:.4f} ms, "
+          f"{lib_name} {lib_ms:.4f} ms on the device; bound "
+          f"{b['bound_ms']:.5f} ms (bytes: " + ", ".join(
+              f"{k} {v}" for k, v in b["terms"].items())
+          + f", {b['bytes']} B at 3.35 TB/s)")
+    return dict(max_abs_err=pair_err(got, ref), ms=ms, host_paced_ms=paced,
+                plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by="bytes",
+                library_ms=lib_ms, library=lib_name)
+
+
+def device_kernels(fn) -> list:
+    """Names of the device activities (kernels and memsets) that one call
+    of ``fn`` runs, after a warm-up call, from a torch.profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def sm_clock_mhz() -> float:
@@ -1126,15 +1209,35 @@ def recorded_blend_backward():
         rasterize_cuda._blend_backward_cuda = inner
 
 
+@contextlib.contextmanager
+def recorded_compaction():
+    """Record the arguments of every compact_pairs call that binning makes
+    inside the block (key, sid, sent_min, out_len, fill_key, fill_sid):
+    the real K3 streams of a render or a step."""
+    calls = []
+    inner = binning.compact_pairs
+
+    def record(*args):
+        calls.append(args)
+        return inner(*args)
+    binning.compact_pairs = record
+    try:
+        yield calls
+    finally:
+        binning.compact_pairs = inner
+
+
 def kernel_step(tr, it: int = 600) -> tuple:
     """One geometry + multi-view step at iteration ``it`` through the
-    kernels: its flags, batch and draws, loss_and_grads' output, and the
-    K1/K2 inputs of its first view as ``check_blend_kernels`` takes them
-    (bargs, cfg, g_accum, g_T). Returns (inputs, output, blend)."""
+    kernels: its flags, batch and draws and the arguments of its K3 calls
+    (``compactions``), loss_and_grads' output, and the K1/K2 inputs of its
+    first view as ``check_blend_kernels`` takes them (bargs, cfg, g_accum,
+    g_T). Returns (inputs, output, blend)."""
     flags = phase_flags(it, tr.cfg)
     batch = tr._camera_batch(0, flags)
     samples = tr.draw_samples(flags)
-    with recorded_blend_backward() as calls:
+    with recorded_blend_backward() as calls, \
+            recorded_compaction() as compactions:
         out = loss_and_grads(tr.cfg, flags, tr.rcfg, tr.proxy_cam, tr.state,
                              batch, samples, tr.active_sh_degree)
     (lists, mean2d, conic, opacity, channels, _, _, g_accum, g_T, gx, gy,
@@ -1142,7 +1245,8 @@ def kernel_step(tr, it: int = 600) -> tuple:
     blend = ((lists, mean2d, conic, opacity, channels, gx, gy),
              dataclasses.replace(tr.rcfg, tile_w=tw, tile_h=th), g_accum,
              g_T)
-    return dict(flags=flags, batch=batch, samples=samples), out, blend
+    return (dict(flags=flags, batch=batch, samples=samples,
+                 compactions=compactions), out, blend)
 
 
 def phase_train(dev, cams, lang_dir: str) -> dict:
@@ -1248,6 +1352,22 @@ def phase_field_blend(dev, blend, results) -> None:
         results[name].update({f"field_{k}": e[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_term")})
+
+
+def phase_field_compaction(dev, compactions, results) -> None:
+    """K3 bit for bit against its plain version on every stream of phase
+    7's step, the first view's timed as in phase 3: its entries join the
+    kernels line as ``field_*``."""
+    require(len(compactions) > 0, "the kernel step made no K3 call")
+    for args in compactions[1:]:
+        got, ref = compact_pairs(*args), compact_pairs_plain(*args)
+        require(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                "compact_pairs (field step) differs from the argsort "
+                "reference")
+    e = check_compaction(dev, "field step, it 600", compactions[0])
+    results["compact_pairs"].update({f"field_{k}": e[k] for k in (
+        "max_abs_err", "ms", "host_paced_ms", "plain_ms", "bound_ms",
+        "library_ms")})
 
 
 def phase_train_profile(tr, step_in: dict, n: int = 3) -> dict:
@@ -2566,6 +2686,7 @@ def main() -> int:
         train = phase_train(dev, tcams, lang_dir)
         step_in = compare_plain_step(train["trainer"])
         phase_field_blend(dev, step_in.pop("blend"), results)
+        phase_field_compaction(dev, step_in.pop("compactions"), results)
         phase_train_profile(train["trainer"], step_in)
     train_launches = train["launches"]
     del train, step_in, main

@@ -53,7 +53,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # keys_in, vals_in, keys_out, vals_out, scratch, n, stream
     "lsx_sort_pairs": [_P, _P, _P, _P, _P, _I, _P],
-    # key, sid, out_key, out_sid, block_counts, n, out_len, n_blocks,
+    # key, sid, out_key, out_sid, status words, n, out_len, n_tiles,
     # sent_min, fill_key, fill_sid, stream
     "lsx_compact_pairs": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # point_list, tile_starts, tile_counts, payload, accum, final_T,

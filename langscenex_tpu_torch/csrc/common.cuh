@@ -1,7 +1,6 @@
-// Shared device helpers for the langscenex kernels: warp/block scans and
-// a one-block exclusive scan used by the radix sort and the compaction,
-// and the per-pixel blend recurrence shared by the blend forward (K1) and
-// backward (K2).
+// Shared device helpers for the langscenex kernels: the warp and block
+// scans of the radix sort (K4) and the compaction (K3), and the per-pixel
+// blend recurrence shared by the blend forward (K1) and backward (K2).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -203,32 +202,6 @@ __device__ __forceinline__ unsigned block_inclusive_scan(unsigned v,
   unsigned out = incl + (warp > 0 ? warp_sums[warp - 1] : 0u);
   __syncthreads();
   return out;
-}
-
-constexpr int SCAN_THREADS = 1024;
-
-// In-place exclusive scan of data[0, n) by ONE block: each thread sums a
-// contiguous segment, the block scans the segment sums, then each thread
-// rewrites its segment with running offsets. Writes the grand total to
-// *total when total is non-null. n is at most a few hundred thousand
-// here, so one block is enough and no cross-block ordering is involved.
-template <int THREADS>
-__global__ void __launch_bounds__(THREADS)
-exclusive_scan_one_block(unsigned* data, int n, unsigned* total) {
-  __shared__ unsigned warp_sums[THREADS / 32];
-  const int per = (n + THREADS - 1) / THREADS;
-  const int lo = min(n, (int)threadIdx.x * per);
-  const int hi = min(n, lo + per);
-  unsigned s = 0;
-  for (int i = lo; i < hi; ++i) s += data[i];
-  const unsigned incl = block_inclusive_scan<THREADS>(s, warp_sums);
-  unsigned run = incl - s;
-  for (int i = lo; i < hi; ++i) {
-    const unsigned v = data[i];
-    data[i] = run;
-    run += v;
-  }
-  if (total != nullptr && threadIdx.x == THREADS - 1) *total = incl;
 }
 
 }  // namespace lsx

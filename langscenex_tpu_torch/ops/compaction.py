@@ -3,11 +3,12 @@
 Port of the JAX ``ops/compaction.py`` (the TPU ``_compact_kernel`` behind
 ``compact_pairs``). Slots with ``key < sent_min`` move to the front and
 the tail is ``(sent_fill_key, sent_fill_sid)``. The GPU kernel
-(``csrc/compaction.cu``) is an order-preserving two-pass scan compaction,
-so it equals the argsort reference (``compact_pairs_ref`` in the JAX
-package) exactly; the TPU kernel's in-row order was arbitrary, so against
-it the streams agree after a sort. The output has ``out_len`` slots;
-callers guarantee the valid count fits (binning's budget mask does).
+(``csrc/compaction.cu``) is a single-pass, order-preserving compaction
+(one launch: a decoupled look-back over 4,096-slot tiles), so it equals
+the argsort reference (``compact_pairs_ref`` in the JAX package) exactly;
+the TPU kernel's in-row order was arbitrary, so against it the streams
+agree after a sort. The output has ``out_len`` slots: valid slots past it
+are dropped (binning's budget mask keeps the valid count within it).
 
 :func:`compact_pairs` launches the kernel for CUDA tensors and runs the
 plain version (:func:`compact_pairs_plain`) for CPU tensors.
@@ -18,7 +19,9 @@ import torch
 
 from .. import _build
 
-CMP_TILE = 2048           # slots per block (csrc/compaction.cu)
+CMP_TILE = 4096           # slots per block (csrc/compaction.cu)
+MAX_SLOTS = 1 << 30       # the status words hold 30-bit counts
+STATUS_STRIDE = 4         # int64 words per status word (one 32-byte sector)
 
 
 def _check(key: torch.Tensor, sid: torch.Tensor, out_len: int) -> None:
@@ -53,6 +56,47 @@ def compact_pairs_plain(key: torch.Tensor, sid: torch.Tensor, sent_min: int,
             torch.cat([s, s.new_full((pad,), sent_fill_sid)]))
 
 
+def tile_layout(key_ptr: int, n: int) -> tuple[int, int]:
+    """(pad, n_tiles) of the kernel's tiles over ``n`` keys at address
+    ``key_ptr``: slot i sits at position i + pad, so that each thread's
+    four slots are one 16-byte load; pad is the key's offset from the
+    16-byte boundary below it, in slots. Raises on a key that is not
+    4-byte aligned or a stream of 2^30 slots or more."""
+    if key_ptr % 4:
+        raise ValueError(f"compact_pairs: key at {key_ptr:#x} is not 4-byte "
+                         "aligned")
+    if n >= MAX_SLOTS:
+        raise ValueError(f"compact_pairs takes fewer than {MAX_SLOTS} slots, "
+                         f"got {n}")
+    pad = (key_ptr // 4) % 4
+    return pad, max(1, -(-(n + pad) // CMP_TILE))
+
+
+class StatusWords:
+    """The kernel's scratch, one buffer per (device, stream): a ticket and
+    epoch word and one status word per tile, each in its own 32-byte
+    sector of int64 words. Zeroed when it is allocated; it grows to the
+    next power of two of the words a call needs and never shrinks, so a
+    steady caller allocates and clears nothing. The kernel leaves it ready
+    for the next call on its stream."""
+
+    def __init__(self):
+        self._bufs: dict = {}
+
+    def get(self, device: torch.device, stream: int,
+            n_tiles: int) -> torch.Tensor:
+        need = STATUS_STRIDE * (1 + n_tiles)
+        buf = self._bufs.get((device, stream))
+        if buf is None or buf.numel() < need:
+            buf = torch.zeros(1 << (need - 1).bit_length(), dtype=torch.int64,
+                              device=device)
+            self._bufs[(device, stream)] = buf
+        return buf
+
+
+_status = StatusWords()
+
+
 def compact_pairs(key: torch.Tensor, sid: torch.Tensor, sent_min: int,
                   out_len: int, sent_fill_key: int, sent_fill_sid: int):
     """Front-pack the valid (key < sent_min) slots into [out_len] streams."""
@@ -65,16 +109,18 @@ def compact_pairs(key: torch.Tensor, sid: torch.Tensor, sent_min: int,
     key = key.contiguous()
     sid = sid.contiguous()
     n = key.numel()
-    n_blocks = (n + CMP_TILE - 1) // CMP_TILE
     out_k = torch.empty(out_len, dtype=torch.int32, device=key.device)
     out_s = torch.empty(out_len, dtype=torch.int32, device=key.device)
-    counts = torch.empty(n_blocks + 1, dtype=torch.int32, device=key.device)
+    if out_len == 0:
+        return out_k, out_s
+    _, n_tiles = tile_layout(key.data_ptr(), n)
+    stream = _build.stream_ptr(key.device)
+    status = _status.get(key.device, stream, n_tiles)
     lib = _build.library()
     code = lib.lsx_compact_pairs(
         key.data_ptr(), sid.data_ptr(), out_k.data_ptr(), out_s.data_ptr(),
-        counts.data_ptr(), n, out_len, n_blocks, int(sent_min),
-        int(sent_fill_key), int(sent_fill_sid),
-        _build.stream_ptr(key.device))
+        status.data_ptr(), n, out_len, n_tiles, int(sent_min),
+        int(sent_fill_key), int(sent_fill_sid), stream)
     _build.launch_counts["compact_pairs"] += 1
     _build.check(code, "compact_pairs")
     return out_k, out_s

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from langscenex_tpu_torch.convert import raster_camera_from_numpy
-from langscenex_tpu_torch.ops.compaction import (compact_pairs,
+from langscenex_tpu_torch.ops.compaction import (CMP_TILE, compact_pairs,
                                                  compact_pairs_plain)
 from langscenex_tpu_torch.ops.rasterize import RasterConfig, rasterize
 from langscenex_tpu_torch import _build
@@ -140,15 +140,67 @@ def test_sort_kernel_counts_once_and_does_not_synchronise(cuda):
 
 
 @pytest.mark.gpu
-def test_compaction_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("n,n_valid,out_len,offset", [
+    (0, 0, 16, 0),                              # n = 0: all fill
+    (5000, 4000, 4500, 0), (70_000, 30_000, 40_000, 0),
+    (20_000, 0, 8000, 0),                       # no valid slot
+    (20_000, 20_000, 20_000, 0),                # every slot valid
+    (30_000, 25_000, 9000, 0),                  # n_valid > out_len
+    (5003, 4000, 9000, 0),                      # out_len > n
+    (3 * CMP_TILE + 7, 6000, 6500, 0),          # n not a multiple of 4
+    (CMP_TILE - 1, 2000, 3000, 0), (CMP_TILE, 2000, 3000, 0),
+    (CMP_TILE + 1, 2000, 3000, 0),
+    (50_001, 20_000, 30_000, 1), (50_001, 20_000, 30_000, 2),
+    (CMP_TILE + 1, 2000, 3000, 3),              # key off the 16-byte line
+    (6_000_000, 1_700_000, 1_750_000, 0),       # many tiles look back
+])
+def test_compaction_kernel_matches_plain(cuda, n, n_valid, out_len, offset):
+    # K3 bit for bit against the argsort reference: empty and full
+    # streams, truncation, a longer output than input, ragged lengths
+    # around its tile, keys whose storage starts 4, 8 or 12 bytes past a
+    # 16-byte line (the scalar head and tail), and a stream of ~1,500
+    # tiles
     rng = np.random.default_rng(6)
-    for n, n_valid, out_len in ((0, 0, 16), (5000, 4000, 4500),
-                                (70_000, 30_000, 40_000)):
-        key, sid = _pair_stream(rng, n, n_valid)
-        args = (torch.from_numpy(key).to(cuda), torch.from_numpy(sid).to(cuda),
-                SENT, out_len, SENT, 100_000)
+    key, sid = _pair_stream(rng, n, n_valid)
+    k = torch.zeros(n + offset, dtype=torch.int32, device=cuda)
+    k[offset:] = torch.from_numpy(key).to(cuda)
+    k = k[offset:]
+    assert k.data_ptr() % 16 == 4 * offset
+    args = (k, torch.from_numpy(sid).to(cuda), SENT, out_len, SENT, 100_000)
+    got, ref = compact_pairs(*args), compact_pairs_plain(*args)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.gpu
+def test_compaction_kernel_is_one_launch_and_reuses_its_scratch(cuda):
+    # one device kernel per call (no memset, no host synchronisation) once
+    # its scratch is allocated; the scratch grows with n and later, shorter
+    # streams reuse it
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(8)
+    streams = [_pair_stream(rng, n, n // 3) for n in
+               (10_000, 400_000, 2_000_000, 30_000)]
+    for key, sid in streams + streams[::-1]:
+        args = (torch.from_numpy(key).to(cuda),
+                torch.from_numpy(sid).to(cuda), SENT, key.size // 3 + 10,
+                SENT, 100_000)
         got, ref = compact_pairs(*args), compact_pairs_plain(*args)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            compact_pairs(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1, kernels
+    assert _build.launch_counts["compact_pairs"] == 1
 
 
 @pytest.mark.gpu
