@@ -17,7 +17,11 @@ step (the blend backward, ``ops/{losses,depth_normal,interp,knn}.py``,
 field}.py`` with ``GaussianFieldTrainer``) and the TriMap video-diffusion
 request (``ops/{ln_modulate,flash_attention}.py`` over kernels K8 and K5,
 ``models/cogvideox/{transformer,scheduler,pipeline,vae}.py``,
-``models/t5.py`` and ``video_inference.py``). Entry points run on the
-first CUDA card unless the caller names another device
-(``utils/device.py``).
+``models/t5.py`` and ``video_inference.py``) and the field stage end to
+end (``scene/{colmap_io,dataset_readers}.py``, ``ops/tsdf.py``,
+``train/{render_mode,checkpoint,per_point_adam}.py``,
+``eval/open_vocab.py``, ``pipeline.py`` and the train / render / eval
+CLI ``entry_point.py``; images through ``utils/png.py``, no PIL).
+Entry points run on the first CUDA card unless the caller names another
+device (``utils/device.py``).
 """

@@ -1,11 +1,12 @@
 """Fine-tune datasets for the TriMap diffusion and VAE stages.
 
-Port of the JAX ``models/cogvideox/datasets.py`` (numpy and PIL, no
-framework): the clip sampler of the reference's ImageVideoDataset (49
-frames at stride 2, the VAE's 4k+1 frame count, first/last-frame
-conditioning pairs), AutoEncoderDataset and the single-image dataset,
-over directories of frames. The same seed gives the same samples as the
-JAX package.
+Port of the JAX ``models/cogvideox/datasets.py`` (numpy, no framework):
+the clip sampler of the reference's ImageVideoDataset (49 frames at
+stride 2, the VAE's 4k+1 frame count, first/last-frame conditioning
+pairs), AutoEncoderDataset and the single-image dataset, over
+directories of frames. The same seed gives the same samples as the JAX
+package. Frames are read and resized by ``utils/png`` in place of PIL, so
+they must be PNGs; a JPEG frame raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ...utils.png import read_png, resize_bicubic, to_rgb
+
 
 def valid_clip_length(n: int) -> int:
     """Largest f <= n with f % 4 == 1 (the VAE's 4k+1 temporal
@@ -23,11 +26,11 @@ def valid_clip_length(n: int) -> int:
 
 
 def load_image(path: str, size_hw: Tuple[int, int]) -> np.ndarray:
-    """An image file as [3, H, W] float32 in [-1, 1]."""
-    from PIL import Image
+    """A PNG file as [3, H, W] float32 in [-1, 1] (PIL's ``convert("RGB")``
+    and bicubic ``resize``)."""
     H, W = size_hw
-    im = Image.open(path).convert("RGB").resize((W, H))
-    return np.asarray(im, np.float32).transpose(2, 0, 1) / 127.5 - 1.0
+    im = resize_bicubic(to_rgb(read_png(path)), (W, H))
+    return im.astype(np.float32).transpose(2, 0, 1) / 127.5 - 1.0
 
 
 def _frames(root: str) -> List[str]:

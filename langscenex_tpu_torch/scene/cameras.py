@@ -1,11 +1,14 @@
 """Host-side camera objects, port of the JAX ``scene/cameras.py``: pose,
 field of view and size, ``raster_camera()`` for the render device, the
-training image (in memory), the ``*_f.npy`` / ``*_s.npy`` language
-features and ``compute_nearest_cameras``. Host data is numpy.
+training image (in memory, or read from its PNG file), the normal prior,
+the ``*_f.npy`` / ``*_s.npy`` language features and
+``compute_nearest_cameras``. Host data is numpy.
 
-Not ported yet: reading image files (``load_image`` with no in-memory
-image needs PIL, which the GPU machine may lack) and ``load_normal`` (the
-normal prior is off by default, ``normal_optim=False``).
+Image files are read through ``utils/png`` (no PIL): PNG only, resized
+with PIL's bicubic filter as the JAX package's ``Image.resize`` does. A
+normal map is taken as RGB before its resize (alpha dropped, gray
+repeated); PIL resizes an RGBA image with premultiplied alpha, which
+differs only where alpha is below 255.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 from ..ops.projection import RasterCamera
 from ..ops.transforms import fov2focal, projection_matrix, world_to_view
 from ..utils.device import resolve_device
+from ..utils.png import read_png, resize_bicubic, to_rgb
 
 ZNEAR = 0.01
 ZFAR = 100.0
@@ -87,14 +91,32 @@ class Camera:
             tan_fovy=math.tan(self.fovy * 0.5))
 
     def load_image(self) -> Tuple[np.ndarray, np.ndarray]:
-        """(image [3,H,W], gray [1,H,W]) held in memory; ``image_gray`` is
-        derived when only the image was given."""
+        """(image [3,H,W], gray [1,H,W]) in [0,1]: held in memory, or read
+        from ``image_path`` (RGB, resized to width x height) and kept;
+        ``image_gray`` is derived when only the image was given."""
         if self.image is None:
-            raise NotImplementedError(
-                "reading image files is not ported: set Camera.image")
+            img = resize_bicubic(to_rgb(read_png(self.image_path)),
+                                 (self.width, self.height))
+            self.image = img.astype(np.float32).transpose(2, 0, 1) / 255.0
         if self.image_gray is None:
             self.image_gray = rgb_to_gray(self.image)
         return self.image, self.image_gray
+
+    def load_normal(self) -> Tuple[np.ndarray, np.ndarray]:
+        """World-space normal prior [3,H,W] and validity mask [H,W]
+        (cameras.py get_normal:122-134): ``<scene>/normal/<image file>``
+        in [0,1] -> -(2x - 1), rotated cam -> world by R^-1, valid where
+        the norm is within 0.1 of 1."""
+        base = os.path.dirname(os.path.dirname(self.image_path))
+        img = read_png(os.path.join(base, "normal",
+                                    os.path.basename(self.image_path)))
+        img = resize_bicubic(to_rgb(img), (self.width, self.height))
+        arr = img.astype(np.float32).transpose(2, 0, 1) / 255.0
+        n = -(arr * 2.0 - 1.0)
+        n_world = np.einsum("chw,ck->khw", n, np.linalg.inv(self.R).T)
+        norm = np.linalg.norm(n_world, axis=0, keepdims=True)
+        mask = ~((norm > 1.1) | (norm < 0.9))
+        return n_world / np.maximum(norm, 1e-8), mask[0]
 
     def load_language_feature(self, feature_dir: str):
         """(feature [3,H,W], mask [H,W], seg [H,W]) from the *_f.npy /

@@ -1,12 +1,16 @@
-"""Checkpoint and resume for the fine-tune states.
+"""Checkpoint and resume for the field trainer and the fine-tune states.
 
 Port of the JAX ``train/checkpoint.py``: a state is saved as
 ``<path>/chkpnt<iteration>`` and the latest is found by that name, as
 the reference's ``searchForMaxIteration`` does. The JAX package writes
-orbax directories; here the file is a ``torch.save`` of the state (the
-DiT state of ``train/dit.py`` or the LoRA state of ``train/lora.py``:
-dicts of tensors and ints), read back with ``weights_only=True``. Orbax
-checkpoints are not read.
+orbax directories; here the file is a ``torch.save`` of the state as
+nested dicts of tensors, ints, floats and strings (the DiT state of
+``train/dit.py``, the LoRA state of ``train/lora.py``, or the field
+trainer's, see ``GaussianFieldTrainer.save_checkpoint``), read back with
+``weights_only=True``. Orbax checkpoints are not read.
+
+A checkpoint path may also name one ``chkpnt<it>`` file, as the
+reference's ``start_checkpoint`` does.
 """
 from __future__ import annotations
 
@@ -36,9 +40,14 @@ def latest_iteration(path: str) -> Optional[int]:
 
 def restore_checkpoint(path: str, template: Any = None,
                        iteration: Optional[int] = None) -> Tuple[Any, int]:
-    """(state, iteration) of the given or latest checkpoint, its tensors
-    on the devices they were saved from. With a ``template`` state, the
+    """(state, iteration) of ``path/chkpnt<iteration>``, of the latest
+    under ``path``, or of the ``chkpnt<it>`` file ``path``; its tensors on
+    the devices they were saved from. With a ``template`` state, the
     restored one must have its keys."""
+    name = os.path.basename(path)
+    if (iteration is None and os.path.isfile(path) and name.startswith(PREFIX)
+            and name[len(PREFIX):].isdigit()):
+        path, iteration = os.path.dirname(path), int(name[len(PREFIX):])
     it = iteration if iteration is not None else latest_iteration(path)
     if it is None:
         raise FileNotFoundError(f"no checkpoints under {path}")

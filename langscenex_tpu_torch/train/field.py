@@ -24,11 +24,18 @@ densification (the clone/split noise) are arguments, drawn by the trainer
 from a ``torch.Generator``: the JAX package draws them from PRNG keys,
 which no torch generator reproduces, so the parity tests inject JAX's
 draws. The trainer picks views with the same numpy generator as the JAX
-trainer. Not ported yet: checkpoints, PLY/pose snapshots, the training
-report and the debug collage (the ``save_dir`` branches of
-:meth:`GaussianFieldTrainer.train` raise ``NotImplementedError``), the
-normal prior (``normal_optim``), the per-point Adam (``pp_optimizer``) and
-the view-parallel multi-device step.
+trainer. Not ported yet: the view-parallel multi-device step.
+
+The trainer's outputs under ``save_dir`` are the JAX package's: PLY and
+pose snapshots, checkpoints, the training report's side-by-side PNGs and
+the debug collage, with two deviations. The collage is a PNG,
+``debug/{it:05d}_{name}.png``, where the JAX package writes a JPEG
+(nothing reads it; the port writes no JPEG). A checkpoint is a
+``torch.save`` of the state as nested dicts of tensors and ints
+(:func:`state_dict`, saved by ``train/checkpoint.py``), written after the iteration's pair-cap check,
+and it also holds what the next iteration needs besides the state: the
+pair caps, the SH degree, the view stack and both generators, so a
+resumed run continues as the uninterrupted one would have.
 
 Deviation kept from the JAX package: in pose-optimised mode the all_map
 plane channels are built consistently in the render camera frame (the
@@ -37,8 +44,10 @@ reference builds them with the nominal camera on already-moved means).
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import math
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -53,6 +62,7 @@ from ..ops.transforms import projection_matrix
 from ..scene.cameras import ZFAR, ZNEAR, Camera
 from ..scene.gaussians import DensifyStats, GaussianState
 from ..utils.config import OptimizationConfig
+from ..utils.png import write_png
 from .densify import densify_and_prune
 from .multiview import multi_view_loss
 from .optim import (AdamState, make_app_optimizer, make_pose_optimizer,
@@ -108,6 +118,8 @@ class CameraBatch(NamedTuple):
     w2c: torch.Tensor            # [4,4] nominal world-to-cam
     gt_image: torch.Tensor       # [3,H,W]
     gt_gray: torch.Tensor        # [1,H,W]
+    normal_prior: torch.Tensor   # [3,H,W] world-space prior
+    normal_mask: torch.Tensor    # [H,W] bool
     lang_feat: torch.Tensor      # [3,H,W]
     lang_mask: torch.Tensor      # [H,W] bool
     seg: torch.Tensor            # [H,W] int64
@@ -136,6 +148,43 @@ class TrainState:
     app_opt: AdamState
     stats: DensifyStats
     step: int
+
+
+def state_dict(state: TrainState) -> dict:
+    """A TrainState as nested dicts of tensors and ints: splats, poses,
+    exposure table, the three Adam states with the per-point multipliers,
+    densify statistics and step."""
+    def adam(a: AdamState) -> dict:
+        return dict(count=a.count, mu=dict(a.mu), nu=dict(a.nu),
+                    per_point_lr=a.per_point_lr)
+    return dict(
+        splats={f.name: getattr(state.splats, f.name)
+                for f in dataclasses.fields(GaussianState)},
+        poses=state.poses, app_ab=state.app_ab,
+        splat_opt=adam(state.splat_opt), pose_opt=adam(state.pose_opt),
+        app_opt=adam(state.app_opt),
+        stats={f.name: getattr(state.stats, f.name)
+               for f in dataclasses.fields(DensifyStats)},
+        step=state.step)
+
+
+def state_from_dict(d: dict, device: torch.device | str) -> TrainState:
+    """Inverse of :func:`state_dict`, every tensor on ``device``."""
+    def to(t):
+        return None if t is None else t.to(device)
+
+    def adam(a: dict) -> AdamState:
+        return AdamState(count=a["count"],
+                         mu={k: to(v) for k, v in a["mu"].items()},
+                         nu={k: to(v) for k, v in a["nu"].items()},
+                         per_point_lr=to(a["per_point_lr"]))
+    return TrainState(
+        splats=GaussianState(**{k: to(v) for k, v in d["splats"].items()}),
+        poses=to(d["poses"]), app_ab=to(d["app_ab"]),
+        splat_opt=adam(d["splat_opt"]), pose_opt=adam(d["pose_opt"]),
+        app_opt=adam(d["app_opt"]),
+        stats=DensifyStats(**{k: to(v) for k, v in d["stats"].items()}),
+        step=d["step"])
 
 
 def render_view(splats: GaussianState, pose: Optional[torch.Tensor],
@@ -237,7 +286,9 @@ def view_loss(cfg: OptimizationConfig, flags: StepFlags, rcfg: RasterConfig,
 
         # min-scale flatness loss (gaussian_field.py:247-252)
         vis = out.visible & (out.radii > 0)
-        min_scale = splats.get_scaling().min(-1).values
+        # amin spreads the gradient over tied scales, as jnp.min does
+        # (create_from_points makes every splat's three scales equal)
+        min_scale = torch.amin(splats.get_scaling(), -1)
         n_vis = torch.clamp(vis.sum(), min=1)
         total = total + cfg.scale_loss_weight * torch.where(
             vis, min_scale, 0.0).sum() / n_vis
@@ -249,13 +300,22 @@ def view_loss(cfg: OptimizationConfig, flags: StepFlags, rcfg: RasterConfig,
         depth_normal = depth_normal * out.all_map[3].detach()[None]
         normal_ch = out.all_map[:3]
         if cfg.normal_optim:
-            raise NotImplementedError("the normal prior (normal_optim) is "
-                                      "not ported")
-        iw = (1.0 - L.image_grad_weight(batch.gt_image))
-        iw = (torch.clamp(iw, 0, 1) ** 2).detach()
-        diff = (depth_normal - normal_ch).abs().sum(0)
-        nl = cfg.single_view_weight * (
-            diff if cfg.wo_image_weight else iw * diff).mean()
+            # StableNormal prior (:264-276): rendered and depth normals
+            # rotated to world, compared with the prior by cosine
+            Rcw = eff_w2c[:3, :3].T
+            rn_world = torch.einsum("ij,jhw->ihw", Rcw, normal_ch)
+            dn_world = torch.einsum("ij,jhw->ihw", Rcw, depth_normal)
+            err = ((1.0 - _cos_hw(batch.normal_prior, rn_world))
+                   + (1.0 - _cos_hw(batch.normal_prior, dn_world)))
+            msum = torch.clamp(batch.normal_mask.sum(), min=1)
+            nl = cfg.single_view_weight * torch.where(
+                batch.normal_mask, err, 0.0).sum() / msum
+        else:
+            iw = (1.0 - L.image_grad_weight(batch.gt_image))
+            iw = (torch.clamp(iw, 0, 1) ** 2).detach()
+            diff = (depth_normal - normal_ch).abs().sum(0)
+            nl = cfg.single_view_weight * (
+                diff if cfg.wo_image_weight else iw * diff).mean()
         total = total + nl
         metrics["normal_loss"] = nl
 
@@ -417,21 +477,29 @@ def make_train_step(cfg: OptimizationConfig, flags: StepFlags,
     return step_fn
 
 
+def _cos_hw(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cosine similarity along the channels of [3,H,W] maps (gradient-safe
+    at zero vectors)."""
+    num = (a * b).sum(0)
+    na = torch.sqrt(torch.clamp((a * a).sum(0), min=1e-16))
+    nb = torch.sqrt(torch.clamp((b * b).sum(0), min=1e-16))
+    return num / (na * nb)
+
+
 class GaussianFieldTrainer:
     """Host-side trainer (the Python loop of gaussian_field.train):
     view shuffling, phase switching, densification cadence, the instance
     feature copy at the instance phase boundary, the SH degree ramp and
     adaptive pair-buffer sizing. Cameras share one resolution. Training
-    runs on the device of ``splats``."""
+    runs on the device of ``splats``. ``confidence_lr`` [P,1] seeds the
+    per-point Adam's multipliers (``pp_optimizer``)."""
 
     def __init__(self, cams: list[Camera], splats: GaussianState,
                  cfg: OptimizationConfig, scene_extent: float,
                  sh_degree_max: int = 3, rcfg: RasterConfig = RasterConfig(),
                  white_background: bool = False, seed: int = 42,
-                 lang_dir: Optional[str] = None):
-        if cfg.normal_optim:
-            raise NotImplementedError("the normal prior (normal_optim) is "
-                                      "not ported")
+                 lang_dir: Optional[str] = None,
+                 confidence_lr: Optional[torch.Tensor] = None):
         self.cams = cams
         self.cfg = cfg
         self.device = splats.device
@@ -470,7 +538,8 @@ class GaussianFieldTrainer:
         app_ab = torch.zeros((len(cams), 2), device=dev)
         self.state = TrainState(
             splats=splats, poses=poses, app_ab=app_ab,
-            splat_opt=make_splat_optimizer(cfg, scene_extent).init(
+            splat_opt=make_splat_optimizer(
+                cfg, scene_extent, confidence_lr=confidence_lr).init(
                 splat_params(splats)),
             pose_opt=make_pose_optimizer(cfg).init({"poses": poses}),
             app_opt=make_app_optimizer().init({"app_ab": app_ab}),
@@ -491,6 +560,15 @@ class GaussianFieldTrainer:
         cam = self.cams[ci]
         img, gray = cam.load_image()
         H, W = img.shape[1:]
+        normal_prior = normal_mask = None
+        if self.cfg.normal_optim:
+            try:
+                normal_prior, normal_mask = cam.load_normal()
+            except FileNotFoundError:
+                pass
+        if normal_prior is None:
+            normal_prior, normal_mask = np.zeros_like(img), np.zeros((H, W),
+                                                                     bool)
         lf = lm = seg = None
         if self.lang_dir:
             try:
@@ -505,6 +583,8 @@ class GaussianFieldTrainer:
             return torch.as_tensor(np.asarray(a), dtype=dtype,
                                    device=self.device)
         arrs = dict(w2c=t(cam.w2c), gt_image=t(img), gt_gray=t(gray),
+                    normal_prior=t(normal_prior),
+                    normal_mask=t(normal_mask, torch.bool),
                     lang_feat=t(lf), lang_mask=t(lm, torch.bool),
                     seg=t(seg, torch.int64))
         self._batch_cache[ci] = arrs
@@ -615,6 +695,149 @@ class GaussianFieldTrainer:
         order = np.argsort([c.colmap_id for c in self.cams])
         return mats[order]
 
+    # ---------------- outputs ----------------
+
+    def save_pose_org(self, save_dir: str, save_iterations) -> None:
+        """Nominal (pre-training) poses per save iteration
+        (gaussian_field.py:141-144)."""
+        nominal = tensor_from_camera(torch.as_tensor(
+            np.stack([c.w2c for c in self.cams]).astype(np.float32)))
+        for it in save_iterations:
+            d = os.path.join(save_dir, f"pose/iter_{it}")
+            os.makedirs(d, exist_ok=True)
+            np.save(os.path.join(d, "pose_org.npy"),
+                    self.poses_as_matrices(nominal))
+
+    def save_snapshot(self, save_dir: str, it: int) -> None:
+        """The PLY snapshot (with the language and instance channels) and
+        the optimised poses of iteration ``it`` (gaussian_field.py:516-525)."""
+        from ..scene.ply_io import save_ply
+        save_ply(self.state.splats, os.path.join(
+            save_dir, f"point_cloud/iteration_{it}/point_cloud.ply"))
+        os.makedirs(os.path.join(save_dir, f"pose/iter_{it}"), exist_ok=True)
+        np.save(os.path.join(save_dir, f"pose/iter_{it}/pose_optimized.npy"),
+                self.poses_as_matrices())
+
+    def save_checkpoint(self, save_dir: str, it: int) -> None:
+        """``save_dir/chkpnt<it>``: ``{"field_state": state_dict(state),
+        "trainer": ...}``, where ``trainer`` is what the next iteration
+        needs besides the state: the pair caps and their bookkeeping, the
+        SH degree, the view stack and the two generators (ints, floats,
+        strings and tensors only)."""
+        from .checkpoint import save_checkpoint
+        save_checkpoint(save_dir, dict(
+            field_state=state_dict(self.state), trainer=dict(
+                max_pairs=self.rcfg.max_pairs,
+                big_splats=self.rcfg.big_splats,
+                demand_hwm=self._demand_hwm,
+                last_cap_resize=self._last_cap_resize,
+                active_sh_degree=self.active_sh_degree,
+                viewpoint_stack=list(self._viewpoint_stack),
+                numpy_rng=json.dumps(self.rng.bit_generator.state),
+                torch_rng=self.gen.get_state())), it)
+
+    def restore(self, path: str, iteration: Optional[int] = None) -> int:
+        """Resume from ``path/chkpnt<it>`` (the latest, or ``iteration``)
+        or from a ``chkpnt<it>`` file: the TrainState onto this trainer's
+        device and the trainer's own state that :meth:`save_checkpoint`
+        stored. Returns the iteration; train on from ``first_iteration =
+        it + 1``."""
+        from .checkpoint import restore_checkpoint
+        payload, it = restore_checkpoint(path, iteration=iteration)
+        self.state = state_from_dict(payload["field_state"], self.device)
+        t = payload["trainer"]
+        self.rcfg = dataclasses.replace(self.rcfg, max_pairs=t["max_pairs"],
+                                        big_splats=t["big_splats"])
+        self._steps.clear()
+        self._demand_hwm = t["demand_hwm"]
+        self._last_cap_resize = t["last_cap_resize"]
+        self.active_sh_degree = t["active_sh_degree"]
+        self._viewpoint_stack = list(t["viewpoint_stack"])
+        self.rng.bit_generator.state = json.loads(t["numpy_rng"])
+        self.gen.set_state(t["torch_rng"])
+        return it
+
+    @torch.no_grad()
+    def _eval_render(self, ci: int, include_feature: bool,
+                     return_plane: bool) -> RenderOutput:
+        """Render camera ci with the nominal (not the optimised) pose and
+        the current splats (the training_report contract,
+        gaussian_field.py:562-565)."""
+        with L.exact_f32():
+            return render_view(self.state.splats, None,
+                               self._camera_arrays(ci)["w2c"],
+                               self.proxy_cam, self.bg,
+                               self.active_sh_degree, include_feature,
+                               return_plane, None, self.rcfg)
+
+    def training_report(self, it: int, save_dir: str) -> dict:
+        """test_iterations validation (gaussian_field.py:562-602): render
+        the training cameras [5, 10, 15, 20, 25] (mod N) with the exposure
+        affine, L1 and PSNR, and write render | gt side by side to
+        ``save_dir/valid/{it}_{uid}.png``."""
+        os.makedirs(os.path.join(save_dir, "valid"), exist_ok=True)
+        idxs = [i % len(self.cams) for i in range(5, 30, 5)]
+        l1_t, psnr_t = 0.0, 0.0
+        for ci in idxs:
+            out = self._eval_render(ci, False, False)
+            a, b = self.state.app_ab[ci]
+            image = torch.clamp(torch.exp(a) * out.color + b, 0.0, 1.0)
+            gt = torch.clamp(self._camera_arrays(ci)["gt_image"], 0.0, 1.0)
+            l1_t += float((image - gt).abs().mean())
+            mse = float(((image - gt) ** 2).mean())
+            psnr_t += -10.0 * math.log10(max(mse, 1e-12))
+            side = torch.cat([image, gt], 2).cpu().numpy()
+            write_png(os.path.join(save_dir, "valid",
+                                   f"{it}_{self.cams[ci].uid}.png"),
+                      (side.transpose(1, 2, 0) * 255).astype(np.uint8))
+        l1_t /= len(idxs)
+        psnr_t /= len(idxs)
+        log.info("[ITER %d] Evaluating train: L1 %.5f PSNR %.3f", it, l1_t,
+                 psnr_t)
+        return {"l1": l1_t, "psnr": psnr_t}
+
+    def debug_collage(self, it: int, ci: int, save_dir: str) -> None:
+        """The 8-panel debug image (gaussian_field.py:342-378), as
+        ``save_dir/debug/{it:05d}_{name}.png``: row 0 gt | render |
+        rendered normal | distance, row 1 image weight | plane depth |
+        depth normal | normal prior."""
+        from ..ops.depth_normal import normal_from_depth
+        from ..utils.colormaps import apply_colormap, normalize
+
+        os.makedirs(os.path.join(save_dir, "debug"), exist_ok=True)
+        cam = self.cams[ci]
+        arrs = self._camera_arrays(ci)
+        out = self._eval_render(ci, False, True)
+
+        def u8(chw):
+            x = np.clip(np.asarray(chw), 0, 1)
+            return (x.transpose(1, 2, 0) * 255).astype(np.uint8)
+
+        def cmap_u8(x):
+            return (apply_colormap(np.asarray(x)) * 255).astype(np.uint8)
+
+        def host(t):
+            return t.detach().cpu().numpy()
+
+        depth = out.plane_depth
+        with L.exact_f32():
+            dn = host(normal_from_depth(depth, torch.as_tensor(
+                cam.K(), device=depth.device)))
+        w2c = host(arrs["w2c"])
+        dn_world = dn @ w2c[:3, :3]                       # cam -> world rows
+        row0 = np.concatenate([
+            u8(host(arrs["gt_image"])), u8(host(out.color)),
+            u8((host(out.all_map[:3]) + 1.0) * 0.5),
+            cmap_u8(normalize(host(out.all_map[4])))], axis=1)
+        row1 = np.concatenate([
+            cmap_u8(host(L.image_grad_weight(arrs["gt_image"]))),
+            cmap_u8(normalize(host(depth))),
+            ((np.clip(dn_world, -1, 1) + 1) * 0.5 * 255).astype(np.uint8),
+            u8((host(arrs["normal_prior"]) + 1.0) * 0.5)], axis=1)
+        name = cam.image_name or str(cam.uid)
+        write_png(os.path.join(save_dir, "debug", f"{it:05d}_{name}.png"),
+                  np.concatenate([row0, row1], axis=0))
+
     # ---------------- main loop ----------------
 
     def train(self, iterations: Optional[int] = None, log_every: int = 0,
@@ -622,14 +845,11 @@ class GaussianFieldTrainer:
               save_iterations=(), checkpoint_iterations=(),
               test_iterations=(), collage_interval: int = 0,
               first_iteration: int = 1):
-        """Main loop over iterations ``first_iteration..iterations``.
-        Snapshots, checkpoints, the training report and the debug collage
-        (everything under ``save_dir``) are not ported yet."""
-        if save_dir and (save_iterations or checkpoint_iterations
-                         or test_iterations or collage_interval):
-            raise NotImplementedError(
-                "save_dir outputs (PLY/pose snapshots, checkpoints, report, "
-                "collage) are not ported")
+        """Main loop over iterations ``first_iteration..iterations``. With
+        ``save_dir``: PLY and pose snapshots at ``save_iterations``,
+        checkpoints at ``checkpoint_iterations``, the training report at
+        ``test_iterations`` and the debug collage every
+        ``collage_interval`` iterations (gaussian_field.py:516-549)."""
         cfg = self.cfg
         iterations = iterations or cfg.iterations
         metrics = {}
@@ -673,6 +893,13 @@ class GaussianFieldTrainer:
                 self.state.splat_opt = zero_moments_at(self.state.splat_opt,
                                                        res.written_slots)
 
+            if save_dir and it in set(save_iterations):
+                self.save_snapshot(save_dir, it)
+            if save_dir and it in set(test_iterations):
+                self.training_report(it, save_dir)
+            if save_dir and collage_interval and it % collage_interval == 0:
+                self.debug_collage(it, ci, save_dir)
+
             # overflow check: every 10 iterations while densification and
             # scale dynamics are active, every 100 after (one device fetch)
             check_every = 10 if it <= cfg.densify_until_iter else 100
@@ -686,6 +913,8 @@ class GaussianFieldTrainer:
                         self._demand_hwm,
                         float(metrics.get("num_pairs", 0.0)))
                     self._maybe_shrink_pair_cap(it)
+            if save_dir and it in set(checkpoint_iterations):
+                self.save_checkpoint(save_dir, it)
             if log_every and it % log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 # EMA postfix (decay 0.4/0.6, gaussian_field.py:490-511)

@@ -17,19 +17,24 @@ dict of tensors that matches optax's arithmetic, instead of using
 - ``zero_moments_at`` resets the moments of the slots densification wrote,
   which needs the moments as plain tensors.
 
+With ``pp_optimizer`` the xyz group is a per-point Adam
+(``train/per_point_adam.py``): its steps are scaled row by row by a
+multiplier column kept in the state (``AdamState.per_point_lr``).
+
 Schedules are evaluated in float32 with numpy, as the JAX step evaluates
 them in f32 on the device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..scene.gaussians import GaussianState
 from ..utils.config import OptimizationConfig
+from .per_point_adam import adjust_per_point_lr
 
 _F = np.float32
 
@@ -90,51 +95,75 @@ def splat_params(state: GaussianState) -> dict:
 @dataclasses.dataclass
 class AdamState:
     """optax ``ScaleByAdamState`` per group: one count (all groups of an
-    optimizer step together) and the first and second moments."""
+    optimizer step together) and the first and second moments; with a
+    per-point group, its multipliers [P,1] (``PerPointAdamState``)."""
     count: int
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
+    per_point_lr: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
 class GroupAdam:
     """Adam over a dict of tensors with a learning rate per group;
-    ``lr_fn(count)`` gives the dict of rates for the step at ``count``."""
+    ``lr_fn(count)`` gives the dict of rates for the step at ``count``.
+    The group named ``per_point`` is a per-point Adam whose multipliers
+    start at ``init_per_point_lr`` (ones when None) and follow its
+    gradient magnitudes."""
     lr_fn: Callable[[int], dict]
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    per_point: Optional[str] = None
+    init_per_point_lr: Optional[torch.Tensor] = None
 
     def init(self, params: dict) -> AdamState:
+        pplr = None
+        if self.per_point is not None:
+            p = params[self.per_point]
+            pplr = (torch.ones((p.shape[0], 1), device=p.device)
+                    if self.init_per_point_lr is None else
+                    self.init_per_point_lr.to(p.device, torch.float32))
         return AdamState(
             count=0, mu={k: torch.zeros_like(v) for k, v in params.items()},
-            nu={k: torch.zeros_like(v) for k, v in params.items()})
+            nu={k: torch.zeros_like(v) for k, v in params.items()},
+            per_point_lr=pplr)
 
     @torch.no_grad()
     def update(self, grads: dict, state: AdamState, params: dict):
         """One optax-equivalent step: returns (new params, new state)."""
         lrs = self.lr_fn(state.count)
+        if self.per_point is not None:
+            pp_lr = float(self.lr_fn(state.count + 1)[self.per_point])
         t = _F(state.count + 1)
         bc1 = float(_F(1) - _F(self.b1) ** t)
         bc2 = float(_F(1) - _F(self.b2) ** t)
         new_p, mu, nu = {}, {}, {}
+        pplr = state.per_point_lr
         for k, p in params.items():
             g = grads[k]
             mu[k] = (1 - self.b1) * g + self.b1 * state.mu[k]
             nu[k] = (1 - self.b2) * (g * g) + self.b2 * state.nu[k]
             upd = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps)
-            new_p[k] = p + float(-lrs[k]) * upd
-        return new_p, AdamState(count=state.count + 1, mu=mu, nu=nu)
+            if k == self.per_point:
+                pplr = adjust_per_point_lr(pplr, g)
+                new_p[k] = p - pp_lr * pplr.reshape(
+                    (-1,) + (1,) * (upd.ndim - 1)) * upd
+            else:
+                new_p[k] = p + float(-lrs[k]) * upd
+        return new_p, AdamState(count=state.count + 1, mu=mu, nu=nu,
+                                per_point_lr=pplr)
 
 
 def make_splat_optimizer(cfg: OptimizationConfig,
-                         spatial_lr_scale: float) -> GroupAdam:
+                         spatial_lr_scale: float,
+                         confidence_lr: Optional[torch.Tensor] = None
+                         ) -> GroupAdam:
     """Adam(eps=1e-15) with a learning rate per group over the splat
-    parameter dict; xyz follows the exponential position schedule.
-    ``pp_optimizer`` (per-point Adam) is not ported yet."""
-    if cfg.pp_optimizer:
-        raise NotImplementedError("the per-point Adam (pp_optimizer) is "
-                                  "not ported")
+    parameter dict; xyz follows the exponential position schedule. With
+    ``pp_optimizer`` the xyz group is a per-point Adam whose multipliers
+    start at ``confidence_lr`` [P,1] (ones when None;
+    training_setup_pp, gaussian_model.py:344-382)."""
     lrs = group_lrs(cfg, spatial_lr_scale)
 
     def lr_fn(count):
@@ -144,6 +173,9 @@ def make_splat_optimizer(cfg: OptimizationConfig,
                               lr_delay_mult=cfg.position_lr_delay_mult,
                               max_steps=cfg.position_lr_max_steps)
         return out
+    if cfg.pp_optimizer:
+        return GroupAdam(lr_fn=lr_fn, eps=1e-15, per_point="xyz",
+                         init_per_point_lr=confidence_lr)
     return GroupAdam(lr_fn=lr_fn, eps=1e-15)
 
 
@@ -173,14 +205,17 @@ def phase_grad_mask(phase: str, grads: dict) -> dict:
 def zero_moments_at(state: AdamState, slot_mask: torch.Tensor) -> AdamState:
     """Reset the Adam moments at slots where ``slot_mask`` is True — the
     fixed-capacity analogue of the reference's cat_tensors_to_optimizer
-    zero-extension (gaussian_model.py:561-581)."""
+    zero-extension (gaussian_model.py:561-581). Per-point multipliers
+    reset to the neutral 1.0 (a zero would freeze the slot)."""
     cap = slot_mask.shape[0]
 
-    def reset(leaf):
+    def reset(leaf, fill=0.0):
         if leaf.ndim >= 1 and leaf.shape[0] == cap:
             m = slot_mask.reshape((cap,) + (1,) * (leaf.ndim - 1))
-            return torch.where(m, torch.zeros_like(leaf), leaf)
+            return torch.where(m, torch.full_like(leaf, fill), leaf)
         return leaf
     return AdamState(count=state.count,
                      mu={k: reset(v) for k, v in state.mu.items()},
-                     nu={k: reset(v) for k, v in state.nu.items()})
+                     nu={k: reset(v) for k, v in state.nu.items()},
+                     per_point_lr=None if state.per_point_lr is None
+                     else reset(state.per_point_lr, 1.0))

@@ -1,11 +1,13 @@
-"""Field-construction optimisation settings, copied from the JAX
-``utils/config.py`` (``OptimizationConfig``: the same fields and the same
+"""Field-construction settings, copied from the JAX ``utils/config.py``
+(``OptimizationConfig``, ``DatasetConfig``, ``PipeConfig``,
+``RenderConfig`` and ``GaussianConfig``: the same fields and the same
 defaults, the reference's shipped values of
-configs/field_construction.yaml:66-121), so a configuration carries
+configs/field_construction.yaml:45-139), so a configuration carries
 across packages without importing the JAX one."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -72,3 +74,51 @@ class OptimizationConfig:
     lang_loss_start_iter: int = 1200
     grouping_loss: bool = True
     loss_obj_3d: bool = True
+
+
+@dataclasses.dataclass
+class DatasetConfig:
+    """gaussian.dataset (configs/field_construction.yaml:45-64)."""
+    source_path: str = ""
+    model_path: str = ""
+    images: str = "images"
+    resolution: int = -1
+    white_background: bool = False
+    sh_degree: int = 3
+    eval: bool = False
+    num_images: int = 1600        # AppModel table size (app_model.py:12)
+    multi_view_num: int = 8
+    multi_view_max_angle: float = 30
+    multi_view_min_dis: float = 0.01
+    multi_view_max_dis: float = 1.5
+    language_features_name: str = "lang_features_dim3"
+
+
+@dataclasses.dataclass
+class PipeConfig:
+    convert_SHs_python: bool = False
+    compute_cov3D_python: bool = False
+    debug: bool = False
+
+
+@dataclasses.dataclass
+class RenderConfig:
+    """gaussian.render (configs/field_construction.yaml:129-134)."""
+    load_iteration: int = 5_000
+    pose_optim_iter: int = 100
+    voxel_size: float = 0.01
+    normalized: bool = True
+    include_features: bool = True
+
+
+@dataclasses.dataclass
+class GaussianConfig:
+    dataset: DatasetConfig = dataclasses.field(default_factory=DatasetConfig)
+    opt: OptimizationConfig = dataclasses.field(default_factory=OptimizationConfig)
+    pipe: PipeConfig = dataclasses.field(default_factory=PipeConfig)
+    render: RenderConfig = dataclasses.field(default_factory=RenderConfig)
+    save_iterations: Tuple[int, ...] = (100, 500, 1000, 2000, 5000, 10000, 12000)
+    checkpoint_iterations: Tuple[int, ...] = (100, 500, 1000, 2000, 5000, 10000, 12000)
+    test_iterations: Tuple[int, ...] = (100, 500, 1000, 2000, 5000, 10000, 12000)
+    quiet: bool = False
+    start_checkpoint: Optional[str] = None

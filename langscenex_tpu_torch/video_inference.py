@@ -40,6 +40,7 @@ from .models.cogvideox.vae import (AutoencoderKL3D, VAEConfig,
                                    spatial_tile_decode)
 from .models.t5 import TextEncoder
 from .utils.device import resolve_device
+from .utils.png import write_png
 
 log = logging.getLogger(__name__)
 
@@ -59,12 +60,11 @@ def save_video_frames(video: np.ndarray, out_dir: str, fps: int = 8) -> None:
     import shutil
     import subprocess
 
-    from PIL import Image
     os.makedirs(out_dir, exist_ok=True)
     for t in range(video.shape[0]):
         img = np.clip((video[t].transpose(1, 2, 0) + 1) / 2, 0, 1)
-        Image.fromarray((img * 255).astype(np.uint8)).save(
-            os.path.join(out_dir, f"{t + 1:04d}.png"))
+        write_png(os.path.join(out_dir, f"{t + 1:04d}.png"),
+                  (img * 255).astype(np.uint8))
     if shutil.which("ffmpeg"):
         subprocess.run(
             ["ffmpeg", "-y", "-framerate", str(fps), "-i",

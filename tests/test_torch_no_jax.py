@@ -1,7 +1,7 @@
-"""The PyTorch port must run where JAX is not installed: importing every
-module of langscenex_tpu_torch, and chip_smoke.py, succeeds in a process
-in which ``import jax`` fails, and no source of the port imports JAX or
-the JAX package."""
+"""The PyTorch port must run where JAX and Pillow are not installed:
+importing every module of langscenex_tpu_torch, and chip_smoke.py,
+succeeds in a process in which ``import jax`` and ``import PIL`` fail,
+and no source of the port imports JAX, the JAX package or PIL."""
 import os
 import pathlib
 import re
@@ -14,6 +14,7 @@ PKG = ROOT / "langscenex_tpu_torch"
 _CHILD = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None                  # any `import jax` now fails
+sys.modules["PIL"] = None                  # and any `import PIL`
 import langscenex_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -37,6 +38,14 @@ def test_port_sources_do_not_name_jax():
     pat = re.compile(r"^\s*(import jax|from jax)|langscenex_tpu\.", re.M)
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    bad = [str(f) for f in files if pat.search(f.read_text())]
+    assert not bad, bad
+
+
+def test_port_sources_do_not_import_pil():
+    # the machine with the card has no Pillow: images go through utils/png
+    pat = re.compile(r"^\s*(import PIL|from PIL)", re.M)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     bad = [str(f) for f in files if pat.search(f.read_text())]
     assert not bad, bad
 

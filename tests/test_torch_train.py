@@ -308,5 +308,9 @@ def test_trainer_runs_phase_windows_across_densification(tmp_path):
     assert tr.poses_as_matrices().shape == (3, 4, 4)
     for p in (state.splats.xyz, state.poses, state.app_ab):
         assert bool(torch.isfinite(p).all())
-    with pytest.raises(NotImplementedError):
-        tr.train(iterations=2, save_dir=str(tmp_path), save_iterations=(2,))
+    # the save_dir outputs are ported: a PLY and pose snapshot
+    tr.train(iterations=2, save_dir=str(tmp_path), save_iterations=(2,))
+    assert (tmp_path / "point_cloud" / "iteration_2" /
+            "point_cloud.ply").exists()
+    assert np.load(tmp_path / "pose" / "iter_2" /
+                   "pose_optimized.npy").shape == (3, 4, 4)
