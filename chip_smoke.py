@@ -5,6 +5,7 @@ probes once on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 22    # phases 1, 2 and 22 only
+    python3 chip_smoke.py --phase 25    # (or 23, 24) likewise
 
 Phases (any failure raises, so the exit code is non-zero):
   1. device: require CUDA; print nvidia-smi's name and power limit;
@@ -46,8 +47,9 @@ Phases (any failure raises, so the exit code is non-zero):
      every kernel's launch counter > 0 for the phase;
   7. one geometry + multi-view train step through the kernels and
      through the plain path (use_pallas=False) on the same state, batch
-     and draws: loss and per-group gradients within stated bounds; then
-     K1 and K2 against their plain versions on that step's real inputs
+     and draws: loss and per-group gradients within stated bounds (the
+     pose row against the plain step on the kernels' rendered values);
+     then K1 and K2 against their plain versions on that step's real inputs
      (its first view's lists, means, conics, opacities and 8 channels,
      and the loss's upstream gradients), timed and bounded as in phase 3
      (the kernels line's field_* keys), and K3 bit for bit on every
@@ -169,6 +171,34 @@ Phases (any failure raises, so the exit code is non-zero):
      iteration (with and without outputs), the TSDF fuse, mesh
      extraction and clean-up apart, ms per eval pose iteration and each
      mode's launches per call.
+ 23. configuration vae-train-c16-9x256x256, the VAE fine-tune at the c16
+     preset's full widths (channels 128/256/256/512, 16 latents) with
+     Discriminator3D(base=32) and the full-width LPIPS per frame, f32:
+     3 VAETrainer steps on a seeded (1, 9, 3, 256, 256) clip with
+     disc_start_step 1 (5 frames where 9 do not fit; the VAE and logvar
+     at lr 1e-7, VAE_TRAIN): finite losses, D unchanged after step 1 and
+     changed after step 2, logvar moved; one step at (1, 5, 3, 64, 64)
+     from one state and one eps on the card and on the CPU (losses and
+     logvar within VAE_RTOL); ms per step and peak memory;
+ 24. configuration t5-xxl-encoder-2x226, T5Config() (d_model 4096, 64
+     heads, 24 layers, d_ff 10240) in f32 with seeded weights drawn on
+     the card: TextEncoder.encode_ids on [2, 226] seeded ids, the second
+     row padded after 40 tokens, finite; the first two blocks and the
+     final norm against the same weights on the CPU (T5_REL_RMS); ms per
+     encode and peak memory;
+ 25. configuration autoseg-full-random-9x1024, the JAX package's
+     --full-random auto-seg stack (SAM1 ViT-H with the thresholds off,
+     SAM2 Hiera-L, MaskAlignConfig(new_obj_min_area=4, postnms_score
+     off, max_objects 64), seeded random weights) over 9 720x480 PNG
+     frames the port renders from phase 22's room along a 30-degree arc:
+     the CLI's frame loader, MaskAligner.run, the id-map resize and
+     save_outputs (colors.npy with a black row 0, 9 int32 [480, 720] id
+     maps with -1 as background, 2 key PNGs, 1-64 objects, every id
+     below the palette); then build_from_checkpoints on the same weights
+     torch.saved in the two checkpoints' layouts gives the same
+     first-frame embeddings; ms of the generator per keyframe, the SAM2
+     image encode and the track step per frame, the whole run, peak
+     memory. Phases 23-25 add no kernel.
 Every kernel's bound is computed from this run's shapes: the larger of
 its operations over the bf16 tensor-core peak and its bytes (each input
 read once, each output written once) over the HBM rate; K3's reads only
@@ -256,6 +286,7 @@ from langscenex_tpu_torch.train.lora import (LoRAConfig, init_lora,
                                              make_lora_train_step, n_params)
 from langscenex_tpu_torch import entry_point
 from langscenex_tpu_torch.scene.dataset_readers import write_ply_points
+from langscenex_tpu_torch.train import field as train_field
 from langscenex_tpu_torch.train import render_mode
 from langscenex_tpu_torch.train.render_mode import render_all_views
 from langscenex_tpu_torch.utils.png import read_png, write_png
@@ -305,12 +336,21 @@ STEP_MAX_BAD, LOSS_RTOL = 0.02, 1e-3
 # difference of terms of the row's size. Near the identity rotation that
 # leaves w at ~1e-4 of the row, and its rounding is the row's, not its
 # own, so each entry's atol is also at least 2e-5 of its row's largest
-# |ref|. Phase 7 prints w, its kernel-plain gap and both over the row's
-# largest: on the H100 the gap was ~9e-7 of the row and w ~1e-4 of it,
-# so a zeroed or negated w still fails. The pose rows' other entries
-# keep their column's bound, as do the other groups (the exposure
-# gradient's floor is app_grad_floor's).
+# |ref|. Phase 7 prints w, its gap and both over the row's largest: on
+# the H100 the gap was under 1e-8 of the row and w ~5e-4 of it, so a
+# zeroed or negated w still fails. The pose rows' other entries keep
+# their column's bound, as do the other groups (the exposure gradient's
+# floor is app_grad_floor's).
+# The pose row is held to that bound against the plain step fed the
+# kernels' rendered values (kernel_render_values), not against the plain
+# step itself: the multi-view term's masks, bilinear cells and weights
+# follow the rendered depth, and the plain step's own pose row moves by
+# ~1e-3 of the row when the splat means move by one f32 ulp (phase 7
+# prints that move), as much as the two renders' rounding moves it.
 POSE_ROW_ATOL_FRAC = 2e-5
+# the float maps of a RenderOutput
+RENDER_MAPS = ("color", "language", "instance", "all_map", "plane_depth",
+               "final_T")
 
 # the training configuration field-200k-720x480 (see PERF.md): the JAX
 # package's full-width train-rate scene with the pipeline's defaults
@@ -1388,10 +1428,48 @@ def app_grad_floor(tr, flags, batch) -> torch.Tensor:
     return floor
 
 
+@contextlib.contextmanager
+def kernel_render_values(kernel_cfg: RasterConfig):
+    """Inside the block every render of the field step also renders
+    through ``kernel_cfg`` without gradients and returns the render's own
+    output carrying the kernels' values: each float map is its own plus
+    (the kernels' - its own), detached. A plain step then computes its
+    loss on the kernels' values, with the kernel step's masks, bilinear
+    cells and weights, and takes its gradients back through the plain
+    backward."""
+    inner = train_field.rasterize
+
+    def hybrid(*args, cfg, **kw):
+        with torch.no_grad():
+            k = inner(*args, cfg=kernel_cfg, **dict(kw, mean2d_abs_hook=None))
+        p = inner(*args, cfg=cfg, **kw)
+        return p._replace(**{
+            f: getattr(p, f) + (getattr(k, f) - getattr(p, f)).detach()
+            for f in RENDER_MAPS if getattr(p, f) is not None})
+    train_field.rasterize = hybrid
+    try:
+        yield
+    finally:
+        train_field.rasterize = inner
+
+
+def ulp_apart(state, seed: int = 1):
+    """``state`` with every splat mean one f32 ulp away, up or down at
+    random."""
+    xyz = state.splats.xyz
+    gen = torch.Generator(device=xyz.device).manual_seed(seed)
+    up = torch.rand(xyz.shape, generator=gen, device=xyz.device) < 0.5
+    moved = torch.nextafter(xyz, torch.where(up, math.inf, -math.inf))
+    return dataclasses.replace(state, splats=dataclasses.replace(
+        state.splats, xyz=moved))
+
+
 def compare_plain_step(tr, it: int = 600) -> dict:
     """One geometry + multi-view step's loss and gradients through the
     kernels and through the plain path, same state, batch and draws; the
-    step's K1/K2 inputs of its first view under ``blend``."""
+    pose row is held against the plain step on the kernels' rendered
+    values (POSE_ROW_ATOL_FRAC). Returns the step's inputs and the K1/K2
+    inputs of its first view under ``blend``."""
     _build.reset_launch_counts()
     step_in, k, blend = kernel_step(tr, it)
     require(_build.launch_counts["blend_backward"] == 2,
@@ -1405,26 +1483,40 @@ def compare_plain_step(tr, it: int = 600) -> dict:
                        samples, tr.active_sh_degree)
     require(sum(_build.launch_counts.values()) == 0,
             "the plain step launched a kernel")
+    r_ulp = loss_and_grads(tr.cfg, flags, plain, tr.proxy_cam,
+                           ulp_apart(tr.state), batch, samples,
+                           tr.active_sh_degree)
+    with kernel_render_values(tr.rcfg):
+        h = loss_and_grads(tr.cfg, flags, plain, tr.proxy_cam, tr.state,
+                           batch, samples, tr.active_sh_degree)
     lk, lr = float(k[0]), float(r[0])
+    refs = dict(r[4], poses=h[4]["poses"])
     floors = {"poses": POSE_ROW_ATOL_FRAC
-              * r[4]["poses"].abs().amax(1, keepdim=True),
+              * refs["poses"].abs().amax(1, keepdim=True),
               "app_ab": app_grad_floor(tr, flags, batch)}
     worst, bad_groups = 0.0, []
     for name in k[4]:
-        bad = bad_rows(k[4][name], r[4][name], floors.get(name))
+        bad = bad_rows(k[4][name], refs[name], floors.get(name))
         worst = max(worst, bad)
         if bad > STEP_MAX_BAD:
             bad_groups.append(name)
-    print(f"train step vs plain path (it {it}): loss {lk:.6f} vs {lr:.6f}, "
-          f"worst group {worst:.4%} of rows outside the gradient bound")
-    pk, pr = k[4]["poses"][batch.cam_idx], r[4]["poses"][batch.cam_idx]
-    row = float(pr.abs().max())
+    print(f"train step vs plain path (it {it}): loss {lk:.6f} vs {lr:.6f} "
+          f"(plain on the kernels' renders {float(h[0]):.6f}), worst group "
+          f"{worst:.4%} of rows outside the gradient bound")
+    pk, ph, pr, pu = (g[4]["poses"][batch.cam_idx] for g in (k, h, r, r_ulp))
+    row = float(ph.abs().max())
+
+    def rel(a, b):
+        return [f"{x:.3e}" for x in ((a - b).abs() / row).tolist()]
     print(f"  pose gradient of camera {batch.cam_idx}: kernel "
-          f"{[f'{x:.6e}' for x in pk.tolist()]}, plain "
-          f"{[f'{x:.6e}' for x in pr.tolist()]}; w {float(pr[0]):.6e} "
-          f"({float(pr[0]) / row:.3e} of the row), apart "
-          f"{float((pk[0] - pr[0]).abs()):.3e} "
-          f"({float((pk[0] - pr[0]).abs()) / row:.3e} of the row)")
+          f"{[f'{x:.6e}' for x in pk.tolist()]}, plain on the kernels' "
+          f"renders {[f'{x:.6e}' for x in ph.tolist()]}; w "
+          f"{float(ph[0]):.6e} ({float(ph[0]) / row:.3e} of the row), apart "
+          f"{float((pk[0] - ph[0]).abs()):.3e} "
+          f"({float((pk[0] - ph[0]).abs()) / row:.3e} of the row)")
+    print(f"  pose row apart, over its largest: kernel vs plain on the "
+          f"kernels' renders {rel(pk, ph)}; kernel vs plain {rel(pk, pr)}; "
+          f"plain vs plain with the means one ulp apart {rel(pu, pr)}")
     ak, ar = k[4]["app_ab"][batch.uid], r[4]["app_ab"][batch.uid]
     print(f"  exposure gradient of image {batch.uid} (a, b): kernel "
           f"{[f'{x:.6e}' for x in ak.tolist()]}, plain "
@@ -3066,6 +3158,385 @@ def _field_e2e(root: str) -> dict:
                 per_pose_iteration=per_pose)
 
 
+# ---- 23-25. the rest of TriMap and auto-seg ---------------------------
+
+VAE_CLIP = (1, 9, 3, 256, 256)      # vae-train-c16-9x256x256
+VAE_CLIP_CUT = (1, 5, 3, 256, 256)  # if 9 frames do not fit in the card
+VAE_CHECK = (1, 5, 3, 64, 64)       # one step on the card and on the CPU
+VAE_STEPS = 3
+# The trainer's logvar takes a plain SGD step of lr times the NLL's
+# gradient, a sum over every pixel (as in the JAX package): at
+# 9x256x256x3 = 1.77M values the default lr 1e-4 moves it by about 70 in
+# one step and the loss overflows by step 3, so this phase runs the VAE
+# and logvar at lr 1e-7 (D keeps disc_lr 1e-4); ROADMAP lists the fault.
+VAE_TRAIN = dict(lr=1e-7, disc_start_step=1)
+# card vs CPU, one step from one state and one eps, f32 without TF32:
+# the convolutions sum in another order, so losses and logvar 1e-3 rel
+VAE_RTOL = 1e-3
+T5_LEN, T5_PAD_AFTER = 226, 40      # t5-xxl-encoder-2x226
+T5_ITERS = 5
+# the 2-block cut + final norm on the card vs the CPU (f32 without TF32)
+T5_REL_RMS = 1e-4
+AUTOSEG_FRAMES = 9                  # autoseg-full-random-9x1024
+AUTOSEG_ARC = 30.0                  # degrees of yaw across the clip
+# the same weights through torch.save and build_from_checkpoints give the
+# same embedding, up to the card's choice of kernels (1e-6 absolute)
+AUTOSEG_CKPT_ATOL = 1e-6
+
+
+def gib(n: float) -> float:
+    return n / 2 ** 30
+
+
+def move_vae_state(st, dev):
+    """A VAETrainState with every tensor on ``dev``."""
+    from langscenex_tpu_torch.models.cogvideox.losses import LeCamEMA
+    from langscenex_tpu_torch.train.optim import AdamState
+
+    def d(x):
+        return {k: v.to(dev) for k, v in x.items()}
+
+    def adam(o):
+        return AdamState(count=o.count, mu=d(o.mu), nu=d(o.nu))
+    return dataclasses.replace(
+        st, vae_params=d(st.vae_params), disc_params=d(st.disc_params),
+        vae_opt=adam(st.vae_opt), disc_opt=adam(st.disc_opt),
+        logvar=st.logvar.to(dev),
+        lecam=LeCamEMA(st.lecam.real.to(dev), st.lecam.fake.to(dev)))
+
+
+def vae_lpips(dev, state=None):
+    """The full-width LPIPS, frozen: seeded random weights (seed 0), or
+    ``state``."""
+    from langscenex_tpu_torch.models import lpips
+    with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+        torch.manual_seed(0)
+        lp = lpips.LPIPS(device=dev)
+    if state is not None:
+        lp.load_state_dict(state)
+    return lp.eval().requires_grad_(False)
+
+
+def vae_trainer(dev, lp):
+    """presets.vae_c16 with D (base 32) and ``lp`` through the per-frame
+    wrapper, f32, seed 0, VAE_TRAIN."""
+    from langscenex_tpu_torch.models import lpips
+    from langscenex_tpu_torch.train import vae as vae_train
+    from langscenex_tpu_torch.utils import presets
+    return vae_train.VAETrainer(
+        presets.vae_c16(), vae_train.VAETrainConfig(**VAE_TRAIN),
+        seed=0, lpips_fn=lpips.per_frame(lp), device=dev)
+
+
+def phase_vae_train(dev, smi: str) -> None:
+    """vae-train-c16-9x256x256: 3 VAETrainer steps on a seeded clip
+    (9 frames, or 5 where 9 do not fit), then one step at VAE_CHECK on
+    the card and on the CPU from one state and one eps."""
+    rng = np.random.default_rng(0)
+    lp = vae_lpips(dev)
+    for shape in (VAE_CLIP, VAE_CLIP_CUT):
+        tr = vae_trainer(dev, lp)
+        clip = torch.from_numpy(rng.uniform(-1, 1, shape).astype(
+            np.float32)).to(dev)
+        d0 = {k: v.clone() for k, v in tr.state.disc_params.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        recs = []
+        try:
+            for i in range(VAE_STEPS):
+                t0 = time.perf_counter()
+                m = tr.train_step(clip)
+                torch.cuda.synchronize()
+                recs.append((time.perf_counter() - t0, m, all(
+                    torch.equal(tr.state.disc_params[k], d0[k])
+                    for k in d0)))
+        except torch.cuda.OutOfMemoryError:
+            print(f"vae-train: {shape} does not fit in the card; "
+                  f"cutting to {VAE_CLIP_CUT[1]} frames")
+            del tr, clip
+            torch.cuda.empty_cache()
+            continue
+        break
+    else:
+        raise AssertionError("vae-train: no clip fits in the card")
+    peak = gib(torch.cuda.max_memory_allocated())
+    for i, (dt, m, same_d) in enumerate(recs):
+        require(all(math.isfinite(v) for v in m.values()),
+                f"vae-train step {i}: a loss is not finite: {m}")
+        print(f"vae-train step {i}: {dt * 1e3:.1f} ms, " + ", ".join(
+            f"{k} {v:.6g}" for k, v in m.items()))
+    require(recs[0][2], "vae-train: D changed before disc_start_step")
+    require(not recs[1][2], "vae-train: D did not change after "
+            "disc_start_step")
+    require(float(tr.state.logvar) != 0.0, "vae-train: logvar did not move")
+    print(f"vae-train-c16-9x256x256: clip {list(shape)}, ms per step "
+          f"{ms_list([r[0] for r in recs])} (first includes cuDNN's "
+          f"choices), peak {peak:.2f} GiB, logvar "
+          f"{float(tr.state.logvar):.6g} on {smi}")
+    del tr, clip
+    torch.cuda.empty_cache()
+
+    # one step from one state and one eps on the card and on the CPU
+    cpu_dev = torch.device("cpu")
+    gpu = vae_trainer(dev, lp)
+    cpu = vae_trainer(cpu_dev, vae_lpips(cpu_dev, {
+        k: v.cpu() for k, v in lp.state_dict().items()}))
+    cpu.state = move_vae_state(gpu.state, cpu_dev)
+    x = rng.uniform(-1, 1, VAE_CHECK).astype(np.float32)
+    with torch.no_grad():
+        lat = gpu.vae.encode(torch.from_numpy(x).to(dev))[0].shape
+    eps = rng.standard_normal(tuple(lat)).astype(np.float32)
+    mg, mc = gpu.train_step(x, eps=eps), cpu.train_step(x, eps=eps)
+    errs = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30) for k in mc}
+    lv = (float(gpu.state.logvar), float(cpu.state.logvar))
+    errs["logvar"] = abs(lv[0] - lv[1]) / max(abs(lv[1]), 1e-30)
+    print(f"vae-train card vs CPU at {list(VAE_CHECK)}: rel err "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (bound {VAE_RTOL})")
+    require(max(errs.values()) <= VAE_RTOL, "vae-train: card and CPU "
+            "step disagree")
+    del gpu, cpu, lp
+    torch.cuda.empty_cache()
+
+
+def phase_t5(dev, smi: str) -> None:
+    """t5-xxl-encoder-2x226: T5Config() in f32 with seeded weights drawn
+    on the card, encode_ids on [2, 226] seeded ids (row 2 padded after 40
+    tokens); the first two blocks + the final norm against the same
+    weights on the CPU."""
+    from langscenex_tpu_torch.models.t5 import TextEncoder
+    from langscenex_tpu_torch.models.t5_encoder import (T5Config, T5Encoder,
+                                                        init_t5_)
+    cfg = T5Config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_t5_(T5Encoder(cfg, device=dev), seed=0)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    print(f"t5-xxl: {n / 1e9:.3f}B f32 parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, cfg.vocab_size, (2, T5_LEN))
+    mask = np.ones((2, T5_LEN), np.int64)
+    ids[1, T5_PAD_AFTER:], mask[1, T5_PAD_AFTER:] = 0, 0
+    enc = TextEncoder.from_encoder(model)
+    out = enc.encode_ids(ids, mask)
+    require(out.shape == (2, T5_LEN, cfg.d_model) and np.isfinite(out).all(),
+            "t5-xxl: output not finite or of the wrong shape")
+    ids_t, mask_t = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(
+        dev)
+
+    def encode():
+        with torch.no_grad():
+            model(ids_t, mask_t)
+    ms = cuda_ms(encode, T5_ITERS)
+    peak = gib(torch.cuda.max_memory_allocated())
+
+    cut = dataclasses.replace(cfg, num_layers=2)
+    keep = {k: v for k, v in model.state_dict().items()
+            if not k.startswith("encoder.block.")
+            or int(k.split(".")[2]) < 2}
+    del model, enc
+    torch.cuda.empty_cache()
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        m = T5Encoder(cut, device=d)
+        m.load_state_dict({k: v.to(d) for k, v in keep.items()}, strict=True)
+        with torch.no_grad():
+            outs.append(m(torch.from_numpy(ids), torch.from_numpy(mask)
+                          ).cpu())
+        del m
+    err = rel_rms(outs[0], outs[1])
+    print(f"t5-xxl 2 blocks + final norm, card vs CPU: rel RMS {err:.2e} "
+          f"(bound {T5_REL_RMS}), max abs {max_abs(outs[0], outs[1]):.3e}")
+    require(err <= T5_REL_RMS, "t5-xxl: card and CPU disagree")
+    print(f"t5-xxl-encoder-2x226: {ms:.2f} ms per encode of [2, 226], peak "
+          f"{peak:.2f} GiB on {smi}")
+    del keep, outs
+    torch.cuda.empty_cache()
+
+
+def arc_cameras(n: int) -> list[Camera]:
+    """n views from near the room's centre, panning AUTOSEG_ARC degrees
+    of yaw across wall 0 and 1's corner region."""
+    fovy = focal2fov(fov2focal(FOVX, W), H)
+    cams = []
+    for i in range(n):
+        R = _rot(1, AUTOSEG_ARC * (i / max(n - 1, 1) - 0.5) + 20.0)
+        centre = E2E_CAM_R * R[:, 2]
+        cams.append(Camera(uid=i, colmap_id=i, R=R, T=-R.T @ centre,
+                           fovx=FOVX, fovy=fovy, width=W, height=H,
+                           image_name=f"{i + 1:04d}"))
+    return cams
+
+
+def write_arc_frames(dev, root: str) -> None:
+    """AUTOSEG_FRAMES PNGs of phase 22's room along ``arc_cameras``,
+    rendered by the port."""
+    arrays, _ = e2e_room(FIELD_P)
+    st = gaussian_state(arrays)
+    splats = dataclasses.replace(st, **{
+        f.name: getattr(st, f.name).to(dev) for f in dataclasses.fields(st)})
+    cams = arc_cameras(AUTOSEG_FRAMES)
+    for cam, (_, m) in zip(cams, render_all_views(splats, cams, EXACT_CFG,
+                                                  sh_degree=3)):
+        require(not bool(m["pairs_overflowed"]), "arc render: overflow")
+        write_png(os.path.join(root, cam.image_name + ".png"),
+                  (m["render"].clamp(0, 1).permute(1, 2, 0) * 255)
+                  .to(torch.uint8).cpu().numpy())
+
+
+@contextlib.contextmanager
+def timed_calls(obj, name: str, out: list):
+    """Record the seconds of every ``obj.name`` call (synchronised)."""
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(*a, **k)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+        return r
+    setattr(obj, name, wrapper)
+    try:
+        yield out
+    finally:
+        delattr(obj, name)
+
+
+def phase_autoseg(dev, smi: str) -> None:
+    """autoseg-full-random-9x1024: SAM1 ViT-H (AMG with the thresholds
+    off) and SAM2 Hiera-L (64 objects at most) with seeded random weights,
+    over 9 rendered 720x480 PNG frames through the CLI's frame loader,
+    MaskAligner.run, the id-map resize and save_outputs; then
+    build_from_checkpoints on the same weights torch.saved in the two
+    checkpoints' layouts."""
+    from langscenex_tpu_torch.autoseg import __main__ as autoseg_cli
+    from langscenex_tpu_torch.autoseg import mask_align
+    from langscenex_tpu_torch.models import sam1 as sam1_mod
+    from langscenex_tpu_torch.models.sam2 import model as sam2_mod
+    t0 = time.perf_counter()
+    m1 = sam1_mod.init_sam1_params(sam1_mod.SAM1(sam1_mod.SAM1Config(),
+                                                 device=dev), 0)
+    m2 = sam2_mod.init_sam2_params(sam2_mod.SAM2(sam2_mod.SAM2Config(),
+                                                 device=dev), 0)
+    torch.cuda.synchronize()
+    print(f"autoseg: SAM1 {sum(p.numel() for p in m1.parameters()) / 1e6:.1f}"
+          f"M and SAM2 {sum(p.numel() for p in m2.parameters()) / 1e6:.1f}M "
+          f"f32 parameters, {time.perf_counter() - t0:.2f} s")
+    amg = sam1_mod.SAM1AutomaticMaskGenerator(m1, sam1_mod.SAM1AMGConfig(
+        pred_iou_thresh=-1e9, stability_score_thresh=-1e9,
+        min_mask_region_area=0))
+    pred = sam2_mod.SAM2VideoPredictor(m2)
+    cfg = mask_align.MaskAlignConfig(level="default", new_obj_min_area=4,
+                                     postnms_score=-1e9, max_objects=64)
+    with tempfile.TemporaryDirectory() as root:
+        frames_dir = os.path.join(root, "rgb")
+        out_dir = os.path.join(root, "seg")
+        os.makedirs(frames_dir)
+        write_arc_frames(dev, frames_dir)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        frames, hw = autoseg_cli.load_frames(frames_dir, m1.cfg.img_size)
+        t_load = time.perf_counter() - t0
+        amg_s, enc_s, frame_s = [], [], []
+        with timed_calls(amg, "generate", amg_s), \
+                timed_calls(m2, "forward_image", enc_s):
+            gen = pred.propagate_in_video
+
+            def timed_propagate(*a, **k):
+                it = gen(*a, **k)
+                while True:
+                    t1 = time.perf_counter()
+                    try:
+                        item = next(it)
+                    except StopIteration:
+                        return
+                    torch.cuda.synchronize()
+                    frame_s.append(time.perf_counter() - t1)
+                    yield item
+            pred.propagate_in_video = timed_propagate
+            t1 = time.perf_counter()
+            seg_maps, colors = mask_align.MaskAligner(amg, pred, cfg).run(
+                frames)
+            torch.cuda.synchronize()
+            t_run = time.perf_counter() - t1
+            del pred.propagate_in_video
+        t1 = time.perf_counter()
+        seg_maps = autoseg_cli.resize_id_maps(seg_maps, hw)
+        mask_align.save_outputs(seg_maps, colors, out_dir)
+        t_save = time.perf_counter() - t1
+        t_all = time.perf_counter() - t0
+        peak = gib(torch.cuda.max_memory_allocated())
+        n_obj = len(colors)
+        # the artifact contract
+        cols = np.load(os.path.join(out_dir, "colors.npy"))
+        require(cols.shape == (n_obj + 1, 3) and not cols[0].any(),
+                "autoseg: colors.npy has no black background row 0")
+        ids = [np.load(os.path.join(out_dir, f"{t + 1:04d}_s.npy"))
+               for t in range(AUTOSEG_FRAMES)]
+        require(all(a.dtype == np.int32 and a.shape == (H, W) for a in ids),
+                "autoseg: an id map is not int32 [480, 720]")
+        lo, hi = min(a.min() for a in ids), max(a.max() for a in ids)
+        require(lo >= -1 and hi < len(cols) - 1,
+                f"autoseg: ids in [{lo}, {hi}] outside [-1, {n_obj})")
+        require(1 <= n_obj <= 64 and hi >= 0, f"autoseg: {n_obj} objects")
+        keys = sorted(f for f in os.listdir(out_dir) if f.startswith("key_"))
+        require(len(keys) == 2 and all(read_png(os.path.join(
+            out_dir, f)).shape == (H, W, 3) for f in keys),
+            f"autoseg: key PNGs {keys}")
+        n_files = len([f for f in os.listdir(out_dir) if f.endswith(
+            "_s.npy")])
+        require(n_files == AUTOSEG_FRAMES, f"autoseg: {n_files} id maps")
+        covered = float(np.mean([(a >= 0).mean() for a in ids]))
+        track = [f - e for f, e in zip(frame_s, enc_s)]
+        print(f"autoseg-full-random-9x1024: {n_obj} objects, "
+              f"{covered:.3f} of pixels covered; AMG "
+              f"{ms_list(amg_s)} ms per keyframe ({len(amg_s)} keyframes), "
+              f"SAM2 image encode median "
+              f"{np.median(enc_s) * 1e3:.1f} ms per frame ({len(enc_s)} "
+              f"encodes), track step (frame minus its encode) median "
+              f"{np.median(track) * 1e3:.1f} ms per frame ({len(frame_s)} "
+              f"frames over the passes), load {t_load:.2f} s, run "
+              f"{t_run:.2f} s, resize + save {t_save:.2f} s, whole "
+              f"{t_all:.2f} s, peak {peak:.2f} GiB on {smi}")
+
+        # the same weights through the checkpoint layouts
+        ck1, ck2 = os.path.join(root, "sam1.pth"), os.path.join(root,
+                                                                 "sam2.pt")
+        torch.save(m1.state_dict(), ck1)
+        torch.save({"model": m2.state_dict()}, ck2)
+        f0 = torch.from_numpy(frames[:1]).to(dev)
+        with torch.no_grad():
+            e1, e2 = (m1.encode_image(f0),
+                      m2.forward_image(f0)["vision_features"])
+        del m1, m2, amg, pred
+        torch.cuda.empty_cache()
+        amg2, pred2 = mask_align.build_from_checkpoints(ck1, ck2, device=dev)
+        with torch.no_grad():
+            g1 = amg2.model.encode_image(f0)
+            g2 = pred2.model.forward_image(f0)["vision_features"]
+        err = max(max_abs(g1, e1), max_abs(g2, e2))
+        print(f"autoseg build_from_checkpoints: first-frame embeddings "
+              f"max abs diff {err:.3e} (SAM1 {list(g1.shape)}, SAM2 "
+              f"{list(g2.shape)})")
+        require(err <= AUTOSEG_CKPT_ATOL, "autoseg: checkpoint models "
+                "differ")
+        del amg2, pred2
+    torch.cuda.empty_cache()
+
+
+def phase_23_25(dev, smi: str, which=(23, 24, 25)) -> None:
+    if 23 in which:
+        phase_vae_train(dev, smi)
+    if 24 in which:
+        phase_t5(dev, smi)
+    if 25 in which:
+        phase_autoseg(dev, smi)
+
+
 def phase_22(dev) -> None:
     e2e = phase_field_e2e(dev)
     print(f"field-e2e-200k-720x480: train {e2e['train_s']:.2f} s, resume "
@@ -3075,7 +3546,8 @@ def phase_22(dev) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", type=int, choices=(22,), default=None,
+    ap.add_argument("--phase", type=int, choices=(22, 23, 24, 25),
+                    default=None,
                     help="run phases 1, 2 and this phase only (no result "
                          "lines)")
     args = ap.parse_args(argv)
@@ -3101,6 +3573,10 @@ def main(argv=None) -> int:
           f"{_build.last_build_seconds:.2f} s) -> {_build.library_path()}")
     if args.phase == 22:
         phase_22(dev)
+        print(smi)
+        return 0
+    if args.phase in (23, 24, 25):
+        phase_23_25(dev, smi, (args.phase,))
         print(smi)
         return 0
 
@@ -3193,6 +3669,10 @@ def main(argv=None) -> int:
 
     # ---- 22. the field stage through its CLI, field-e2e-200k-720x480 ----
     phase_22(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 23-25. the VAE trainer, the T5-XXL encoder, auto-seg ------------
+    phase_23_25(dev, smi)
 
     launches = {**{k: train_launches[k] for k in RENDER_TRAIN_KERNELS},
                 **{k: request["launches"][k] for k in DIT_KERNELS},

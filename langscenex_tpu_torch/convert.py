@@ -326,3 +326,192 @@ def gather_lora(shards: list) -> dict:
             else:
                 out[site][k] = torch.cat(parts, dim=dim)
     return out
+
+
+def _params(tree: dict) -> dict:
+    return tree.get("params", tree)
+
+
+def _kernel(a: np.ndarray) -> np.ndarray:
+    """A flax Dense or Conv kernel in torch's layout."""
+    a = np.asarray(a)
+    if a.ndim == 2:
+        return a.T
+    if a.ndim == 4:
+        return a.transpose(3, 2, 0, 1)
+    if a.ndim == 5:
+        return a.transpose(4, 3, 0, 1, 2)
+    raise ValueError(f"kernel rank {a.ndim}")
+
+
+def discriminator_from_numpy(flax_params: dict,
+                             device: torch.device | str | None = None
+                             ) -> dict:
+    """JAX ``Discriminator3D`` params -> the port's state_dict
+    (``conv_{0,1,2}``, ``head``) on ``device``."""
+    p = _params(flax_params)
+    sd = {}
+    for name, layer in p.items():
+        sd[f"{name}.weight"] = _kernel(layer["kernel"])
+        sd[f"{name}.bias"] = np.asarray(layer["bias"])
+    return _on(sd, device)
+
+
+def vae_train_state_from_numpy(d: dict,
+                               device: torch.device | str | None = None):
+    """A JAX ``VAETrainState`` as numpy leaves::
+
+        {"vae_params": flax params, "disc_params": flax params,
+         "vae_opt": {"count", "mu", "nu"}, "disc_opt": {...},
+         "logvar": scalar, "lecam": {"real", "fake"}, "step": int}
+
+    (each ``*_opt`` the ``ScaleByAdamState`` of its optax Adam) -> the
+    port's ``train.vae.VAETrainState`` on ``device``; the moments take
+    their parameters' layouts."""
+    from .models.cogvideox.losses import LeCamEMA
+    from .train.vae import VAETrainState
+
+    def adam(o, conv):
+        return AdamState(count=int(o["count"]), mu=conv(o["mu"], device),
+                         nu=conv(o["nu"], device))
+    dev = resolve_device(device)
+    return VAETrainState(
+        vae_params=cogvideox_vae_from_numpy(d["vae_params"], device),
+        disc_params=discriminator_from_numpy(d["disc_params"], device),
+        vae_opt=adam(d["vae_opt"], cogvideox_vae_from_numpy),
+        disc_opt=adam(d["disc_opt"], discriminator_from_numpy),
+        logvar=_f32(d["logvar"], dev),
+        lecam=LeCamEMA(_f32(d["lecam"]["real"], dev),
+                       _f32(d["lecam"]["fake"], dev)),
+        step=int(d["step"]))
+
+
+def lpips_from_numpy(flax_params: dict,
+                     device: torch.device | str | None = None) -> dict:
+    """JAX ``LPIPS`` params (``vgg/conv_i``, ``lin_i``) -> the port's
+    state_dict in taming's keys (``net.slice*``, ``lin*.model.1``,
+    ``scaling_layer``), inverting the JAX package's
+    ``convert_lpips_vgg``."""
+    from .models.lpips import SCALE, SHIFT, SLICES
+    p = _params(flax_params)
+    conv_idx = [i for a, b in SLICES for i in range(a, b)
+                if i in (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)]
+    slice_of = {i: s + 1 for s, (a, b) in enumerate(SLICES)
+                for i in range(a, b)}
+    sd = {"scaling_layer.shift": np.array(SHIFT, np.float32)[None, :, None,
+                                                            None],
+          "scaling_layer.scale": np.array(SCALE, np.float32)[None, :, None,
+                                                            None]}
+    for j, ti in enumerate(conv_idx):
+        c = p["vgg"][f"conv_{j}"]
+        key = f"net.slice{slice_of[ti]}.{ti}"
+        sd[f"{key}.weight"] = _kernel(c["kernel"])
+        sd[f"{key}.bias"] = np.asarray(c["bias"])
+    for i in range(5):
+        sd[f"lin{i}.model.1.weight"] = _kernel(p[f"lin_{i}"]["kernel"])
+    return _on(sd, device)
+
+
+def t5_encoder_from_numpy(flax_params: dict,
+                          device: torch.device | str | None = None) -> dict:
+    """JAX ``T5Encoder`` params -> the port's state_dict in Hugging Face
+    ``T5EncoderModel``'s keys (the tied embedding under both names),
+    inverting the JAX package's ``convert_t5_encoder``."""
+    p = _params(flax_params)
+    emb = np.asarray(p["token_embed"])
+    sd = {"shared.weight": emb, "encoder.embed_tokens.weight": emb,
+          "encoder.final_layer_norm.weight": np.asarray(
+              p["ln_final"]["weight"])}
+    i = 0
+    while f"block_{i}" in p:
+        blk, pre = p[f"block_{i}"], f"encoder.block.{i}.layer"
+        for proj in ("q", "k", "v", "o"):
+            sd[f"{pre}.0.SelfAttention.{proj}.weight"] = _kernel(
+                blk["attn"][proj]["kernel"])
+        if "relative_attention_bias" in blk["attn"]:
+            sd[f"{pre}.0.SelfAttention.relative_attention_bias.weight"] = \
+                np.asarray(blk["attn"]["relative_attention_bias"])
+        sd[f"{pre}.0.layer_norm.weight"] = np.asarray(
+            blk["ln_attn"]["weight"])
+        for n in ("wi_0", "wi_1", "wo"):
+            sd[f"{pre}.1.DenseReluDense.{n}.weight"] = _kernel(
+                blk[n]["kernel"])
+        sd[f"{pre}.1.layer_norm.weight"] = np.asarray(blk["ln_ff"]["weight"])
+        i += 1
+    return _on(sd, device)
+
+
+# flax module names of the JAX SAM models -> the checkpoints' torch keys
+_SAM_RENAMES = (
+    (re.compile(r"^convs_(\d+)$"), r"convs.\1.conv"),
+    (re.compile(r"^fuser_layers_(\d+)$"), r"fuser.layers.\1"),
+    (re.compile(r"^obj_ptr_proj_(\d+)$"), r"obj_ptr_proj.layers.\1"),
+    (re.compile(r"^mlp_fc(\d)$"), lambda m: f"mlp.layers.{int(m[1]) - 1}"),
+    (re.compile(r"^mlp_(lin\d)$"), r"mlp.\1"),
+    (re.compile(r"^(\w+?)_(\d+)$"), r"\1.\2"),
+)
+_SAM_NAMES = {"patch_embed_proj": "patch_embed.proj",
+              "pe_gaussian": "pe_layer.positional_encoding_gaussian_matrix"}
+_SAM_TOKENS = ("iou_token", "mask_tokens", "obj_score_token",
+               "not_a_point_embed", "no_mask_embed", "point_embeddings")
+
+
+def _sam_name(part: str) -> str:
+    if part in _SAM_NAMES:
+        return _SAM_NAMES[part]
+    for pat, rep in _SAM_RENAMES:
+        if pat.match(part):
+            return pat.sub(rep, part)
+    return part
+
+
+def _sam_state_dict(p: dict, mlp_names=("layers.0", "layers.1")) -> dict:
+    sd = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for name, child in node.items():
+                walk(child, path + (name,))
+            return
+        parts = [_sam_name(x) for x in path]
+        leaf, a = path[-1], np.asarray(node)
+        if len(path) >= 2 and path[-2].startswith("mlp_layers_"):
+            parts[-2] = "mlp." + mlp_names[int(path[-2][-1])]
+        if leaf == "kernel":
+            parts[-1], a = "weight", _kernel(a)
+        elif leaf == "scale":
+            parts[-1] = "weight"
+        elif re.sub(r"_\d+$", "", leaf) in _SAM_TOKENS:
+            parts.append("weight")
+        elif leaf in ("pos_embed", "pos_embed_window") and a.ndim == 4 \
+                and "trunk" in path:
+            a = a.transpose(0, 3, 1, 2)
+        sd[".".join(parts)] = a
+
+    walk(p, ())
+    return sd
+
+
+def sam2_from_numpy(flax_params: dict,
+                    device: torch.device | str | None = None) -> dict:
+    """JAX ``SAM2`` params -> the port's state_dict in the
+    sam2_hiera_large.pt keys, inverting the JAX package's
+    ``convert_sam2``."""
+    p = dict(_params(flax_params))
+    sd = _sam_state_dict({k: v for k, v in p.items()
+                          if k not in ("conv_s0", "conv_s1")})
+    for k in ("conv_s0", "conv_s1"):
+        sd[f"sam_mask_decoder.{k}.weight"] = _kernel(p[k]["kernel"])
+        sd[f"sam_mask_decoder.{k}.bias"] = np.asarray(p[k]["bias"])
+    return _on(sd, device)
+
+
+def sam1_from_numpy(flax_params: dict,
+                    device: torch.device | str | None = None) -> dict:
+    """JAX ``SAM1`` params -> the port's state_dict in the
+    sam_vit_h_4b8939.pth keys, inverting the JAX package's
+    ``convert_sam1``. The JAX model has no mask prompt path, so the
+    prompt encoder's ``mask_downscaling`` keys are absent: load with
+    ``strict=False`` (they are unused)."""
+    return _on(_sam_state_dict(_params(flax_params), ("lin1", "lin2")),
+               device)

@@ -22,8 +22,10 @@ initialises from its key 0) in f32, with f32 latents; attention runs in
 bf16 through kernels K5 and K7. It runs on the first CUDA card unless
 ``--device`` names another. ``--tiny`` runs a small f32 model on the CPU
 only (its head dim 16 is outside K5 and K7) and refuses a CUDA device.
-``--t5`` raises until the T5 encoder is ported; the text stream is the
-hash-embedding stub. Checkpoints are ``torch.save``d states under
+``--t5`` names a Hugging Face T5 checkpoint directory
+(``models/t5.TextEncoder``: the encoder runs on the same device; a
+prompt needs its tokenizer, which needs ``transformers``); without it the
+text stream is the hash-embedding stub. Checkpoints are ``torch.save``d states under
 ``--out`` (``train/checkpoint.py``).
 """
 from __future__ import annotations
@@ -140,7 +142,8 @@ def main(argv: Optional[list] = None) -> dict:
     ap.add_argument("--lora", action="store_true")
     ap.add_argument("--rank", type=int, default=16)
     ap.add_argument("--t5", default=None,
-                    help="T5 checkpoint (raises: the encoder is not ported)")
+                    help="Hugging Face T5 checkpoint directory (default: "
+                         "the hash-embedding stub)")
     ap.add_argument("--vae", default=None,
                     help="torch.save'd VAE state_dict (bare or the 'vae' "
                          "entry of a {transformer, vae} dict); stub encoder "
@@ -177,7 +180,8 @@ def main(argv: Optional[list] = None) -> dict:
         num_frames=args.frames, size_hw=(args.height, args.width)))
     if len(ds) == 0:
         raise SystemExit("no video dirs with enough frames under --data")
-    text_encoder = TextEncoder(args.t5, embed_dim=cfg.text_embed_dim)
+    text_encoder = TextEncoder(args.t5, embed_dim=cfg.text_embed_dim,
+                               device=dev)
 
     if args.vae:
         encode_fn = load_vae_encode(args.vae, vae_cfg=vae_cfg,

@@ -287,6 +287,19 @@ class AutoencoderKL3D(nn.Module):
         out = self.decoder(latents.permute(0, 2, 1, 3, 4))
         return out.permute(0, 2, 1, 3, 4)
 
+    def forward(self, video: torch.Tensor, eps: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
+        """[B,T,3,H,W] -> (recon, mean, logvar): the decode of
+        z = mean + exp(logvar / 2) * eps. ``eps`` is the noise (of mean's
+        shape), or drawn from ``generator`` when given; with neither,
+        z = mean."""
+        mean, logvar = self.encode(video)
+        if eps is None and generator is not None:
+            eps = torch.randn(mean.shape, generator=generator,
+                              device=mean.device, dtype=mean.dtype)
+        z = mean if eps is None else mean + torch.exp(0.5 * logvar) * eps
+        return self.decode(z), mean, logvar
+
 
 def _blend_profile(n: int, ramp: int, device=None) -> torch.Tensor:
     w = torch.ones(n, device=device)

@@ -19,6 +19,11 @@ port runs on has no Pillow, so this module stands in for it with
   downscaling, 22-bit fixed-point weights, the horizontal pass first and
   an 8-bit intermediate, as Pillow's Resample.c computes it; the identity
   at the same size.
+- :func:`resize_nearest` is ``Image.resize(size, Image.NEAREST)`` of any
+  2-D array (the auto-seg CLI resizes int32 id maps, PIL's mode "I"): the
+  source position of output pixel i is scale / 2 plus i additions of the
+  scale in double precision, truncated, as Pillow's affine nearest
+  transform steps it.
 """
 from __future__ import annotations
 
@@ -272,3 +277,18 @@ def resize_bicubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     if x.shape[0] != H:
         x = _resample(x, 0, H)
     return x[..., 0] if img.ndim == 2 else x
+
+
+def _pil_nearest_index(n_out: int, n_in: int) -> np.ndarray:
+    a = n_in / n_out
+    steps = np.full(n_out, a)
+    steps[0] = a * 0.5
+    return np.minimum(np.cumsum(steps).astype(np.int64), n_in - 1)
+
+
+def resize_nearest(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """PIL's ``Image.resize((W, H), Image.NEAREST)`` of an [h, w] array."""
+    W, H = size
+    img = np.asarray(img)
+    return img[_pil_nearest_index(H, img.shape[0])][
+        :, _pil_nearest_index(W, img.shape[1])]

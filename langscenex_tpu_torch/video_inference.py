@@ -14,8 +14,11 @@ Usage:
 ``--checkpoint`` is a ``torch.save``d dict ``{"transformer": state_dict,
 "vae": state_dict}`` in diffusers' keys (either entry may be missing; the
 other model then keeps its seeded random weights). Without one the models
-run with seeded random weights. ``--t5`` raises until the T5 encoder is
-ported; the text stream is the hash-embedding stub. ``--seed`` seeds the
+run with seeded random weights. ``--t5`` names a Hugging Face T5
+checkpoint directory (``models/t5.TextEncoder``: the encoder runs on the
+same device; embedding a prompt needs its tokenizer, which needs
+``transformers``); without it the text stream is the hash-embedding stub,
+which warns. ``--seed`` seeds the
 noise only. ``--tiny`` runs on the CPU only (``--device cpu``): its head
 dim 16 and f32 attention are outside what the GPU kernels take.
 """
@@ -145,7 +148,7 @@ def build_pipeline(checkpoint: Optional[str] = None,
             return spatial_tile_decode(decode_one, z, tile=decode_tile,
                                        overlap=ov)
 
-    text = TextEncoder(t5_path, embed_dim=tcfg.text_embed_dim)
+    text = TextEncoder(t5_path, embed_dim=tcfg.text_embed_dim, device=dev)
     pipe = InterpolationPipeline(denoiser, vae_encode, vae_decode,
                                  DDIMScheduler(), pcfg)
     return pipe, text, pcfg, {"vae_decode": vae_decode, "dit": dit,

@@ -293,8 +293,10 @@ def test_text_stub_matches_jax():
         want = jt5.TextEncoder(embed_dim=32).encode(prompts)
     np.testing.assert_array_equal(got, want)
     assert got.shape == (2, 226, 32) and not got[1].any()
-    with pytest.raises(NotImplementedError, match="B2"):
-        t5.TextEncoder("/no/such/t5")
+    # a checkpoint path loads the T5 encoder (tests/test_torch_t5.py);
+    # a missing one is an error, never the stub
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        t5.TextEncoder("/no/such/t5", device="cpu")
 
 
 def test_tiny_pipeline_matches_jax(tmp_path):

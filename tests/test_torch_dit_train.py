@@ -483,7 +483,7 @@ def test_finetune_cli_tiny_refuses_the_card(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="CPU only"):
         finetune.main(["--data", str(tmp_path), "--tiny", "--device",
                        "cuda"])
-    with pytest.raises(NotImplementedError, match="T5"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         finetune.main(["--data", str(tmp_path), "--tiny", "--device", "cpu",
                        "--t5", "/nonexistent"])
     # without --device the default is the card; where there is none, an

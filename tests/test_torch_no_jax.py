@@ -1,7 +1,10 @@
-"""The PyTorch port must run where JAX and Pillow are not installed:
-importing every module of langscenex_tpu_torch, and chip_smoke.py,
-succeeds in a process in which ``import jax`` and ``import PIL`` fail,
-and no source of the port imports JAX, the JAX package or PIL."""
+"""The PyTorch port must run where JAX, Pillow and Hugging Face's packages
+are not installed: importing every module of langscenex_tpu_torch, and
+chip_smoke.py, succeeds in a process in which ``import jax``, ``import
+PIL``, ``import transformers``, ``import safetensors`` and ``import
+tokenizers`` fail; no source of the port imports JAX, the JAX package,
+PIL, safetensors or tokenizers, and ``transformers`` is imported only
+inside ``TextEncoder._load`` (for the tokenizer)."""
 import os
 import pathlib
 import re
@@ -15,6 +18,8 @@ _CHILD = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None                  # any `import jax` now fails
 sys.modules["PIL"] = None                  # and any `import PIL`
+for name in ("transformers", "safetensors", "tokenizers"):
+    sys.modules[name] = None
 import langscenex_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -48,6 +53,27 @@ def test_port_sources_do_not_import_pil():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     bad = [str(f) for f in files if pat.search(f.read_text())]
     assert not bad, bad
+
+
+def test_port_sources_import_no_hf_package_at_module_level():
+    # the machine with the card has none of them: safetensors files are
+    # read by models/t5.read_safetensors, and transformers only gives the
+    # T5 tokenizer, imported where a checkpoint directory is loaded
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    never = re.compile(r"^\s*(import|from)\s+(safetensors|tokenizers)\b",
+                       re.M)
+    assert not [str(f) for f in files if never.search(f.read_text())]
+    hf = re.compile(r"^(\s*)(import|from)\s+transformers\b", re.M)
+    uses = {str(f.relative_to(ROOT)): [m.group(1) for m in
+                                       hf.finditer(f.read_text())]
+            for f in files}
+    uses = {k: v for k, v in uses.items() if v}
+    assert list(uses) == ["langscenex_tpu_torch/models/t5.py"], uses
+    src = (PKG / "models" / "t5.py").read_text()
+    load = src[src.index("    def _load("):src.index("    def encode_ids(")]
+    assert all(indent == " " * 12 for indent in
+               uses["langscenex_tpu_torch/models/t5.py"])
+    assert "from transformers import AutoTokenizer" in load
 
 
 def test_spawned_ranks_run_without_jax(tmp_path):
