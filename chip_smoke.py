@@ -5,7 +5,7 @@ probes once on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 22    # phases 1, 2 and 22 only
-    python3 chip_smoke.py --phase 25    # (or 23, 24) likewise
+    python3 chip_smoke.py --phase 25    # (or 23, 24, 26, 27) likewise
 
 Phases (any failure raises, so the exit code is non-zero):
   1. device: require CUDA; print nvidia-smi's name and power limit;
@@ -175,8 +175,9 @@ Phases (any failure raises, so the exit code is non-zero):
      preset's full widths (channels 128/256/256/512, 16 latents) with
      Discriminator3D(base=32) and the full-width LPIPS per frame, f32:
      3 VAETrainer steps on a seeded (1, 9, 3, 256, 256) clip with
-     disc_start_step 1 (5 frames where 9 do not fit; the VAE and logvar
-     at lr 1e-7, VAE_TRAIN): finite losses, D unchanged after step 1 and
+     disc_start_step 1 (5 frames where 9 do not fit) at the default lr
+     1e-4 with logvar in the VAE's Adam (VAE_TRAIN, logvar_in_adam):
+     finite losses, D unchanged after step 1 and
      changed after step 2, logvar moved; one step at (1, 5, 3, 64, 64)
      from one state and one eps on the card and on the CPU (losses and
      logvar within VAE_RTOL); ms per step and peak memory;
@@ -188,8 +189,9 @@ Phases (any failure raises, so the exit code is non-zero):
      encode and peak memory;
  25. configuration autoseg-full-random-9x1024, the JAX package's
      --full-random auto-seg stack (SAM1 ViT-H with the thresholds off,
-     SAM2 Hiera-L, MaskAlignConfig(new_obj_min_area=4, postnms_score
-     off, max_objects 64), seeded random weights) over 9 720x480 PNG
+     SAM2 Hiera-L, both normalising their input as the reference does,
+     MaskAlignConfig(new_obj_min_area=4, postnms_score off, max_objects
+     64), seeded random weights) over 9 720x480 PNG
      frames the port renders from phase 22's room along a 30-degree arc:
      the CLI's frame loader, MaskAligner.run, the id-map resize and
      save_outputs (colors.npy with a black row 0, 9 int32 [480, 720] id
@@ -198,7 +200,34 @@ Phases (any failure raises, so the exit code is non-zero):
      torch.saved in the two checkpoints' layouts gives the same
      first-frame embeddings; ms of the generator per keyframe, the SAM2
      image encode and the track step per frame, the whole run, peak
-     memory. Phases 23-25 add no kernel.
+     memory;
+ 26. configuration vggt-1b-49x518, pose lifting: VGGTConfig() (VGGT-1B:
+     24 + 24 aggregator blocks at 1024, DINOv2 ViT-L, the camera head and
+     both DPT heads) with seeded random weights, f32, over 49 720x480
+     PNG frames the port renders from phase 22's room along phase 25's
+     arc, through FieldConstructionPipeline.estimate_poses (camera/*.npz
+     and points3D.ply), after a warmup at 2 frames; then
+     estimate_poses_dense_init on 8 of the frames (the sparse_0/0 COLMAP
+     tree, the confidences, pts_num.txt) and generate_normals on the
+     first and last frames: finite outputs, the file trees; a 2-block cut
+     (2 aggregator and 2 ViT blocks, both heads, 2 frames at 518) on the
+     card against the CPU (VGGT_REL_RMS per output); the state_dict saved
+     with torch.save and read back through the get_normal CLI giving the
+     same pose encoding; the forward's seconds, the export's and the
+     normals', peak memory;
+ 27. configuration lang-lift-clip-l14-49x720x480, language lifting:
+     FieldConstructionPipeline.extract_language_features over the same
+     49 frames with ClipDenseExtractor(CLIPVisionConfig()) (ViT-L/14,
+     seeded random weights, max side 672) and seg maps of 64 ids a frame
+     (an 8 x 8 grid over each frame), so the scene AE trains on 3,136
+     rows for its 400 epochs; then the LSeg + VQ branch (VQConfig(),
+     640x480) from checkpoints; then embed_queries ->
+     encode_queries_to_lang3 -> relevancy_maps on phase 22's rendered
+     language maps: finite outputs, file shapes, the AE's best eval loss
+     below its first; one CLIP forward and 4 AE steps on the card against
+     the CPU (CLIP_REL_RMS; AE_RTOL_FIRST, AE_RTOL); CLIP seconds a
+     frame, the AE fit's seconds, steps and ms a step, LSeg + VQ
+     seconds a frame, peak memory. Phases 23-27 add no kernel.
 Every kernel's bound is computed from this run's shapes: the larger of
 its operations over the bf16 tensor-core peak and its bytes (each input
 read once, each output written once) over the HBM rate; K3's reads only
@@ -216,6 +245,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3164,12 +3194,9 @@ VAE_CLIP = (1, 9, 3, 256, 256)      # vae-train-c16-9x256x256
 VAE_CLIP_CUT = (1, 5, 3, 256, 256)  # if 9 frames do not fit in the card
 VAE_CHECK = (1, 5, 3, 64, 64)       # one step on the card and on the CPU
 VAE_STEPS = 3
-# The trainer's logvar takes a plain SGD step of lr times the NLL's
-# gradient, a sum over every pixel (as in the JAX package): at
-# 9x256x256x3 = 1.77M values the default lr 1e-4 moves it by about 70 in
-# one step and the loss overflows by step 3, so this phase runs the VAE
-# and logvar at lr 1e-7 (D keeps disc_lr 1e-4); ROADMAP lists the fault.
-VAE_TRAIN = dict(lr=1e-7, disc_start_step=1)
+# the default lr 1e-4, logvar in the VAE's Adam (the JAX package's plain
+# logvar step overflows the loss at this clip by step 3)
+VAE_TRAIN = dict(disc_start_step=1, logvar_in_adam=True)
 # card vs CPU, one step from one state and one eps, f32 without TF32:
 # the convolutions sum in another order, so losses and logvar 1e-3 rel
 VAE_RTOL = 1e-3
@@ -3370,14 +3397,19 @@ def arc_cameras(n: int) -> list[Camera]:
     return cams
 
 
-def write_arc_frames(dev, root: str) -> None:
-    """AUTOSEG_FRAMES PNGs of phase 22's room along ``arc_cameras``,
-    rendered by the port."""
+def room_splats(dev) -> GaussianState:
+    """Phase 22's room as splats on ``dev``."""
     arrays, _ = e2e_room(FIELD_P)
     st = gaussian_state(arrays)
-    splats = dataclasses.replace(st, **{
+    return dataclasses.replace(st, **{
         f.name: getattr(st, f.name).to(dev) for f in dataclasses.fields(st)})
-    cams = arc_cameras(AUTOSEG_FRAMES)
+
+
+def write_arc_frames(dev, root: str, n: int = AUTOSEG_FRAMES) -> None:
+    """n PNGs of phase 22's room along ``arc_cameras``, rendered by the
+    port."""
+    splats = room_splats(dev)
+    cams = arc_cameras(n)
     for cam, (_, m) in zip(cams, render_all_views(splats, cams, EXACT_CFG,
                                                   sh_degree=3)):
         require(not bool(m["pairs_overflowed"]), "arc render: overflow")
@@ -3388,8 +3420,10 @@ def write_arc_frames(dev, root: str) -> None:
 
 @contextlib.contextmanager
 def timed_calls(obj, name: str, out: list):
-    """Record the seconds of every ``obj.name`` call (synchronised)."""
+    """Record the seconds of every ``obj.name`` call (synchronised); obj
+    may be an instance, a class or a module."""
     fn = getattr(obj, name)
+    own = name in vars(obj)
 
     def wrapper(*a, **k):
         torch.cuda.synchronize()
@@ -3402,12 +3436,16 @@ def timed_calls(obj, name: str, out: list):
     try:
         yield out
     finally:
-        delattr(obj, name)
+        if own:
+            setattr(obj, name, fn)
+        else:
+            delattr(obj, name)
 
 
 def phase_autoseg(dev, smi: str) -> None:
     """autoseg-full-random-9x1024: SAM1 ViT-H (AMG with the thresholds
     off) and SAM2 Hiera-L (64 objects at most) with seeded random weights,
+    each normalising its input (as build_from_checkpoints builds them),
     over 9 rendered 720x480 PNG frames through the CLI's frame loader,
     MaskAligner.run, the id-map resize and save_outputs; then
     build_from_checkpoints on the same weights torch.saved in the two
@@ -3417,10 +3455,10 @@ def phase_autoseg(dev, smi: str) -> None:
     from langscenex_tpu_torch.models import sam1 as sam1_mod
     from langscenex_tpu_torch.models.sam2 import model as sam2_mod
     t0 = time.perf_counter()
-    m1 = sam1_mod.init_sam1_params(sam1_mod.SAM1(sam1_mod.SAM1Config(),
-                                                 device=dev), 0)
-    m2 = sam2_mod.init_sam2_params(sam2_mod.SAM2(sam2_mod.SAM2Config(),
-                                                 device=dev), 0)
+    m1 = sam1_mod.init_sam1_params(sam1_mod.SAM1(
+        sam1_mod.SAM1Config(), device=dev, normalize_input=True), 0)
+    m2 = sam2_mod.init_sam2_params(sam2_mod.SAM2(
+        sam2_mod.SAM2Config(), device=dev, normalize_input=True), 0)
     torch.cuda.synchronize()
     print(f"autoseg: SAM1 {sum(p.numel() for p in m1.parameters()) / 1e6:.1f}"
           f"M and SAM2 {sum(p.numel() for p in m2.parameters()) / 1e6:.1f}M "
@@ -3528,6 +3566,409 @@ def phase_autoseg(dev, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- 26-27. pose and language lifting ---------------------------------
+
+LIFT_FRAMES = 49                    # the TriMap clip quick_start feeds VGGT
+DENSE_STRIDE = 6                    # every 6th frame: 8 for the export
+VGGT_WARMUP = 2                     # frames of the warmup forward
+# the 2-block cut on the card vs the CPU, f32 without TF32 (phase 24's
+# pattern): the convolutions and attention sum in another order
+VGGT_REL_RMS = 1e-4
+VGGT_CUT = dict(depth=2, vit_depth=2, intermediate_layers=(0, 0, 1, 1))
+# the checkpoint read back through the CLI: the same weights and the same
+# inputs, so the same pose encoding up to the card's choice of kernels
+VGGT_CKPT_ATOL = 1e-5
+LANG_GRID = 8                       # an 8 x 8 grid: 64 seg ids a frame
+CLIP_REL_RMS = 1e-4                 # one CLIP-L forward, card vs CPU
+AE_CHECK_STEPS = 4
+# 4 AE steps from one state, card vs CPU, their train losses: the first
+# (the same weights, a forward) to AE_RTOL_FIRST; all to AE_RTOL, as
+# training this AE is chaotic in rounding (Adam moves each weight by ~lr
+# whatever its gradient, and the biases before a batch norm have a zero
+# gradient: the JAX trainer from a start one ulp away is 1e-4 apart by
+# step 5; tests/test_torch_language.py)
+AE_RTOL_FIRST = 1e-5
+AE_RTOL = 1e-3
+QUERIES = ("a grey wall", "the corner of the room", "a window", "the floor")
+
+
+@contextlib.contextmanager
+def recorded_forwards(model, out: list):
+    """Append (seconds, outputs) of every forward of ``model`` inside the
+    block, synchronised."""
+    fwd = model.forward
+
+    def rec(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fwd(*a, **k)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0, r))
+        return r
+    model.forward = rec
+    try:
+        yield out
+    finally:
+        del model.forward
+
+
+def require_finite(what: str, **tensors) -> None:
+    for k, v in tensors.items():
+        v = torch.as_tensor(v)
+        require(bool(torch.isfinite(v).all()), f"{what}: {k} is not finite")
+
+
+def phase_vggt(dev, smi: str, root: str) -> None:
+    """vggt-1b-49x518 over root/input (LIFT_FRAMES PNGs)."""
+    from langscenex_tpu_torch import get_normal, pose_estimation
+    from langscenex_tpu_torch.models import vggt as vggt_mod
+    from langscenex_tpu_torch.pipeline import (FieldConstructionPipeline,
+                                               PipelinePaths)
+    from langscenex_tpu_torch.scene.colmap_io import (read_cameras_binary,
+                                                      read_images_binary)
+    from langscenex_tpu_torch.scene.dataset_readers import read_ply_points
+    cfg = vggt_mod.VGGTConfig()
+    S = cfg.img_size - cfg.img_size % cfg.patch_size
+    t0 = time.perf_counter()
+    model = vggt_mod.init_vggt_params(vggt_mod.VGGT(cfg, device=dev),
+                                      0).eval()
+    torch.cuda.synchronize()
+    print(f"vggt: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B "
+          f"f32 parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    names = sorted(os.listdir(os.path.join(root, "input")))
+    n = len(names)
+    paths = [os.path.join(root, "input", f) for f in names]
+    warm = pose_estimation.load_frames(paths[:VGGT_WARMUP], S)
+    pose_estimation.run_vggt(model, warm)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the pipeline's pose step: camera/*.npz and points3D.ply
+    pipe = FieldConstructionPipeline(PipelinePaths(
+        data_path=root, skip_video_process=True,
+        skip_lang_feature_extraction=True), device=dev)
+    pipe.vggt = model
+    fwd = []
+    with recorded_forwards(model, fwd):
+        t0 = time.perf_counter()
+        pipe.preprocess()
+        torch.cuda.synchronize()
+        t_pose = time.perf_counter() - t0
+    peak = gib(torch.cuda.max_memory_allocated())
+    require(len(fwd) == 1, f"vggt: {len(fwd)} forwards in estimate_poses")
+    fwd_s, out = fwd[0]
+    require_finite("vggt", pose_enc=out["pose_enc"], depth=out["depth"],
+                   depth_conf=out["depth_conf"])
+    wp_finite = float(torch.isfinite(out["world_points"]).float().mean())
+    cams = sorted(os.listdir(os.path.join(root, "camera")))
+    require(cams == [f"{i + 1:04d}.npz" for i in range(n)],
+            f"vggt: camera files {cams[:3]}... ({len(cams)})")
+    for c in cams:
+        z = np.load(os.path.join(root, "camera", c))
+        require(z["pose"].shape == (4, 4) and z["intrinsics"].shape ==
+                (3, 3) and np.isfinite(z["pose"]).all()
+                and np.isfinite(z["intrinsics"]).all(),
+                f"vggt: {c} is not a finite 4x4 pose and 3x3 K")
+    pts, cols = read_ply_points(os.path.join(root, "points3D.ply"))
+    require(len(pts) > 0 and np.isfinite(pts).all(),
+            "vggt: points3D.ply empty or not finite")
+    del fwd, out
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the dense-init COLMAP export on 8 of the frames
+        dense = os.path.join(tmp, "dense")
+        os.makedirs(os.path.join(dense, "input"))
+        picked = names[::DENSE_STRIDE][:8]
+        for f in picked:
+            shutil.copy(os.path.join(root, "input", f),
+                        os.path.join(dense, "input", f))
+        t0 = time.perf_counter()
+        n_pts = pose_estimation.estimate_poses_dense_init(dense, model=model,
+                                                          device=dev)
+        t_dense = time.perf_counter() - t0
+        s0 = os.path.join(dense, "sparse_0", "0")
+        have = sorted(os.listdir(s0))
+        want = sorted(["images.bin", "images.txt", "cameras.bin",
+                       "cameras.txt", "points3D.ply", "confidence.npy",
+                       "confidence_dsp.npy", "non_scaled_focals.npy"])
+        require(have == want, f"dense init: sparse_0/0 holds {have}")
+        require(os.path.exists(os.path.join(dense, "pts_num.txt")),
+                "dense init: no pts_num.txt")
+        ims = read_images_binary(os.path.join(s0, "images.bin"))
+        cms = read_cameras_binary(os.path.join(s0, "cameras.bin"))
+        require(len(ims) == len(cms) == len(picked) and sorted(
+            im.name for im in ims.values()) == picked,
+            f"dense init: {len(ims)} images, {len(cms)} cameras")
+        require(all(c.width == W and c.height == H for c in cms.values()),
+                "dense init: cameras not at the frames' 720x480")
+        conf = np.load(os.path.join(s0, "confidence.npy"))
+        dsp = np.load(os.path.join(s0, "confidence_dsp.npy"))
+        dpts, _ = read_ply_points(os.path.join(s0, "points3D.ply"))
+        require(conf.shape == (len(picked), S * S) and len(dsp) == n_pts
+                == len(dpts) and 0 < n_pts <= len(picked) * S * S
+                and np.isfinite(dpts).all(),
+                f"dense init: confidence {conf.shape}, {len(dsp)} kept "
+                f"confidences, {len(dpts)} points, {n_pts} returned")
+
+        # normal keyframes from the first and last frames
+        kf = os.path.join(tmp, "kf")
+        os.makedirs(os.path.join(kf, "rgb"))
+        for i, f in enumerate((names[0], names[-1])):
+            shutil.copy(os.path.join(root, "input", f),
+                        os.path.join(kf, "rgb", f"{i + 1:04d}.png"))
+        t0 = time.perf_counter()
+        out_n = get_normal.generate_normals(kf, model=model, device=dev)
+        torch.cuda.synchronize()
+        t_norm = time.perf_counter() - t0
+        for i in range(2):
+            img = read_png(os.path.join(kf, "normal", f"{i + 1:04d}.png"))
+            require(img.shape == (H, W, 3), f"normals: shape {img.shape}")
+
+        # the state_dict through torch.save and the CLI
+        ckpt = os.path.join(tmp, "model.pt")
+        t0 = time.perf_counter()
+        torch.save(model.state_dict(), ckpt)
+        t_save = time.perf_counter() - t0
+        os.rename(os.path.join(kf, "normal"), os.path.join(kf, "direct"))
+        cli = []
+        inner = get_normal.generate_normals
+
+        def captured(*a, **k):
+            cli.append(inner(*a, **k))
+            return cli[-1]
+        get_normal.generate_normals = captured
+        try:
+            t0 = time.perf_counter()
+            rc = get_normal.main(["--base_path", kf, "--vggt_checkpoint",
+                                  ckpt, "--device", str(dev)])
+            t_cli = time.perf_counter() - t0
+        finally:
+            get_normal.generate_normals = inner
+        require(rc == 0 and len(cli) == 1, "get_normal CLI failed")
+        err = max_abs(cli[0]["pose_enc"], out_n["pose_enc"])
+        same_png = all(np.array_equal(
+            read_png(os.path.join(kf, "normal", f"{i + 1:04d}.png")),
+            read_png(os.path.join(kf, "direct", f"{i + 1:04d}.png")))
+            for i in range(2))
+        print(f"vggt checkpoint: torch.save {t_save:.2f} s, the get_normal "
+              f"CLI {t_cli:.2f} s; pose_enc max abs diff {err:.3e} (bound "
+              f"{VGGT_CKPT_ATOL}), normal PNGs equal: {same_png}")
+        require(err <= VGGT_CKPT_ATOL, "vggt: the CLI's checkpoint model "
+                "differs")
+        del cli, out_n
+    torch.cuda.empty_cache()
+
+    # the 2-block cut, card vs CPU, on the warmup's 2 frames
+    cut = dataclasses.replace(cfg, **VGGT_CUT)
+
+    def kept(k):
+        for pre in ("aggregator.frame_blocks.", "aggregator.global_blocks.",
+                    "aggregator.patch_embed.blocks."):
+            if k.startswith(pre):
+                return int(k[len(pre):].split(".")[0]) < 2
+        return True
+    keep = {k: v for k, v in model.state_dict().items() if kept(k)}
+    del model, pipe
+    torch.cuda.empty_cache()
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        m = vggt_mod.VGGT(cut, device=d).eval()
+        m.load_state_dict({k: v.to(d) for k, v in keep.items()}, strict=True)
+        with torch.no_grad():
+            o = m(torch.from_numpy(warm)[None].to(d))
+        outs.append({k: v.cpu() for k, v in o.items()})
+        del m
+    errs = {k: rel_rms(outs[0][k], outs[1][k]) for k in outs[1]}
+    print("vggt 2 blocks + both heads at 2x518, card vs CPU: rel RMS "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (bound {VGGT_REL_RMS})")
+    require(max(errs.values()) <= VGGT_REL_RMS, "vggt: card and CPU "
+            "disagree")
+    print(f"vggt-1b-49x518: forward {fwd_s:.2f} s over {n} frames at "
+          f"{S}x{S} (after a {VGGT_WARMUP}-frame warmup), estimate_poses "
+          f"{t_pose:.2f} s whole ({len(pts)} init points; world points "
+          f"finite {wp_finite:.4f}), dense-init export of {len(picked)} "
+          f"frames {t_dense:.2f} s ({n_pts} points), normals of 2 keyframes "
+          f"{t_norm:.2f} s, peak {peak:.2f} GiB on {smi}")
+    del keep, outs
+    torch.cuda.empty_cache()
+
+
+class CharTokenizer:
+    """A stand-in for HF's CLIPTokenizer (the card has no transformers):
+    BOS, one id per byte, EOS, zero padding."""
+
+    def __call__(self, texts, padding, max_length, truncation,
+                 return_tensors):
+        ids = np.zeros((len(texts), max_length), np.int64)
+        for r, t in enumerate(texts):
+            toks = [49406] + list(t.encode())[:max_length - 2] + [49407]
+            ids[r, :len(toks)] = toks
+        return {"input_ids": ids}
+
+
+def grid_segments(h: int, w: int) -> np.ndarray:
+    """[h, w] ids 0..LANG_GRID^2 - 1: an LANG_GRID x LANG_GRID grid."""
+    ys, xs = np.mgrid[0:h, 0:w]
+    return (ys * LANG_GRID // h) * LANG_GRID + xs * LANG_GRID // w
+
+
+def phase_lang(dev, smi: str, root: str) -> None:
+    """lang-lift-clip-l14-49x720x480 over root/input."""
+    from langscenex_tpu_torch.eval import open_vocab
+    from langscenex_tpu_torch.models import clip_dense, lseg, vq_model
+    from langscenex_tpu_torch.pipeline import (FieldConstructionPipeline,
+                                               PipelinePaths)
+    from langscenex_tpu_torch.train import ae as ae_mod
+    names = sorted(os.listdir(os.path.join(root, "input")))
+    n = len(names)
+    seg_dir = os.path.join(root, "lang_features_dim3")
+    os.makedirs(seg_dir, exist_ok=True)
+    seg = grid_segments(H, W)
+    for i in range(n):
+        np.save(os.path.join(seg_dir, f"{i + 1:04d}_s.npy"), seg)
+    ccfg = clip_dense.CLIPVisionConfig()
+    clip = clip_dense.init_clip_params(clip_dense.CLIPVisionDense(
+        ccfg, device=dev), 1).eval()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = FieldConstructionPipeline(PipelinePaths(
+        data_path=root, skip_video_process=True, skip_pose_estimate=True),
+        device=dev)
+    pipe.lang_extractor = clip_dense.ClipDenseExtractor(clip)
+    clip_s, fit_s = [], []
+    with timed_calls(clip, "forward", clip_s), \
+            timed_calls(ae_mod.AETrainer, "fit", fit_s):
+        t0 = time.perf_counter()
+        pipe.preprocess()
+        t_all = time.perf_counter() - t0
+    peak = gib(torch.cuda.max_memory_allocated())
+    tr = pipe.ae_trainer
+    rows = 0
+    for i in range(n):
+        r = np.load(os.path.join(root, "lang_features", f"{i + 1:04d}.npy"))
+        f = np.load(os.path.join(seg_dir, f"{i + 1:04d}_f.npy"))
+        require(r.shape == (LANG_GRID ** 2, ccfg.projection_dim)
+                and np.isfinite(r).all(), f"lang: rows {r.shape}")
+        require(f.shape == (3, H, W) and np.isfinite(f).all(),
+                f"lang: 3-d map {f.shape}")
+        rows += len(r)
+    ev = tr.history["eval"]
+    require(len(ev) > 1 and min(v for _, v in ev) < ev[0][1],
+            f"lang: the AE's best eval loss is not below its first "
+            f"({ev[:2]}...)")
+    steps = pipe.ae_epochs * max(rows // 512, 1)
+    print(f"lang AE: {rows} rows, {pipe.ae_epochs} epochs, {steps} steps; "
+          f"eval loss {ev[0][1]:.6f} (epoch {ev[0][0]}) -> best "
+          f"{min(v for _, v in ev):.6f} (epoch {tr.best_epoch})")
+
+    # one CLIP forward and AE_CHECK_STEPS AE steps, card vs CPU
+    img = read_png(os.path.join(root, "input", names[0]))
+    x = pipe.lang_extractor.pixels(img)
+    cpu = torch.device("cpu")
+    clip_cpu = clip_dense.CLIPVisionDense(ccfg, device=cpu).eval()
+    clip_cpu.load_state_dict({k: v.cpu() for k, v in
+                              clip.state_dict().items()})
+    with torch.no_grad():
+        got = [t.cpu() for t in clip(x)]
+        ref = clip_cpu(x.cpu())
+    clip_err = max(rel_rms(a, b) for a, b in zip(got, ref))
+    del clip_cpu
+    feats = np.concatenate([np.load(os.path.join(
+        root, "lang_features", f"{i + 1:04d}.npy")) for i in range(n)])
+    ae_gpu = ae_mod.AETrainer(input_dim=feats.shape[1], device=dev)
+    ae_cpu = ae_mod.AETrainer(input_dim=feats.shape[1], device=cpu)
+    ae_cpu.model.load_state_dict({k: v.cpu() for k, v in
+                                  ae_gpu.model.state_dict().items()})
+    rng = np.random.default_rng(0)
+    ae_errs = []
+    for _ in range(AE_CHECK_STEPS):
+        b = torch.from_numpy(feats[rng.permutation(len(feats))[:512]])
+        lg = float(ae_gpu.train_step(b.to(dev)))
+        lc = float(ae_cpu.train_step(b))
+        ae_errs.append(abs(lg - lc) / abs(lc))
+    print(f"lang card vs CPU: CLIP-L forward rel RMS {clip_err:.2e} (bound "
+          f"{CLIP_REL_RMS}), {AE_CHECK_STEPS} AE steps' losses rel "
+          + " ".join(f"{e:.2e}" for e in ae_errs)
+          + f" (bounds {AE_RTOL_FIRST} for the first, {AE_RTOL})")
+    require(clip_err <= CLIP_REL_RMS, "lang: CLIP card and CPU disagree")
+    require(ae_errs[0] <= AE_RTOL_FIRST and max(ae_errs) <= AE_RTOL,
+            "lang: AE card and CPU disagree")
+    del ae_gpu, ae_cpu
+
+    # the LSeg + VQ branch from checkpoints
+    vq = vq_model.init_vq_params(vq_model.VQModel(vq_model.VQConfig(),
+                                                  device=dev), 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        lseg_ckpt, vq_ckpt = (os.path.join(tmp, "lseg.pt"),
+                              os.path.join(tmp, "vq.pt"))
+        torch.save(clip.state_dict(), lseg_ckpt)
+        torch.save(vq.state_dict(), vq_ckpt)
+        del vq
+        lpipe = FieldConstructionPipeline(PipelinePaths(
+            data_path=root, skip_video_process=True, skip_pose_estimate=True,
+            feature_extractor_type="lseg", lseg_ckpt=lseg_ckpt,
+            sem_ae_ckpt=vq_ckpt), device=dev)
+        lseg_s = []
+        with timed_calls(lseg, "generate_lang_features_with_lseg",
+                          lseg_s):
+            t0 = time.perf_counter()
+            lpipe.extract_language_features()
+            t_lseg_all = time.perf_counter() - t0
+    d4 = sorted(os.listdir(os.path.join(root, "lang_features_dim4")))
+    require(len(d4) == n and len(lseg_s) == 1, f"lseg: {len(d4)} maps")
+    for f in d4:
+        z = np.load(os.path.join(root, "lang_features_dim4", f))
+        require(z.shape == (1, 4, 120, 160) and np.isfinite(z).all(),
+                f"lseg: {f} {z.shape}")
+
+    # open-vocabulary queries on phase 22's rendered language maps
+    text = clip_dense.init_clip_params(clip_dense.CLIPTextEncoder(
+        clip_dense.CLIPTextConfig(), device=dev), 3).eval()
+    emb = open_vocab.embed_queries(QUERIES, text, CharTokenizer())
+    codes = open_vocab.encode_queries_to_lang3(emb, tr)
+    require_finite("queries", emb=emb, codes=codes)
+    require(codes.shape == (len(QUERIES), 3), f"queries: {codes.shape}")
+    cams = e2e_cameras()
+    for cam, (_, m) in zip(cams, render_all_views(room_splats(dev), cams,
+                                                  EXACT_CFG, sh_degree=3)):
+        rel = open_vocab.relevancy_maps(
+            m["language_feature"].cpu().numpy(), codes)
+        require(rel.shape == (len(QUERIES), H, W) and np.isfinite(rel).all()
+                and np.abs(rel).max() <= 1.0 + 1e-5,
+                f"queries: relevancy {rel.shape}")
+    pred = open_vocab.predict_masks(rel, 0.5)
+    print(f"lang-lift-clip-l14-49x720x480: CLIP {np.median(clip_s):.3f} s a "
+          f"frame (median of {len(clip_s)}), extract + AE "
+          f"{t_all:.2f} s whole, AE fit {fit_s[0]:.2f} s ({steps} steps, "
+          f"{fit_s[0] / steps * 1e3:.2f} ms a step with its evals), "
+          f"LSeg + VQ {lseg_s[0] / n:.3f} s a frame ({t_lseg_all:.2f} s "
+          f"with the checkpoints' loading), queries: {len(QUERIES)} codes, "
+          f"{(pred >= 0).mean():.3f} of the last view above 0.5; peak "
+          f"{peak:.2f} GiB (extract + AE) on {smi}")
+    del clip, text, pipe, lpipe
+    torch.cuda.empty_cache()
+
+
+def phase_26_27(dev, smi: str, which=(26, 27)) -> None:
+    """Phases 26 and 27 over one scene of LIFT_FRAMES arc frames."""
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, "input"))
+        write_arc_frames(dev, os.path.join(root, "input"), LIFT_FRAMES)
+        torch.cuda.empty_cache()
+        if 26 in which:
+            t0 = time.perf_counter()
+            phase_vggt(dev, smi, root)
+            print(f"phase 26: {time.perf_counter() - t0:.1f} s")
+        if 27 in which:
+            t0 = time.perf_counter()
+            phase_lang(dev, smi, root)
+            print(f"phase 27: {time.perf_counter() - t0:.1f} s")
+
+
 def phase_23_25(dev, smi: str, which=(23, 24, 25)) -> None:
     if 23 in which:
         phase_vae_train(dev, smi)
@@ -3546,7 +3987,7 @@ def phase_22(dev) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", type=int, choices=(22, 23, 24, 25),
+    ap.add_argument("--phase", type=int, choices=(22, 23, 24, 25, 26, 27),
                     default=None,
                     help="run phases 1, 2 and this phase only (no result "
                          "lines)")
@@ -3577,6 +4018,10 @@ def main(argv=None) -> int:
         return 0
     if args.phase in (23, 24, 25):
         phase_23_25(dev, smi, (args.phase,))
+        print(smi)
+        return 0
+    if args.phase in (26, 27):
+        phase_26_27(dev, smi, (args.phase,))
         print(smi)
         return 0
 
@@ -3673,6 +4118,10 @@ def main(argv=None) -> int:
 
     # ---- 23-25. the VAE trainer, the T5-XXL encoder, auto-seg ------------
     phase_23_25(dev, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 26-27. pose and language lifting ------------------------------
+    phase_26_27(dev, smi)
 
     launches = {**{k: train_launches[k] for k in RENDER_TRAIN_KERNELS},
                 **{k: request["launches"][k] for k in DIT_KERNELS},

@@ -258,14 +258,17 @@ def build_from_checkpoints(sam1_ckpt: str, sam2_ckpt: str, amg_cfg=None,
     checkpoints (sam_vit_h_4b8939.pth, sam2_hiera_large.pt with its
     weights under ``model``) on ``device`` (the GPU unless the caller
     names another). Returns (SAM1AutomaticMaskGenerator,
-    SAM2VideoPredictor); every parameter must be in the checkpoint."""
+    SAM2VideoPredictor); every parameter must be in the checkpoint. Both
+    models normalise their input as the reference does (SAM's pixel
+    mean/std, ImageNet's), which these checkpoints were trained with."""
     from ..models.sam1 import (SAM1, SAM1AMGConfig, SAM1Config,
                                SAM1AutomaticMaskGenerator)
     from ..models.sam2.model import SAM2, SAM2Config, SAM2VideoPredictor
     dev = resolve_device(device)
-    m1 = SAM1(SAM1Config(), device=dev)
+    m1 = SAM1(SAM1Config(), device=dev, normalize_input=True)
     _load_into(m1, _load(sam1_ckpt, dev), sam1_ckpt)
-    m2 = SAM2(SAM2Config(image_size=image_size), device=dev)
+    m2 = SAM2(SAM2Config(image_size=image_size), device=dev,
+              normalize_input=True)
     _load_into(m2, _load(sam2_ckpt, dev), sam2_ckpt)
     return (SAM1AutomaticMaskGenerator(m1, amg_cfg or SAM1AMGConfig()),
             SAM2VideoPredictor(m2))

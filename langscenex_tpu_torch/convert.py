@@ -15,7 +15,11 @@ state_dicts, which use diffusers' keys: they invert the JAX package's
 ``dit_train_state_from_numpy`` carries a DiT fine-tune state across
 (params, Adam moments and count, EMA, step) and ``lora_from_numpy`` a
 LoRA adapter tree, so both packages can start a train step from one
-state.
+state. The ``*_from_numpy`` of LPIPS, T5, SAM1, SAM2, VGGT, CLIP's two
+towers, the scene autoencoder (its batch statistics too) and the VQ
+model invert the JAX package's ``convert_*``: each returns the
+state_dict, in the reference checkpoint's keys, whose conversion gave
+those params.
 """
 from __future__ import annotations
 
@@ -515,3 +519,180 @@ def sam1_from_numpy(flax_params: dict,
     ``strict=False`` (they are unused)."""
     return _on(_sam_state_dict(_params(flax_params), ("lin1", "lin2")),
                device)
+
+
+# flax module names of the JAX VGGT -> facebook/VGGT-1B's torch keys
+_VGGT_NAMES = {"patch_embed_proj": "patch_embed.proj",
+               "poseLN_modulation": "poseLN_modulation.1"}
+_VGGT_RENAMES = (
+    (re.compile(r"^(mlp|pose_branch)_(fc\d)$"), r"\1.\2"),
+    (re.compile(r"^(\w+?)_(\d+)$"), r"\1.\2"),
+)
+_DPT_SCRATCH = re.compile(r"^(layer\d_rn|refinenet\d|output_conv\d(_\d)?)$")
+
+
+def _vggt_name(part: str, in_dpt: bool) -> str:
+    if part in _VGGT_NAMES:
+        return _VGGT_NAMES[part]
+    name = part
+    for pat, rep in _VGGT_RENAMES:
+        if pat.match(part):
+            name = pat.sub(rep, part)
+            break
+    if in_dpt and _DPT_SCRATCH.match(part):
+        name = "scratch." + name
+    return name
+
+
+def vggt_from_numpy(flax_params: dict,
+                    device: torch.device | str | None = None) -> dict:
+    """JAX ``VGGT`` params -> the port's state_dict in facebook/VGGT-1B's
+    keys (``tests/torch_vggt_mirror.py``), inverting the JAX package's
+    ``convert_vggt`` (with ``include_track`` when the tree has a track
+    head). That converter drops DINOv2's unused ``mask_token``; it comes
+    back as zeros."""
+    dpt = {"depth_head", "point_head", "feature_extractor"}
+    sd = _tree_state_dict(_params(flax_params), lambda name, path: _vggt_name(
+        name, not dpt.isdisjoint(path)))
+    cls = sd.get("aggregator.patch_embed.cls_token")
+    if cls is not None:
+        sd["aggregator.patch_embed.mask_token"] = np.zeros(
+            (1, cls.shape[-1]), cls.dtype)
+    return _on(sd, device)
+
+
+def _tree_state_dict(p: dict, name_of) -> dict:
+    """Flatten a flax tree into torch keys: ``name_of(name, ancestors)``
+    maps each module name (``ancestors``: the flax names above it),
+    ``kernel`` becomes a transposed ``weight``, ``scale`` a ``weight``."""
+    sd = {}
+
+    def walk(node, path, flax_path):
+        if isinstance(node, dict):
+            for name, child in node.items():
+                walk(child, path + (name_of(name, flax_path),),
+                     flax_path + (name,))
+            return
+        a = np.asarray(node)
+        parts = list(path)
+        if parts[-1] == "kernel":
+            parts[-1], a = "weight", _kernel(a)
+        elif parts[-1] == "scale":
+            parts[-1] = "weight"
+        sd[".".join(parts)] = a
+
+    walk(p, (), ())
+    return sd
+
+
+def _clip_layers(p: dict) -> dict:
+    layers = {k: v for k, v in p.items() if k.startswith("layers_")}
+
+    def name(n, _):
+        if n.startswith("layers_"):
+            return "encoder.layers." + n[len("layers_"):]
+        return "mlp." + n if n in ("fc1", "fc2") else n
+    return _tree_state_dict(layers, name)
+
+
+def clip_vision_from_numpy(flax_params: dict,
+                           device: torch.device | str | None = None
+                           ) -> dict:
+    """JAX ``CLIPVisionDense`` params -> the port's state_dict in HF
+    ``CLIPVisionModelWithProjection``'s keys, inverting the JAX package's
+    ``convert_clip_vision``."""
+    p = _params(flax_params)
+    pre = "vision_model."
+    sd = {pre + k: v for k, v in _clip_layers(p).items()}
+    sd[pre + "embeddings.class_embedding"] = np.asarray(p["class_embedding"])
+    sd[pre + "embeddings.position_embedding.weight"] = np.asarray(
+        p["position_embedding"])
+    sd[pre + "embeddings.patch_embedding.weight"] = _kernel(
+        p["patch_embedding"]["kernel"])
+    for ours, theirs in (("pre_layernorm", "pre_layrnorm"),
+                         ("post_layernorm", "post_layernorm")):
+        sd[pre + theirs + ".weight"] = np.asarray(p[ours]["scale"])
+        sd[pre + theirs + ".bias"] = np.asarray(p[ours]["bias"])
+    sd["visual_projection.weight"] = _kernel(
+        p["visual_projection"]["kernel"])
+    return _on(sd, device)
+
+
+def clip_text_from_numpy(flax_params: dict,
+                         device: torch.device | str | None = None) -> dict:
+    """JAX ``CLIPTextEncoder`` params -> the port's state_dict in HF
+    ``CLIPTextModelWithProjection``'s keys, inverting the JAX package's
+    ``convert_clip_text``."""
+    p = _params(flax_params)
+    pre = "text_model."
+    sd = {pre + k: v for k, v in _clip_layers(p).items()}
+    sd[pre + "embeddings.token_embedding.weight"] = np.asarray(
+        p["token_embedding"]["embedding"])
+    sd[pre + "embeddings.position_embedding.weight"] = np.asarray(
+        p["position_embedding"])
+    sd[pre + "final_layer_norm.weight"] = np.asarray(
+        p["final_layer_norm"]["scale"])
+    sd[pre + "final_layer_norm.bias"] = np.asarray(
+        p["final_layer_norm"]["bias"])
+    sd["text_projection.weight"] = _kernel(p["text_projection"]["kernel"])
+    return _on(sd, device)
+
+
+def autoencoder_from_numpy(variables: dict,
+                           device: torch.device | str | None = None
+                           ) -> dict:
+    """JAX ``Autoencoder`` variables ({"params", "batch_stats"}) -> the
+    port's state_dict in the reference's keys (``encoder.{0,3,...}``
+    Linear, ``encoder.{1,4,...}`` BatchNorm1d with its running statistics,
+    ``decoder.{0,2,...}`` Linear), inverting the JAX package's
+    ``convert_autoencoder``. ``num_batches_tracked``, which flax does not
+    keep, is 0."""
+    p, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+    for j in range(len(p["encoder"]) - len(stats["encoder"])):
+        d = p["encoder"][f"Dense_{j}"]
+        mi = 3 * j
+        sd[f"encoder.{mi}.weight"] = _kernel(d["kernel"])
+        sd[f"encoder.{mi}.bias"] = np.asarray(d["bias"])
+    for j in range(len(stats["encoder"])):
+        bn, st, mi = (p["encoder"][f"BatchNorm_{j}"],
+                      stats["encoder"][f"BatchNorm_{j}"], 3 * j + 1)
+        sd[f"encoder.{mi}.weight"] = np.asarray(bn["scale"])
+        sd[f"encoder.{mi}.bias"] = np.asarray(bn["bias"])
+        sd[f"encoder.{mi}.running_mean"] = np.asarray(st["mean"])
+        sd[f"encoder.{mi}.running_var"] = np.asarray(st["var"])
+        sd[f"encoder.{mi}.num_batches_tracked"] = np.array(0, np.int64)
+    for j in range(len(p["decoder"])):
+        d = p["decoder"][f"Dense_{j}"]
+        sd[f"decoder.{2 * j}.weight"] = _kernel(d["kernel"])
+        sd[f"decoder.{2 * j}.bias"] = np.asarray(d["bias"])
+    return _on(sd, device)
+
+
+_VQ_RENAMES = (
+    (re.compile(r"^down_(\d+)_res_(\d+)$"), r"down_blocks.\1.resnets.\2"),
+    (re.compile(r"^down_(\d+)_downsample$"), r"down_blocks.\1.downsamplers.0"),
+    (re.compile(r"^up_(\d+)_res_(\d+)$"), r"up_blocks.\1.resnets.\2"),
+    (re.compile(r"^up_(\d+)_upsample$"), r"up_blocks.\1.upsamplers.0"),
+    (re.compile(r"^mid_res_(\d+)$"), r"mid_block.resnets.\1"),
+    (re.compile(r"^mid_attn$"), "mid_block.attentions.0"),
+    (re.compile(r"^to_out$"), "to_out.0"),
+)
+
+
+def _vq_name(part: str, _=()) -> str:
+    for pat, rep in _VQ_RENAMES:
+        if pat.match(part):
+            return pat.sub(rep, part)
+    return part
+
+
+def vq_model_from_numpy(flax_params: dict,
+                        device: torch.device | str | None = None) -> dict:
+    """JAX ``VQModel`` params -> the port's state_dict in diffusers'
+    ``VQModel`` keys, inverting the JAX package's ``convert_vq_model``."""
+    p = dict(_params(flax_params))
+    codebook = p.pop("codebook")
+    sd = _tree_state_dict(p, _vq_name)
+    sd["quantize.embedding.weight"] = np.asarray(codebook)
+    return _on(sd, device)

@@ -1,36 +1,52 @@
-"""Open-vocabulary query metrics over rendered language-feature maps,
-port of the metric half of the JAX ``eval/open_vocab.py`` (numpy): the
-per-pixel cosine relevancy of each query's 3-d code, the predicted masks,
-per-query IoU, mIoU and localization accuracy (the paper's headline
-metrics, SURVEY.md §3.5).
+"""Open-vocabulary queries over rendered language-feature maps, port of
+the JAX ``eval/open_vocab.py`` (numpy, with the CLIP text tower and the
+scene autoencoder in torch). The protocol (SURVEY.md §3.5; the reference
+ships no query code):
 
-``embed_queries`` and ``encode_queries_to_lang3`` need the CLIP text
-tower and the scene autoencoder, which belong to the pose and language
-lifting stage (ROADMAP Queue 1, D1); they raise until that stage is
-ported.
+  text --CLIP text tower--> 768-d --scene AE encoder--> 3-d code
+  per pixel: cosine(rendered lang3, code) -> per-query relevancy
+  argmax over queries (+ a background threshold) -> predicted masks
+  predicted vs ground-truth id maps -> per-query IoU, mIoU and the
+  localisation accuracy (the paper's headline metrics).
+
+``embed_queries`` tokenises with the caller's tokenizer (HF's
+CLIPTokenizer, or any callable returning ``input_ids``); ``embed_ids``
+takes token ids and needs no ``transformers``.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Sequence
 
 import numpy as np
+import torch
 
 
-def embed_queries(texts: Sequence[str], text_encoder, params,
+def embed_ids(ids, text_encoder) -> np.ndarray:
+    """[Q, T] token ids -> [Q, proj_dim] L2-normalised CLIP text
+    embeddings (``models/clip_dense.CLIPTextEncoder``)."""
+    ids = torch.as_tensor(np.asarray(ids), dtype=torch.long,
+                          device=text_encoder.device)
+    with torch.no_grad():
+        emb = text_encoder(ids).float().cpu().numpy()
+    return emb / np.maximum(np.linalg.norm(emb, axis=-1, keepdims=True),
+                            1e-12)
+
+
+def embed_queries(texts: Sequence[str], text_encoder,
                   tokenizer) -> np.ndarray:
-    """texts -> [Q, proj_dim] CLIP text embeddings (needs D1's CLIP
-    text tower)."""
-    raise NotImplementedError("embed_queries needs the CLIP text tower, "
-                              "ported with the language-lifting stage (D1)")
+    """texts -> [Q, proj_dim] L2-normalised CLIP text embeddings, padded
+    to the tower's ``max_positions``."""
+    batch = tokenizer(list(texts), padding="max_length",
+                      max_length=text_encoder.cfg.max_positions,
+                      truncation=True, return_tensors="np")
+    return embed_ids(batch["input_ids"], text_encoder)
 
 
 def encode_queries_to_lang3(query_emb: np.ndarray, ae_trainer
                             ) -> np.ndarray:
-    """[Q, 768] CLIP embeddings -> [Q, 3] scene-AE codes (needs D1's
-    scene autoencoder)."""
-    raise NotImplementedError("encode_queries_to_lang3 needs the scene "
-                              "autoencoder, ported with the "
-                              "language-lifting stage (D1)")
+    """[Q, 768] CLIP embeddings -> [Q, 3] scene-AE codes (the compression
+    the per-pixel features went through; L2-normalised by the encoder)."""
+    return ae_trainer.encode(np.asarray(query_emb, np.float32))
 
 
 def relevancy_maps(lang_map: np.ndarray, query_codes: np.ndarray,

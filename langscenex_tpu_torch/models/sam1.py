@@ -14,7 +14,11 @@ multimask outputs, then small / medium / large = tokens 0 / 1 / 2):
   2-conv LayerNorm2d neck to 256 channels. The relative-position terms
   enter ``scaled_dot_product_attention`` as its float mask;
 - the image goes in as [0, 1] pixels without SAM's mean/std
-  normalisation, as in the JAX package;
+  normalisation, as in the JAX package, unless the model is built with
+  ``normalize_input=True``: then ``preprocess`` does what the
+  reference's ``Sam.preprocess`` does to 0-255 pixels (minus
+  ``PIXEL_MEAN``, over ``PIXEL_STD``) before the generator zero-pads a
+  crop, as the reference pads after normalising;
 - the generator: crop boxes (the full image + 2x2 overlapping crops per
   crop layer), each crop resized to the model's frame with
   ``jax.image.resize``'s antialiased bilinear (``ops/interp.resize_linear``)
@@ -51,6 +55,11 @@ from .sam2.decoder import (MLP, LayerNorm2d, TwoWayTransformer, hyper_masks,
                            upscaling)
 from .sam2.hiera import window_partition, window_unpartition
 from .sam2.model import init_like_flax_
+
+
+# segment_anything's Sam.pixel_mean / pixel_std, on 0-255 pixels
+PIXEL_MEAN = (123.675, 116.28, 103.53)
+PIXEL_STD = (58.395, 57.12, 57.375)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,9 +290,11 @@ class SAM1(nn.Module):
     another)."""
 
     def __init__(self, cfg: SAM1Config = SAM1Config(),
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 normalize_input: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.normalize_input = normalize_input
         with torch.device(resolve_device(device)):
             self.image_encoder = ImageEncoderViT(cfg)
             self.prompt_encoder = PromptEncoder(cfg)
@@ -292,6 +303,16 @@ class SAM1(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.mask_decoder.iou_token.weight.device
+
+    def preprocess(self, images: torch.Tensor) -> torch.Tensor:
+        """[..., 3, H, W] pixels in [0, 1] -> the encoder's input: the same
+        pixels, or with ``normalize_input`` (255 x - PIXEL_MEAN) /
+        PIXEL_STD per channel (segment_anything's Sam.preprocess)."""
+        if not self.normalize_input:
+            return images
+        mean = torch.tensor(PIXEL_MEAN, device=images.device)[:, None, None]
+        std = torch.tensor(PIXEL_STD, device=images.device)[:, None, None]
+        return (images * 255.0 - mean) / std
 
     def encode_image(self, images):
         return self.image_encoder(images)
@@ -389,7 +410,8 @@ class SAM1AutomaticMaskGenerator:
         scale = self.S / max(ch, cw)
         nh, nw = int(ch * scale + 0.5), int(cw * scale + 0.5)
         padded = torch.zeros(3, self.S, self.S, device=image.device)
-        padded[:, :nh, :nw] = resize_linear(crop, (nh, nw))
+        padded[:, :nh, :nw] = self.model.preprocess(
+            resize_linear(crop, (nh, nw)))
         feats = self.model.encode_image(padded[None])
         pts = build_point_grid(cfg.points_per_side) * np.array(
             [nw, nh], np.float32)

@@ -46,6 +46,10 @@ from .memory import MemoryAttention, MemoryConfig, MemoryEncoder
 NO_OBJ_SCORE = -1024.0
 
 
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
 @dataclasses.dataclass(frozen=True)
 class SAM2Config:
     hiera: HieraConfig = HieraConfig()
@@ -69,9 +73,11 @@ class SAM2(nn.Module):
     another)."""
 
     def __init__(self, cfg: SAM2Config = SAM2Config(),
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 normalize_input: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.normalize_input = normalize_input
         C, mem = cfg.decoder.dim, cfg.memory.mem_dim
         with torch.device(resolve_device(device)):
             self.image_encoder = ImageEncoder(cfg.hiera)
@@ -96,7 +102,14 @@ class SAM2(nn.Module):
         """images [B,3,S,S] -> {"backbone_fpn": [B,C_i,h_i,w_i] high
         resolution first (levels 0 and 1 through conv_s0/conv_s1),
         "vision_pos_enc": [C,h_i,w_i], "vision_features": the last
-        level}."""
+        level}. Images are [0, 1] pixels; with ``normalize_input`` they are
+        first normalised with the ImageNet mean and std, as the
+        reference's init_state and image predictor do (the JAX package
+        feeds them as they are, the default)."""
+        if self.normalize_input:
+            mean = torch.tensor(IMAGENET_MEAN, device=images.device)
+            std = torch.tensor(IMAGENET_STD, device=images.device)
+            images = (images - mean[:, None, None]) / std[:, None, None]
         fpn, pos = self.image_encoder(images)
         fpn = list(fpn)
         fpn[0] = self.sam_mask_decoder.conv_s0(fpn[0])

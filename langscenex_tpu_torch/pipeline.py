@@ -13,10 +13,16 @@ snapshot with its meshes and ``eval`` runs the pose-fitted eval. They
 run on ``device`` (``cuda:0`` unless the caller names another).
 
 Frames are PNGs (``utils/png``, no PIL); ffmpeg is used where it is on
-the PATH. The pose and language steps of ``preprocess``
-(``estimate_poses``, ``extract_language_features``) need the pose and
-language-lifting models (ROADMAP Queue 1, D1) and raise unless
-``skip_pose_estimate`` / ``skip_lang_feature_extraction`` is set.
+the PATH. ``preprocess`` runs the whole of stage 3: ``estimate_poses``
+(VGGT, the dense-init COLMAP export or COLMAP, through
+``pose_estimation.get_pose_estimator``) and ``extract_language_features``
+(pooled CLIP / OpenSeg rows and the scene autoencoder, or the LSeg + VQ
+branch). The models are the pipeline's attributes: ``vggt`` (a VGGT or
+its state_dict; ``vggt_cfg`` its config), ``lang_extractor`` (a dense
+extractor; else one is built from ``paths.openseg_path`` or
+``paths.clip_ckpt`` at ``clip_cfg``) and, for LSeg, ``clip_cfg`` and
+``vq_cfg`` for the checkpoints of ``paths.lseg_ckpt`` and
+``paths.sem_ae_ckpt``. No weights ship with the port.
 """
 from __future__ import annotations
 
@@ -34,6 +40,17 @@ from .utils.device import resolve_device
 from .utils.png import read_png, to_rgb
 
 log = logging.getLogger(__name__)
+
+
+def load_state_dict(path: str) -> dict:
+    """A checkpoint's state_dict: a ``.safetensors`` file through
+    ``models/t5.read_safetensors``, anything else with
+    ``torch.load(weights_only=True)``."""
+    if path.endswith(".safetensors"):
+        from .models.t5 import read_safetensors
+        return {k: torch.from_numpy(v.copy())
+                for k, v in read_safetensors(path).items()}
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 @dataclasses.dataclass
@@ -164,6 +181,15 @@ class FieldConstructionPipeline:
         self.ae_epochs = ae_epochs
         self.device = resolve_device(device)
         self.trainer = None           # the last construct_field's trainer
+        # the stage-3 models (tests and quick_start set them; the
+        # production paths load checkpoints)
+        self.vggt = None
+        self.vggt_cfg = None
+        self.pose_target_wh = (720, 480)
+        self.lang_extractor = None
+        self.clip_cfg = None          # CLIPVisionConfig() when None
+        self.vq_cfg = None            # VQConfig() when None
+        self.ae_trainer = None        # the last AE trainer
 
     @property
     def out_dir(self) -> str:
@@ -181,17 +207,90 @@ class FieldConstructionPipeline:
             self.extract_language_features()
 
     def estimate_poses(self) -> None:
-        raise NotImplementedError(
-            "pose estimation (VGGT / dense init) is not ported yet (ROADMAP "
-            "Queue 1, D1): set pipeline.skip_pose_estimate=true and provide "
-            "camera/*.npz and points3D.ply")
+        """Pose initialisation through the estimator factory
+        (pose_estimator/__init__.py:296-303): "vggt" (the default,
+        :227-294) writes camera/%04d.npz {pose (c2w), intrinsics} and
+        points3D.ply; "mast3r"/"cut3r" write the dense-init COLMAP tree;
+        "colmap" runs the colmap binary."""
+        from .pose_estimation import (estimate_poses_dense_init,
+                                      estimate_poses_vggt, get_pose_estimator)
+        est = get_pose_estimator(self.pose_estimator)
+        if est is estimate_poses_vggt:
+            est(self.paths.data_path, model=self.vggt, cfg=self.vggt_cfg,
+                target_wh=self.pose_target_wh, device=self.device)
+        elif est is estimate_poses_dense_init:
+            est(self.paths.data_path, model=self.vggt, cfg=self.vggt_cfg,
+                device=self.device)
+        else:
+            est(self.paths.data_path)
 
-    def extract_language_features(self) -> None:
-        raise NotImplementedError(
-            "language-feature lifting (OpenSeg / CLIP, the scene AE) is not "
-            "ported yet (ROADMAP Queue 1, D1): set "
-            "pipeline.skip_lang_feature_extraction=true and provide "
-            "lang_features_dim3/")
+    def extract_language_features(self, extractor=None) -> None:
+        """Language lifting and the per-scene AE (preprocessor.py:22-227).
+        The rows come from lang_features/ when it holds them, else from
+        ``extractor``, ``lang_extractor``, OpenSeg (paths.openseg_path) or
+        the CLIP dense extractor (paths.clip_ckpt), in that order; the AE
+        then trains on them and writes lang_features_dim3/*_f.npy. With
+        ``feature_extractor_type`` "lseg", the LSeg + VQ branch runs
+        instead."""
+        from .train.ae import generate_dim3_features
+        if self.paths.feature_extractor_type == "lseg":
+            self._extract_lseg_features()
+            return
+        lf = os.path.join(self.paths.data_path, "lang_features")
+        seg = os.path.join(self.paths.data_path, "lang_features_dim3")
+        if not os.path.isdir(lf) or not os.listdir(lf):
+            extractor = (extractor or self.lang_extractor
+                         or self._make_lang_extractor())
+            if extractor is None:
+                log.warning(
+                    "lang_features/ missing and no extractor configured "
+                    "(set openseg_path or clip_ckpt); skipping AE stage")
+                return
+            from .models.openseg import extract_scene_features
+            extract_scene_features(self.paths.data_path, extractor=extractor)
+        self.ae_trainer = generate_dim3_features(
+            lf, seg, seg, num_epochs=self.ae_epochs, device=self.device)
+
+    def _extract_lseg_features(self) -> None:
+        """The reference's LSeg branch (preprocessor.py:229-255): LSeg
+        512-d dense features -> the VQ encoder -> lang_features_dim4/.
+        Without ``paths.lseg_ckpt`` it logs and returns; without
+        ``paths.sem_ae_ckpt`` the VQ model has seeded random weights (the
+        shapes are right, the features are not semantic)."""
+        from .models.clip_dense import CLIPVisionConfig
+        from .models.lseg import (LSegFeatureExtractor,
+                                  generate_lang_features_with_lseg)
+        from .models.vq_model import VQConfig, VQModel, init_vq_params
+        p = self.paths
+        if not (p.lseg_ckpt and os.path.exists(p.lseg_ckpt)):
+            log.warning("feature_extractor_type=lseg but lseg_ckpt "
+                        "missing; skipping LSeg stage")
+            return
+        vq = VQModel(self.vq_cfg or VQConfig(), device=self.device)
+        lseg = LSegFeatureExtractor.from_torch_checkpoint(
+            p.lseg_ckpt, self.clip_cfg or CLIPVisionConfig(),
+            out_dim=vq.cfg.in_channels, device=self.device)
+        if p.sem_ae_ckpt and os.path.exists(p.sem_ae_ckpt):
+            vq.load_state_dict(load_state_dict(p.sem_ae_ckpt), strict=True)
+        else:
+            log.warning("sem_ae_ckpt missing; using random-init VQ "
+                        "compressor (shape-correct, not semantic)")
+            init_vq_params(vq, 0)
+        n = generate_lang_features_with_lseg(p.data_path, lseg, vq)
+        log.info("LSeg branch wrote %d lang_features_dim4 maps", n)
+
+    def _make_lang_extractor(self):
+        p = self.paths
+        if p.openseg_path and os.path.isdir(p.openseg_path):
+            from .models.openseg import OpenSegExtractor
+            return OpenSegExtractor(p.openseg_path)
+        if p.clip_ckpt and os.path.exists(p.clip_ckpt):
+            from .models.clip_dense import (CLIPVisionConfig,
+                                            ClipDenseExtractor)
+            return ClipDenseExtractor.from_torch_checkpoint(
+                p.clip_ckpt, self.clip_cfg or CLIPVisionConfig(),
+                device=self.device)
+        return None
 
     # ------------------------------------------------------------- train
     def _confidence_lr(self, capacity: int) -> Optional[torch.Tensor]:

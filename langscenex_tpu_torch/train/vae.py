@@ -12,7 +12,8 @@ One ``train_step`` does, as the JAX step does:
   from ``disc_start_step`` on (0 before, so its gradient is 0); Adam
   (b1 0.5, b2 0.9, optax's arithmetic through ``train/optim.GroupAdam``)
   on the VAE, and a plain SGD step of ``lr`` on the scalar output
-  ``logvar``;
+  ``logvar`` (or, with ``VAETrainConfig.logvar_in_adam``, logvar in that
+  Adam, so that its step does not grow with the clip's pixel count);
 - D: the hinge (or vanilla) loss on the batch and the detached
   reconstruction plus ``lecam_weight`` times the LeCam regulariser; its
   own Adam's moments and count always advance, its parameters only from
@@ -92,6 +93,11 @@ class VAETrainConfig:
     lecam_weight: float = 0.1
     disc_start_step: int = 0
     gan_kind: str = "hinge"
+    # False: logvar takes the JAX package's plain SGD step, lr times the
+    # NLL's gradient, a sum over every pixel of the clip (at 9x256x256 the
+    # default lr overflows the loss by step 3). True: logvar is one more
+    # parameter of the VAE's Adam, as in the reference's trainer.
+    logvar_in_adam: bool = False
 
 
 @dataclasses.dataclass
@@ -103,6 +109,9 @@ class VAETrainState:
     logvar: torch.Tensor       # scalar
     lecam: LeCamEMA
     step: int
+
+
+LOGVAR = "logvar"               # its key in the VAE's Adam with the switch
 
 
 def _adam(lr: float, params: dict) -> GroupAdam:
@@ -131,11 +140,13 @@ class VAETrainer:
         self.gen = torch.Generator(device=dev).manual_seed(seed)
         vp = {k: v.detach() for k, v in self.vae.state_dict().items()}
         dp = {k: v.detach() for k, v in self.disc.state_dict().items()}
-        self.vae_tx = _adam(cfg.lr, vp)
-        self.disc_tx = _adam(cfg.disc_lr, dp)
         zero = torch.zeros((), device=dev)
+        opt_params = {**vp, LOGVAR: zero} if cfg.logvar_in_adam else vp
+        self.vae_tx = _adam(cfg.lr, opt_params)
+        self.disc_tx = _adam(cfg.disc_lr, dp)
         self.state = VAETrainState(
-            vae_params=vp, disc_params=dp, vae_opt=self.vae_tx.init(vp),
+            vae_params=vp, disc_params=dp,
+            vae_opt=self.vae_tx.init(opt_params),
             disc_opt=self.disc_tx.init(dp), logvar=zero.clone(),
             lecam=LeCamEMA(zero.clone(), zero.clone()), step=0)
 
@@ -160,9 +171,15 @@ class VAETrainer:
             total = total + cfg.disc_weight * gl
         grads = torch.autograd.grad(total, list(vp.values()) + [logvar])
         g_vae = dict(zip(vp, grads[:-1]))
-        vae_params, vae_opt = self.vae_tx.update(g_vae, state.vae_opt,
-                                                 state.vae_params)
-        new_logvar = state.logvar - cfg.lr * grads[-1]
+        if cfg.logvar_in_adam:
+            vae_params, vae_opt = self.vae_tx.update(
+                {**g_vae, LOGVAR: grads[-1]}, state.vae_opt,
+                {**state.vae_params, LOGVAR: state.logvar})
+            new_logvar = vae_params.pop(LOGVAR)
+        else:
+            vae_params, vae_opt = self.vae_tx.update(g_vae, state.vae_opt,
+                                                     state.vae_params)
+            new_logvar = state.logvar - cfg.lr * grads[-1]
 
         dp = {k: v.detach().requires_grad_(True)
               for k, v in state.disc_params.items()}

@@ -4,8 +4,9 @@ The JAX package reads and writes images through PIL; the machine the
 port runs on has no Pillow, so this module stands in for it with
 ``zlib``, ``struct`` and numpy:
 
-- :func:`read_png` decodes 8-bit gray, gray + alpha, RGB, RGBA and
-  palette PNGs, and 1-, 2- and 4-bit gray and palette ones (filters 0-4).
+- :func:`read_png` (:func:`decode_png` from bytes) decodes 8-bit gray,
+  gray + alpha, RGB, RGBA and palette PNGs, and 1-, 2- and 4-bit gray and
+  palette ones (filters 0-4).
   Interlaced and 16-bit files, and any file that is not a PNG (a JPEG,
   for one), raise ``ValueError``.
   Rows filtered with Average or Paeth decode at Python speed (each byte
@@ -19,6 +20,8 @@ port runs on has no Pillow, so this module stands in for it with
   downscaling, 22-bit fixed-point weights, the horizontal pass first and
   an 8-bit intermediate, as Pillow's Resample.c computes it; the identity
   at the same size.
+- :func:`resize_lanczos` is ``Image.resize(size, Image.LANCZOS)`` the same
+  way, with Pillow's 3-lobe Lanczos filter in place of the bicubic one.
 - :func:`resize_nearest` is ``Image.resize(size, Image.NEAREST)`` of any
   2-D array (the auto-seg CLI resizes int32 id maps, PIL's mode "I"): the
   source position of output pixel i is scale / 2 plus i additions of the
@@ -132,7 +135,12 @@ def read_png(path: str) -> np.ndarray:
     RGB, [H,W,4] RGBA. A palette image is expanded through its palette
     to [H,W,3] RGB, or [H,W,4] RGBA when it has a tRNS chunk."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """:func:`read_png` of a PNG file's bytes (``path`` names it in
+    errors)."""
     hdr = None
     palette = trns = None
     idat = []
@@ -225,20 +233,27 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
                     np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
 
 
-def _coeffs(in_size: int, out_size: int):
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """Pillow's lanczos_filter: sinc(x) sinc(x / 3) on [-3, 3)."""
+    return np.where((x >= -3.0) & (x < 3.0), np.sinc(x) * np.sinc(x / 3.0),
+                    0.0)
+
+
+def _coeffs(in_size: int, out_size: int, filt=_bicubic,
+            filter_support: float = 2.0):
     """precompute_coeffs + normalize_coeffs_8bpc: per output sample its
     first input index and fixed-point weights [out, ksize]."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = filter_support * filterscale
     ksize = int(np.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
     xmax = np.minimum((center + support + 0.5).astype(np.int64), in_size)
     xmax = xmax - xmin
     x = np.arange(ksize)
-    w = _bicubic((x[None] + xmin[:, None] - center[:, None] + 0.5)
-                 * (1.0 / filterscale))
+    w = filt((x[None] + xmin[:, None] - center[:, None] + 0.5)
+             * (1.0 / filterscale))
     w = np.where(x[None] < xmax[:, None], w, 0.0)
     ww = w.sum(1, keepdims=True)
     w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
@@ -246,10 +261,11 @@ def _coeffs(in_size: int, out_size: int):
     return xmin, k.astype(np.int64)
 
 
-def _resample(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+def _resample(img: np.ndarray, axis: int, out_size: int,
+              filt=(_bicubic, 2.0)) -> np.ndarray:
     """One pass along ``axis`` (0 rows, 1 columns) of a uint8 [H,W,C]."""
     in_size = img.shape[axis]
-    xmin, k = _coeffs(in_size, out_size)
+    xmin, k = _coeffs(in_size, out_size, *filt)
     idx = np.minimum(xmin[:, None] + np.arange(k.shape[1])[None],
                      in_size - 1)                    # [out, ksize]
     src = np.take(img.astype(np.int64), idx, axis=axis)
@@ -261,22 +277,31 @@ def _resample(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def resize_bicubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """PIL's ``Image.resize((W, H))`` (bicubic) of a uint8 [H,W] or
-    [H,W,C] image; the same array at the same size."""
+def _resize(img: np.ndarray, size: Tuple[int, int], filt) -> np.ndarray:
     W, H = size
     img = np.asarray(img)
     if img.dtype != np.uint8:
-        raise ValueError(f"resize_bicubic takes uint8 pixels, got "
-                         f"{img.dtype}")
+        raise ValueError(f"resizing takes uint8 pixels, got {img.dtype}")
     if img.shape[:2] == (H, W):
         return img
     x = img[..., None] if img.ndim == 2 else img
     if x.shape[1] != W:
-        x = _resample(x, 1, W)
+        x = _resample(x, 1, W, filt)
     if x.shape[0] != H:
-        x = _resample(x, 0, H)
+        x = _resample(x, 0, H, filt)
     return x[..., 0] if img.ndim == 2 else x
+
+
+def resize_bicubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """PIL's ``Image.resize((W, H))`` (bicubic) of a uint8 [H,W] or
+    [H,W,C] image; the same array at the same size."""
+    return _resize(img, size, (_bicubic, 2.0))
+
+
+def resize_lanczos(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """PIL's ``Image.resize((W, H), Image.LANCZOS)`` of a uint8 [H,W] or
+    [H,W,C] image."""
+    return _resize(img, size, (_lanczos, 3.0))
 
 
 def _pil_nearest_index(n_out: int, n_in: int) -> np.ndarray:

@@ -466,7 +466,12 @@ def test_open_vocab_metrics_match_jax():
                                   jov.predict_masks(rel_t, 0.3))
     assert tov.eval_open_vocab(lang, gt, codes, 0.2) == \
         jov.eval_open_vocab(lang, gt, codes, 0.2)
-    with pytest.raises(NotImplementedError, match="D1"):
-        tov.embed_queries(["a chair"], None, None, None)
-    with pytest.raises(NotImplementedError, match="D1"):
-        tov.encode_queries_to_lang3(np.zeros((1, 768)), None)
+    # the query half is ported (tests/test_torch_language.py holds it
+    # against JAX): the codes are the scene AE's encoding of the queries
+    class Encoder:
+        def encode(self, x):
+            return x[:, :3] * 2
+
+    q = RNG.normal(size=(2, 768))
+    np.testing.assert_array_equal(tov.encode_queries_to_lang3(q, Encoder()),
+                                  jov.encode_queries_to_lang3(q, Encoder()))

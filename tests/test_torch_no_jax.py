@@ -1,10 +1,12 @@
-"""The PyTorch port must run where JAX, Pillow and Hugging Face's packages
-are not installed: importing every module of langscenex_tpu_torch, and
-chip_smoke.py, succeeds in a process in which ``import jax``, ``import
-PIL``, ``import transformers``, ``import safetensors`` and ``import
-tokenizers`` fail; no source of the port imports JAX, the JAX package,
-PIL, safetensors or tokenizers, and ``transformers`` is imported only
-inside ``TextEncoder._load`` (for the tokenizer)."""
+"""The PyTorch port must run where JAX, Pillow, TensorFlow and Hugging
+Face's packages are not installed: importing every module of
+langscenex_tpu_torch, and chip_smoke.py, succeeds in a process in which
+``import jax``, ``import PIL``, ``import transformers``, ``import
+safetensors``, ``import tokenizers`` and ``import tensorflow`` fail; no
+source of the port imports JAX, the JAX package, PIL, safetensors or
+tokenizers, ``transformers`` is imported only inside ``TextEncoder._load``
+(for the T5 tokenizer; the CLIP text tower takes token ids and a caller's
+tokenizer) and ``tensorflow`` only inside ``OpenSegExtractor``."""
 import os
 import pathlib
 import re
@@ -18,7 +20,7 @@ _CHILD = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None                  # any `import jax` now fails
 sys.modules["PIL"] = None                  # and any `import PIL`
-for name in ("transformers", "safetensors", "tokenizers"):
+for name in ("transformers", "safetensors", "tokenizers", "tensorflow"):
     sys.modules[name] = None
 import langscenex_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -74,6 +76,24 @@ def test_port_sources_import_no_hf_package_at_module_level():
     assert all(indent == " " * 12 for indent in
                uses["langscenex_tpu_torch/models/t5.py"])
     assert "from transformers import AutoTokenizer" in load
+
+
+def test_port_imports_tensorflow_only_inside_openseg_extractor():
+    # the OpenSeg SavedModel is an external artifact: tensorflow is
+    # imported where OpenSegExtractor loads it, and nowhere else (the
+    # CLIP dense extractor serves the same contract on the card)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    tf = re.compile(r"^(\s*)(import|from)\s+tensorflow\b", re.M)
+    uses = {str(f.relative_to(ROOT)): [m.group(1) for m in
+                                       tf.finditer(f.read_text())]
+            for f in files}
+    uses = {k: v for k, v in uses.items() if v}
+    assert list(uses) == ["langscenex_tpu_torch/models/openseg.py"], uses
+    src = (PKG / "models" / "openseg.py").read_text()
+    cls = src[src.index("class OpenSegExtractor"):
+              src.index("def extract_scene_features")]
+    assert len(uses["langscenex_tpu_torch/models/openseg.py"]) == 1
+    assert "            import tensorflow as tf" in cls
 
 
 def test_spawned_ranks_run_without_jax(tmp_path):
