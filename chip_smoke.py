@@ -297,6 +297,7 @@ from langscenex_tpu_torch.ops.rasterize_cuda import (blend_backward,
 from langscenex_tpu_torch.ops.sort_engine import (SORT_TILE, sort_pairs,
                                                   sort_pairs_plain)
 from langscenex_tpu_torch.ops.transforms import focal2fov, fov2focal
+from langscenex_tpu_torch.parallel import dryrun
 from langscenex_tpu_torch.parallel.dryrun import rank_mesh, spawn
 from langscenex_tpu_torch.parallel.mesh import (dit_sharded_apply,
                                                 lora_kind,
@@ -3985,9 +3986,410 @@ def phase_22(dev) -> None:
           f"{e2e['eval_s']:.2f} s")
 
 
+# ---- 28. the four-stage chain, quickstart-full-random-720x480 ---------
+
+QS_FRAMES = 49                      # the TriMap clip's frames
+QS_STEPS = 2                        # DDIM steps a request (of 50)
+QS_ITERS = 30                       # field iterations (of 12,000)
+QS_AE_EPOCHS = 40                   # scene-AE epochs (of 400)
+QS_POSE_ITERS = 20                  # eval pose iterations per view
+QS_TRIMAP_KERNELS = ("flash_attention", "ln_modulate")          # K5, K8
+QS_FIELD_KERNELS = ("blend_forward", "compact_pairs", "sort_pairs")  # K1, K3, K4
+
+
+@contextlib.contextmanager
+def stage_launches(obj, name: str, out: dict, what: str, results=None):
+    """Add the kernel launches (and, with ``results``, the return values)
+    of every ``obj.name`` call inside the block to ``out[what]``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **k):
+        before = dict(_build.launch_counts)
+        r = fn(*a, **k)
+        torch.cuda.synchronize()
+        acc = out.setdefault(what, {})
+        for key, v in _build.launch_counts.items():
+            acc[key] = acc.get(key, 0) + v - before.get(key, 0)
+        if results is not None:
+            results.setdefault(what, []).append(r)
+        return r
+    setattr(obj, name, wrapper)
+    try:
+        yield out
+    finally:
+        setattr(obj, name, fn)
+
+
+def require_files(d: str, n: int, what: str, suffix: str = "") -> None:
+    got = [f for f in os.listdir(d) if f.endswith(suffix)]
+    require(len(got) == n, f"{what}: {len(got)} files{' ' + suffix if suffix else ''} "
+            f"in {d}, expected {n}")
+
+
+def phase_quickstart(dev, smi: str) -> dict:
+    """quickstart-full-random-720x480: the port's quick_start.run with
+    --full-random on two 720x480 keyframes of phase 22's room from the
+    ends of phase 25's arc, at full widths and reduced depths; the chain
+    contract of the JAX package's tests/test_quick_start_chain.py at
+    QS_FRAMES frames, finite losses, per-stage times, peak memory and
+    launches."""
+    from langscenex_tpu_torch import quick_start, video_inference
+    from langscenex_tpu_torch.pipeline import FieldConstructionPipeline
+    with tempfile.TemporaryDirectory() as root:
+        kf = os.path.join(root, "keyframes")
+        os.makedirs(kf)
+        write_arc_frames(dev, kf, 2)           # 0001.png, 0002.png
+        torch.cuda.empty_cache()
+        dp = os.path.join(root, "demo")
+        argv = ["--data_path", dp,
+                "--first_image", os.path.join(kf, "0001.png"),
+                "--last_image", os.path.join(kf, "0002.png"),
+                "--prompt", PROMPT, "--full-random",
+                "--num_inference_steps", str(QS_STEPS),
+                "--iterations", str(QS_ITERS),
+                "--ae_epochs", str(QS_AE_EPOCHS),
+                "--pose_optim_iter", str(QS_POSE_ITERS), "--render", "--eval"]
+        counts, rets = {}, {}
+        Pipe = FieldConstructionPipeline
+        with stage_launches(video_inference, "main", counts, "trimap"), \
+                stage_launches(Pipe, "preprocess", counts, "preprocess"), \
+                stage_launches(Pipe, "construct_field", counts, "field",
+                               rets), \
+                stage_launches(Pipe, "render_result", counts, "render"), \
+                stage_launches(Pipe, "eval", counts, "eval", rets):
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            rec = quick_start.run(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        total = {k: v for k, v in _build.launch_counts.items() if v}
+        stage_t, peak = rec["stage_t"], rec["peak_gib"]
+        print(f"quickstart-full-random-720x480: stage seconds "
+              f"{json.dumps(stage_t)}, peak GiB per stage {json.dumps(peak)},"
+              f" {wall:.1f} s whole, on {smi}")
+        for what, c in counts.items():
+            print(f"quickstart {what}: launches "
+                  f"{ {k: v for k, v in c.items() if v} }")
+        print(f"quickstart launches over the run: {total}")
+        for k in QS_TRIMAP_KERNELS:
+            require(counts["trimap"].get(k, 0) > 0,
+                    f"quickstart: kernel {k} was not launched in TriMap")
+        for k in QS_FIELD_KERNELS:
+            require(counts["field"].get(k, 0) > 0,
+                    f"quickstart: kernel {k} was not launched in the field "
+                    f"stage")
+        require(set(stage_t) == {"1_keyframes", "2_trimap_x3",
+                                 "3_preprocess", "4_field", "5a_render",
+                                 "5b_eval", "total"},
+                f"quickstart: stages {sorted(stage_t)}")
+        _, metrics = rets["field"][0]
+        m = {k: float(v) for k, v in metrics.items()}
+        require(all(math.isfinite(v) for v in m.values()),
+                f"quickstart: non-finite field metrics {m}")
+        psnr = [r["psnr"] for r in rets["eval"][0]]
+        require(len(psnr) == QS_FRAMES and all(math.isfinite(x)
+                                               for x in psnr),
+                f"quickstart: eval PSNRs {psnr[:4]}...")
+        print(f"quickstart field: last step " + " ".join(
+            f"{k}={v:.5g}" for k, v in m.items()) + f"; eval PSNR "
+            f"{min(psnr):.2f}-{max(psnr):.2f} dB over {len(psnr)} views")
+
+        # tests/test_quick_start_chain.py:41-77 at QS_FRAMES frames
+        colors = np.load(os.path.join(dp, "seg", "colors.npy"))
+        require(colors.ndim == 2 and colors.shape[1] == 3
+                and not colors[0].any(), f"quickstart: colors {colors.shape}")
+        for f in ("seg/0001.png", "normal/0001.png", "colors.npy",
+                  "points3D.ply"):
+            require(os.path.exists(os.path.join(dp, f)),
+                    f"quickstart: no {f}")
+        for kind in ("rgb", "seg", "normal"):
+            require_files(os.path.join(dp, f"trimap_{kind}"), QS_FRAMES,
+                          f"trimap {kind}", ".png")
+        require_files(os.path.join(dp, "input"), QS_FRAMES, "input")
+        for suffix in ("_s.npy", "_f.npy"):
+            require_files(os.path.join(dp, "lang_features_dim3"), QS_FRAMES,
+                          "lang_features_dim3", suffix)
+        require_files(os.path.join(dp, "camera"), QS_FRAMES, "camera")
+        require_files(os.path.join(dp, "lang_features"), QS_FRAMES,
+                      "lang_features")
+        out = os.path.join(dp, "output")
+        require(os.path.exists(os.path.join(
+            out, "point_cloud", f"iteration_{QS_ITERS}", "point_cloud.ply")),
+            "quickstart: no field snapshot")
+        pose = np.load(os.path.join(out, "pose", f"iter_{QS_ITERS}",
+                                    "pose_optimized.npy"))
+        require(pose.shape == (QS_FRAMES, 4, 4) and np.isfinite(pose).all(),
+                f"quickstart: optimised poses {pose.shape}")
+        require(os.path.exists(os.path.join(out, "pose", f"iter_{QS_ITERS}",
+                                            "pose_org.npy")),
+                "quickstart: no pose_org.npy")
+        require_files(os.path.join(dp, "render_camera"), QS_FRAMES,
+                      "render_camera")
+        require(any(f.endswith("_render.png") for f in os.listdir(
+            os.path.join(out, "renders", f"iteration_{QS_ITERS}"))),
+            "quickstart: no render PNG")
+        for d in ("renders_rgb", "renders_lang_npy", "renders_instance_npy"):
+            require_files(os.path.join(out, "eval", d), QS_FRAMES, d)
+        n_png = require_pngs(dp, {})
+        print(f"quickstart contract: {QS_FRAMES} frames through every stage,"
+              f" {n_png} PNGs decoded, {len(colors) - 1} objects")
+    torch.cuda.empty_cache()
+    return dict(stage_t=stage_t, peak=peak, launches=counts)
+
+
+# ---- 29. view-parallel field step and the SP ring, two ranks -----------
+
+VP_RANKS = 2
+VP_WARM = 5                # single-view iterations before the step (Adam
+                           # moments non-zero, so the step is continuous)
+VP_IT = 600                # the step's flags: geometry + single/multi-view
+# two ranks against one process on the same state, views and draws: the
+# forward is the same; K2's float atomics and the gradient all-reduce sum
+# in other orders, so each update differs at f32 rounding of its sums
+VP_STEP_REL_RMS = 1e-3     # rel RMS of (new - old), per leaf
+VP_STAT_REL_RMS = 1e-4     # the densify gradient norms
+SP_LAYERS = 2              # of 42
+SP_SEED = 7
+# the ring's per-shard K9 outputs are rounded to bf16 and merged in f32;
+# the reference runs one K9 (or, in the DiT, K5) over every key
+RING_FWD_REL_RMS = 2 ** -7
+RING_BWD_REL_RMS = 2 ** -6
+SP_DIT_REL_RMS = 2 ** -6
+RING_SHAPE = (1, 48, 17776, 64)
+
+
+def vp_inputs(dev):
+    """Phase 6's scene (200,000 points, 720x480, supervised by the render
+    path's maps of the 100k-splat scene), VP_WARM single-view iterations,
+    then the step at VP_IT's flags for views 0 and 1 with their draws, on
+    the host: (step args, state, batches, samples, SH degree)."""
+    arrays = scene(P, seed=0)
+    st = gaussian_state(arrays)
+    st = GaussianState(**{k: v.to(dev) for k, v in st.__dict__.items()})
+    cams = cameras()
+    maps = [m for _, m in render_all_views(st, cams, EXACT_CFG,
+                                           sh_degree=3)]
+    del st
+    lang_dir = tempfile.mkdtemp()
+    try:
+        supervise(cams, maps, lang_dir)
+        del maps
+        tr = field_trainer(dev, cams, lang_dir)
+        tr.train(iterations=VP_WARM)
+        flags = phase_flags(VP_IT, tr.cfg)
+        batches = [tr._camera_batch(i, flags) for i in range(VP_RANKS)]
+        samples = [tr.draw_samples(flags) for _ in range(VP_RANKS)]
+        args = (tr.cfg, flags, tr.rcfg, tr.proxy_cam, tr.scene_extent)
+        host = dryrun._to((args, tr.state, batches, samples), "cpu")
+        sh = tr.active_sh_degree
+    finally:
+        shutil.rmtree(lang_dir, ignore_errors=True)
+    del tr
+    torch.cuda.empty_cache()
+    return (*host, sh)
+
+
+def parallel_rank(rank, world, store, dev, vp, dit_in, dit_ref):
+    """One rank of phase 29 on ``dev`` (spawned; gloo mesh (data=world)):
+    its view of the view-parallel field step (``vp``: the step's args,
+    state, views, draws, SH degree), the SP_LAYERS-layer DiT under
+    sequence_parallel, then the ring alone forward and backward at
+    RING_SHAPE against flash_attention (K9 + K7) on the same seeded
+    tensors."""
+    from langscenex_tpu_torch.ops.flash_attention import sequence_parallel
+    from langscenex_tpu_torch.ops.ring_attention import ring_attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = rank_mesh(rank, world, store, world, 1, device=dev,
+                     backend="gloo")
+    res = {"vp": dryrun.field_step(mesh, *vp)}
+    torch.cuda.empty_cache()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, {
+            k: v for k, v in _build.launch_counts.items() if v}
+
+    dit = materialize(CogVideoXTransformer(TransformerConfig(
+        num_layers=SP_LAYERS), device="meta"), torch.bfloat16, dev,
+        torch.Generator(device=dev).manual_seed(SP_SEED))
+    x, txt, tt = (torch.from_numpy(a).to(dev) for a in dit_in)
+    with torch.no_grad(), sequence_parallel(mesh):
+        out, res["dit_ms"], res["dit_launches"] = timed(
+            lambda: dit(x.to(torch.bfloat16), txt.to(torch.bfloat16), tt))
+    res["dit_rel_rms"] = rel_rms(out.float().cpu(), dit_ref)
+    res["dit_finite"] = bool(torch.isfinite(out).all())
+    del dit, out
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(SP_SEED + 1)
+    q, k, v, do = (torch.randn(RING_SHAPE, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref, res["ref_fwd_ms"], _ = timed(lambda: flash_attention(*qkv))
+    gref, res["ref_bwd_ms"], _ = timed(
+        lambda: torch.autograd.grad(ref, qkv, do))
+    qkv2 = [t.clone().requires_grad_() for t in (q, k, v)]
+    got, res["ring_fwd_ms"], res["ring_fwd_launches"] = timed(
+        lambda: ring_attention(*qkv2, mesh))
+    ggot, res["ring_bwd_ms"], res["ring_bwd_launches"] = timed(
+        lambda: torch.autograd.grad(got, qkv2, do))
+    res["ring_fwd_rel_rms"] = rel_rms(got.detach().float(),
+                                      ref.detach().float())
+    res["ring_bwd_rel_rms"] = [rel_rms(a.float(), b.float())
+                               for a, b in zip(ggot, gref)]
+    res["ring_finite"] = bool(torch.isfinite(got).all()) and all(
+        bool(torch.isfinite(g).all()) for g in ggot)
+    res["peak_gib"] = gib(torch.cuda.max_memory_allocated(dev))
+    return res
+
+
+def phase_parallel(dev, smi: str) -> dict:
+    """field-vp2-200k-720x480 and dit-sp2-2L-49x480x720: two ranks on the
+    card over gloo (not a multi-card speed), against one process."""
+    from langscenex_tpu_torch.parallel import dryrun as dr
+    # ---- the one-process references -----------------------------------
+    t0 = time.perf_counter()
+    args, state, batches, samples, sh = vp_inputs(dev)
+    print(f"field-vp2-200k-720x480: inputs (render, supervise, "
+          f"{VP_WARM} warm-up iterations) {time.perf_counter() - t0:.1f} s")
+    step = train_field.make_parallel_train_step(*dr._to(args, dev))
+    on = dr._to((state, batches, samples), dev)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    one, one_m = step(*on, sh)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    one_launch = {k: v for k, v in _build.launch_counts.items() if v}
+    one = dr._numpy(train_field.state_dict(one))
+    del on
+    torch.cuda.empty_cache()
+    cfg = TransformerConfig(num_layers=SP_LAYERS)
+    dit = materialize(CogVideoXTransformer(cfg, device="meta"),
+                      torch.bfloat16, dev,
+                      torch.Generator(device=dev).manual_seed(SP_SEED))
+    pcfg = PipelineConfig()
+    gen = torch.Generator(device=dev).manual_seed(SP_SEED + 2)
+    x = torch.randn((1, pcfg.latent_frames, cfg.in_channels,
+                     pcfg.latent_height, pcfg.latent_width), generator=gen,
+                    device=dev)
+    txt = torch.randn((1, 226, cfg.text_embed_dim), generator=gen,
+                      device=dev)
+    tt = torch.full((1,), 500, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = dit(x.to(torch.bfloat16), txt.to(torch.bfloat16), tt)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    ref_launch = {k: v for k, v in _build.launch_counts.items() if v}
+    dit_in = tuple(a.cpu().numpy() for a in (x, txt, tt))
+    dit_ref = ref.float().cpu()
+    del dit, ref, x, txt
+    torch.cuda.empty_cache()
+
+    # ---- two ranks ------------------------------------------------------
+    t0 = time.perf_counter()
+    ranks = spawn(parallel_rank, VP_RANKS,
+                  (dev, (args, state, batches, samples, sh), dit_in,
+                   dit_ref), timeout=TP_TIMEOUT)
+    print(f"phase 29: {VP_RANKS} ranks spawn to join "
+          f"{time.perf_counter() - t0:.1f} s ({TP_NOTE})")
+    old = dr._numpy(train_field.state_dict(state))
+    worst = (0.0, "")
+    for r, res in enumerate(ranks):
+        vp = res["vp"]
+        require(vp["metrics"] == ranks[0]["vp"]["metrics"],
+                f"field-vp2: rank {r}'s metrics differ from rank 0's")
+        st = vp["state"]
+        for grp in ("splats", "poses", "app_ab"):
+            for k, a, b, o in _vp_leaves(st, one, old, grp):
+                if k.endswith("alive"):
+                    require(np.array_equal(a, b), f"field-vp2: {k}")
+                    continue
+                e = rel_rms(torch.from_numpy(a - o), torch.from_numpy(b - o))
+                worst = max(worst, (e, k))
+        for k in ("denom", "denom_abs", "max_radii2D"):
+            require(np.array_equal(st["stats"][k], one["stats"][k]),
+                    f"field-vp2: densify {k} differs from one process")
+        for k in ("xyz_gradient_accum", "xyz_gradient_accum_abs"):
+            e = rel_rms(torch.from_numpy(st["stats"][k]),
+                        torch.from_numpy(one["stats"][k]))
+            require(e <= VP_STAT_REL_RMS, f"field-vp2: densify {k} rel RMS "
+                    f"{e:.3e}")
+        m = vp["metrics"]
+        require(math.isfinite(m["total"]) and not m["pair_overflow"],
+                f"field-vp2: rank {r} metrics {m}")
+        print(f"field-vp2 rank {r}: step {vp['step_s'] * 1e3:.1f} ms, "
+              f"gradient all-reduce {vp['reduce_s'] * 1e3:.1f} ms "
+              f"({vp['reduce_s'] / vp['step_s']:.1%} of the step; "
+              f"{TP_NOTE}); loss {m['total']:.6f}")
+    print(f"field-vp2 vs one process holding both views ({one_ms:.1f} ms, "
+          f"launches {one_launch}): loss {one_m['total'].item():.6f}, "
+          f"worst update rel RMS {worst[0]:.3e} at {worst[1]} (bound "
+          f"{VP_STEP_REL_RMS:g})")
+    require(one_launch.get("blend_backward", 0) == 2 * VP_RANKS,
+            f"field-vp2: one process launched K2 {one_launch}")
+    require(worst[0] <= VP_STEP_REL_RMS, "field-vp2: the two-rank step "
+            "differs from the one-process step beyond the bound")
+    print(f"dit-sp2-2L-49x480x720: unsharded {SP_LAYERS}-layer forward "
+          f"{ref_ms:.1f} ms, launches {ref_launch}")
+    for r, res in enumerate(ranks):
+        print(f"dit-sp2 rank {r}: SP forward {res['dit_ms']:.1f} ms, "
+              f"launches {res['dit_launches']}, rel RMS vs unsharded K5 "
+              f"{res['dit_rel_rms']:.3e} (bound {SP_DIT_REL_RMS:g})")
+        print(f"ring {list(RING_SHAPE)} rank {r}: forward "
+              f"{res['ring_fwd_ms']:.1f} ms (K9 whole {res['ref_fwd_ms']:.1f}"
+              f" ms), launches {res['ring_fwd_launches']}, rel RMS "
+              f"{res['ring_fwd_rel_rms']:.3e} (bound {RING_FWD_REL_RMS:g}); "
+              f"backward {res['ring_bwd_ms']:.1f} ms (K7 whole "
+              f"{res['ref_bwd_ms']:.1f} ms), launches "
+              f"{res['ring_bwd_launches']}, dq/dk/dv rel RMS "
+              + " ".join(f"{e:.3e}" for e in res["ring_bwd_rel_rms"])
+              + f" (bound {RING_BWD_REL_RMS:g}); peak {res['peak_gib']:.2f} "
+              f"GiB ({TP_NOTE}) on {smi}")
+        want_dit = {"flash_attention_online": VP_RANKS * SP_LAYERS,
+                    "ln_modulate": 2 * SP_LAYERS}
+        require(res["dit_finite"] and res["ring_finite"],
+                f"dit-sp2 rank {r}: non-finite output")
+        require(res["dit_launches"] == want_dit, f"dit-sp2 rank {r}: "
+                f"launches {res['dit_launches']}, expected {want_dit}")
+        require(res["ring_fwd_launches"] == {
+            "flash_attention_online": VP_RANKS}, f"ring rank {r}: forward "
+            f"launches {res['ring_fwd_launches']}")
+        require(res["ring_bwd_launches"] == {
+            "flash_attention_backward": VP_RANKS}, f"ring rank {r}: "
+            f"backward launches {res['ring_bwd_launches']}")
+        require(res["dit_rel_rms"] <= SP_DIT_REL_RMS,
+                f"dit-sp2 rank {r}: the SP forward differs")
+        require(res["ring_fwd_rel_rms"] <= RING_FWD_REL_RMS,
+                f"ring rank {r}: the forward differs")
+        require(max(res["ring_bwd_rel_rms"]) <= RING_BWD_REL_RMS,
+                f"ring rank {r}: the backward differs")
+    return ranks[0]
+
+
+def _vp_leaves(st, one, old, grp):
+    """(key, two-rank, one-process, before) numpy leaves of ``grp``."""
+    a, b, o = st[grp], one[grp], old[grp]
+    if isinstance(a, dict):
+        for k in a:
+            if a[k] is not None:
+                yield f"{grp}.{k}", a[k], b[k], o[k]
+    else:
+        yield grp, a, b, o
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", type=int, choices=(22, 23, 24, 25, 26, 27),
+    ap.add_argument("--phase", type=int,
+                    choices=(22, 23, 24, 25, 26, 27, 28, 29),
                     default=None,
                     help="run phases 1, 2 and this phase only (no result "
                          "lines)")
@@ -4022,6 +4424,14 @@ def main(argv=None) -> int:
         return 0
     if args.phase in (26, 27):
         phase_26_27(dev, smi, (args.phase,))
+        print(smi)
+        return 0
+    if args.phase == 28:
+        phase_quickstart(dev, smi)
+        print(smi)
+        return 0
+    if args.phase == 29:
+        phase_parallel(dev, smi)
         print(smi)
         return 0
 
@@ -4122,6 +4532,17 @@ def main(argv=None) -> int:
 
     # ---- 26-27. pose and language lifting ------------------------------
     phase_26_27(dev, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 28. the four-stage chain, quickstart-full-random-720x480 --------
+    t0 = time.perf_counter()
+    phase_quickstart(dev, smi)
+    print(f"phase 28: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 29. view-parallel field step and SP ring, two ranks -------------
+    t0 = time.perf_counter()
+    phase_parallel(dev, smi)
+    print(f"phase 29: {time.perf_counter() - t0:.1f} s")
 
     launches = {**{k: train_launches[k] for k in RENDER_TRAIN_KERNELS},
                 **{k: request["launches"][k] for k in DIT_KERNELS},

@@ -77,11 +77,14 @@ same kernel, :func:`flash_attention_backward_kernel` /
 :class:`FlashFn` and :class:`OnlineFn` are the autograd functions of the
 bounded [B, T, H, D], bounded [B, H, T, D] and online [B, H, T, D]
 attention: the kernels on CUDA tensors, the plain versions on CPU
-tensors or when the caller asks for them. The sequence-parallel ring is
-not ported.
+tensors or when the caller asks for them. Inside
+:func:`sequence_parallel`, :func:`attention_auto` and
+:func:`attention_bthd` route through the ring of ``ops/ring_attention.py``
+(K9 per block, K7 backward), as JAX's ``fa:1138`` and ``fa:1198-1203`` do.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -624,6 +627,26 @@ def flash_attention_h2(q, k, v, scale: Optional[float] = None):
     return flash_attention_h2_kernel(q, k, v, float(scale))
 
 
+_SEQ_PARALLEL = None
+
+
+@contextlib.contextmanager
+def sequence_parallel(mesh):
+    """While active, :func:`attention_auto` (and :func:`attention_bthd`,
+    which then falls through to it) runs the exact ring attention of
+    ``ops/ring_attention.py`` with the token axis split over ``mesh``'s
+    ``data`` ranks (JAX's ``sequence_parallel``, the scaling path for
+    videos longer than 49 frames). Every rank of the ring must run the same
+    calls inside it."""
+    global _SEQ_PARALLEL
+    prev = _SEQ_PARALLEL
+    _SEQ_PARALLEL = mesh
+    try:
+        yield
+    finally:
+        _SEQ_PARALLEL = prev
+
+
 def attention_auto(q, k, v, scale: Optional[float] = None,
                    dtype: torch.dtype = torch.bfloat16,
                    flash_threshold: int = 2048,
@@ -632,9 +655,14 @@ def attention_auto(q, k, v, scale: Optional[float] = None,
     with T >= ``flash_threshold``, :func:`flash_attention` (K9 forward, or
     K6 for bounded logits, and K7 backward); below the threshold or on the
     CPU, the einsum softmax (logits in f32 from ``dtype`` operands, p in
-    ``dtype``). The output has q's dtype."""
+    ``dtype``). The output has q's dtype. Inside :func:`sequence_parallel`
+    the ring attention of ``dtype`` operands, whatever T."""
     T = q.shape[2]
     out_dtype = q.dtype
+    if _SEQ_PARALLEL is not None:
+        from .ring_attention import ring_attention
+        return ring_attention(q.to(dtype), k.to(dtype), v.to(dtype),
+                              _SEQ_PARALLEL, scale).to(out_dtype)
     if q.device.type == "cuda" and T >= flash_threshold:
         return flash_attention(q.to(dtype), k.to(dtype), v.to(dtype), scale,
                                bounded_logits=bounded_logits).to(out_dtype)
@@ -658,10 +686,16 @@ def attention_bthd(q, k, v, scale: Optional[float] = None,
     ``tensor_parallel=True`` (a tensor-parallel shard's attention over its
     own heads; JAX's ``tensor_parallel`` context) it follows the JAX
     package instead: the [B, H, T, D] views go to :func:`attention_auto`
-    (or, with ``plain=True``, to K6's plain version), without a copy."""
+    (or, with ``plain=True``, to K6's plain version), without a copy.
+    Inside :func:`sequence_parallel` the [B, H, T, D] views go to
+    :func:`attention_auto` and so to the ring, as in the JAX package."""
     _check(q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     out_dtype = q.dtype
+    if _SEQ_PARALLEL is not None:
+        o = attention_auto(_bthd(q), _bthd(k), _bthd(v), scale, dtype,
+                           bounded_logits=True)
+        return _bthd(o).to(out_dtype)
     if tensor_parallel:
         qh, kh, vh = _bthd(q), _bthd(k), _bthd(v)
         if plain:

@@ -63,6 +63,10 @@ class PipelinePaths:
     skip_video_process: bool = False
     skip_pose_estimate: bool = False
     skip_lang_feature_extraction: bool = False
+    # the reference's view-selection switch (pipeline.selection, which
+    # train_all.sh sets False); True raises: call select_valid_data with
+    # the scene's chunking instead
+    selection: bool = False
     # language-feature extractor checkpoints (preprocessor.py:22-34)
     openseg_path: str = ""
     clip_ckpt: str = ""
@@ -199,6 +203,11 @@ class FieldConstructionPipeline:
     # -------------------------------------------------------- preprocess
     def preprocess(self, lang_features: bool = True) -> None:
         p = self.paths
+        if p.selection:
+            raise ValueError(
+                "pipeline.selection=True: the port's configs carry no "
+                "chunking for the view selection; run select_valid_data("
+                "data_path, chunk_num, keep_per_chunk) on the scene instead")
         if not p.skip_video_process:
             VideoPreprocessor(p).video_process()
         if not p.skip_pose_estimate:

@@ -24,7 +24,8 @@ densification (the clone/split noise) are arguments, drawn by the trainer
 from a ``torch.Generator``: the JAX package draws them from PRNG keys,
 which no torch generator reproduces, so the parity tests inject JAX's
 draws. The trainer picks views with the same numpy generator as the JAX
-trainer. Not ported yet: the view-parallel multi-device step.
+trainer. :func:`make_parallel_train_step` is the view-parallel step over
+the ranks of a mesh's ``data`` axis.
 
 The trainer's outputs under ``save_dir`` are the JAX package's: PLY and
 pose snapshots, checkpoints, the training report's side-by-side PNGs and
@@ -424,55 +425,168 @@ def loss_and_grads(cfg: OptimizationConfig, flags: StepFlags,
     return total.detach(), metrics, radii, visible, grads
 
 
+def draw_step_samples(cfg: OptimizationConfig, flags: StepFlags, H: int,
+                      W: int, capacity: int, gen: torch.Generator,
+                      device) -> StepSamples:
+    """One step's random draws for one view from ``gen``: the multi-view
+    pixels, the grouping-loss pixels and the obj3d splats, each a prefix of
+    a permutation, where the flags and the config use them."""
+    def perm_prefix(n, k):
+        return torch.randperm(n, generator=gen, device=device)[:min(k, n)]
+    mv_sel = group_idx = obj_idx = None
+    if flags.multiview:
+        mv_sel = perm_prefix(H * W, cfg.multi_view_sample_num)
+    if (flags.lang or flags.instance) and cfg.grouping_loss:
+        group_idx = perm_prefix(H * W, GROUP_SAMPLES_LANG if flags.lang
+                                else GROUP_SAMPLES_INSTANCE)
+    if (flags.lang or flags.instance) and cfg.loss_obj_3d:
+        obj_idx = perm_prefix(capacity, OBJ3D_SAMPLES)
+    return StepSamples(mv_sel=mv_sel, group_idx=group_idx, obj_idx=obj_idx)
+
+
+def _optimizers(cfg: OptimizationConfig, spatial_lr_scale: float):
+    return (make_splat_optimizer(cfg, spatial_lr_scale),
+            make_pose_optimizer(cfg), make_app_optimizer())
+
+
+@torch.no_grad()
+def _apply_update(cfg: OptimizationConfig, flags: StepFlags, txs,
+                  state: TrainState, grads: dict, ndc_grad: torch.Tensor,
+                  ndc_abs: torch.Tensor, radii: torch.Tensor,
+                  upd_filter: torch.Tensor) -> TrainState:
+    """The densify statistics (tracked before the geometry phase or
+    densification ends), the phase-masked splat Adam step, and the pose and
+    exposure steps where the flags train them."""
+    splat_tx, pose_tx, app_tx = txs
+    stats = state.stats
+    if state.step < min(cfg.max_geo_iter, cfg.densify_until_iter):
+        stats = stats.update(ndc_grad, ndc_abs, radii, upd_filter)
+    params = splat_params(state.splats)
+    gs = phase_grad_mask(flags.phase, {k: grads[k] for k in params})
+    new_params, splat_opt = splat_tx.update(gs, state.splat_opt, params)
+    new_poses, pose_opt = state.poses, state.pose_opt
+    if flags.optim_pose:
+        p, pose_opt = pose_tx.update({"poses": grads["poses"]},
+                                     state.pose_opt, {"poses": state.poses})
+        new_poses = p["poses"]
+    new_app, app_opt = state.app_ab, state.app_opt
+    if flags.image:
+        a, app_opt = app_tx.update({"app_ab": grads["app_ab"]},
+                                   state.app_opt, {"app_ab": state.app_ab})
+        new_app = a["app_ab"]
+    return TrainState(
+        splats=dataclasses.replace(state.splats, **new_params),
+        poses=new_poses, app_ab=new_app, splat_opt=splat_opt,
+        pose_opt=pose_opt, app_opt=app_opt, stats=stats,
+        step=state.step + 1)
+
+
 def make_train_step(cfg: OptimizationConfig, flags: StepFlags,
                     rcfg: RasterConfig, proxy_cam: RasterCamera,
                     spatial_lr_scale: float):
     """Build the single-view step for one flag combination:
     ``step(state, batch, samples, sh_degree) -> (new state, metrics)``.
     Metrics stay on the device (no host sync)."""
-    splat_tx = make_splat_optimizer(cfg, spatial_lr_scale)
-    pose_tx = make_pose_optimizer(cfg)
-    app_tx = make_app_optimizer()
+    txs = _optimizers(cfg, spatial_lr_scale)
     H, W = proxy_cam.height, proxy_cam.width
-
-    @torch.no_grad()
-    def update(state: TrainState, metrics, radii, visible, grads):
-        # densify stats in the reference's NDC-gradient units
-        # (backward.cu:663 ddelx_dx = 0.5*W); the abs channel is exact
-        scale = torch.tensor([0.5 * W, 0.5 * H], device=radii.device)
-        ndc_grad = grads["mean2d"] * scale
-        ndc_abs = torch.maximum(ndc_grad.abs(), grads["mean2d_abs"] * scale)
-        stats = state.stats
-        if state.step < min(cfg.max_geo_iter, cfg.densify_until_iter):
-            stats = stats.update(ndc_grad, ndc_abs, radii,
-                                 visible & (radii > 0))
-
-        params = splat_params(state.splats)
-        gs = phase_grad_mask(flags.phase, {k: grads[k] for k in params})
-        new_params, splat_opt = splat_tx.update(gs, state.splat_opt, params)
-        new_poses, pose_opt = state.poses, state.pose_opt
-        if flags.optim_pose:
-            p, pose_opt = pose_tx.update({"poses": grads["poses"]},
-                                         state.pose_opt,
-                                         {"poses": state.poses})
-            new_poses = p["poses"]
-        new_app, app_opt = state.app_ab, state.app_opt
-        if flags.image:
-            a, app_opt = app_tx.update({"app_ab": grads["app_ab"]},
-                                       state.app_opt,
-                                       {"app_ab": state.app_ab})
-            new_app = a["app_ab"]
-        return TrainState(
-            splats=dataclasses.replace(state.splats, **new_params),
-            poses=new_poses, app_ab=new_app, splat_opt=splat_opt,
-            pose_opt=pose_opt, app_opt=app_opt, stats=stats,
-            step=state.step + 1), metrics
 
     def step_fn(state: TrainState, batch: CameraBatch, samples: StepSamples,
                 sh_degree: int):
         _, metrics, radii, visible, grads = loss_and_grads(
             cfg, flags, rcfg, proxy_cam, state, batch, samples, sh_degree)
-        return update(state, metrics, radii, visible, grads)
+        # densify stats in the reference's NDC-gradient units
+        # (backward.cu:663 ddelx_dx = 0.5*W); the abs channel is exact
+        scale = torch.tensor([0.5 * W, 0.5 * H], device=radii.device)
+        ndc_grad = grads["mean2d"] * scale
+        ndc_abs = torch.maximum(ndc_grad.abs(), grads["mean2d_abs"] * scale)
+        return _apply_update(cfg, flags, txs, state, grads, ndc_grad,
+                             ndc_abs, radii, visible & (radii > 0)), metrics
+
+    return step_fn
+
+
+def make_parallel_train_step(cfg: OptimizationConfig, flags: StepFlags,
+                             rcfg: RasterConfig, proxy_cam: RasterCamera,
+                             spatial_lr_scale: float, mesh=None):
+    """The view-parallel step over a mesh's ``data`` ranks, the counterpart
+    of the JAX package's ``make_parallel_train_step`` (its ``jit`` with the
+    CameraBatch leaves sharded over ``data`` and the state replicated):
+    ``step(state, batches, samples, sh_degree) -> (new state, metrics)``
+    where ``batches`` and ``samples`` are this rank's views (one
+    :class:`CameraBatch` and :class:`StepSamples` each, equal counts on
+    every rank).
+
+    The loss is the mean over all the ranks' views of :func:`view_loss`.
+    Each rank takes the gradients of the mean over its own views (the
+    splat groups, ``poses``, ``app_ab`` and the 2-D mean offsets, one view
+    at a time) and averages them over ``data`` in one flat
+    ``all_reduce_many_``; the densify statistics take the signed
+    screen-space gradient's magnitude as their abs channel (as JAX's step,
+    which has no abs hook), the radii max-reduced and the visibility
+    any-reduced over every view. Every rank then applies the same update
+    to its replica of the state, and the metrics are the means over all
+    views. With ``mesh=None`` (or a mesh without a ``data`` group) the one
+    process holds every view: the step's own single-process reference."""
+    txs = _optimizers(cfg, spatial_lr_scale)
+    H, W = proxy_cam.height, proxy_cam.width
+    group = mesh if mesh is not None and mesh.data_group is not None \
+        else None
+    n_data = group.n_data if group is not None else 1
+
+    def step_fn(state: TrainState, batches: list, samples: list,
+                sh_degree: int):
+        if not batches or len(batches) != len(samples):
+            raise ValueError(f"{len(batches)} views and {len(samples)} "
+                             f"draws: give one StepSamples per view")
+        cap = state.splats.capacity
+        dev = state.splats.device
+        n_views = len(batches) * n_data
+        grads, metrics = None, {}
+        radii = visible = None
+        with L.exact_f32():
+            for batch, smp in zip(batches, samples):
+                leaves = {k: v.detach().requires_grad_()
+                          for k, v in splat_params(state.splats).items()}
+                leaves["poses"] = state.poses.detach().requires_grad_()
+                leaves["app_ab"] = state.app_ab.detach().requires_grad_()
+                leaves["mean2d"] = torch.zeros((cap, 2), device=dev,
+                                               requires_grad=True)
+                params = {k: leaves[k] for k in splat_params(state.splats)}
+                total, (m, r, _, vis) = view_loss(
+                    cfg, flags, rcfg, proxy_cam, sh_degree,
+                    state.splats.alive, params, leaves["poses"],
+                    leaves["app_ab"], leaves["mean2d"], batch, smp)
+                gs = torch.autograd.grad(total / n_views,
+                                         list(leaves.values()),
+                                         allow_unused=True)
+                g = {k: torch.zeros_like(v) if x is None else x
+                     for (k, v), x in zip(leaves.items(), gs)}
+                grads = g if grads is None else {k: grads[k] + g[k]
+                                                 for k in grads}
+                for k, v in m.items():
+                    metrics[k] = metrics.get(k, 0.0) + v.detach()
+                seen = vis & (r > 0)
+                radii = r if radii is None else torch.maximum(radii, r)
+                visible = seen if visible is None else visible | seen
+        names = sorted(metrics)
+        mvec = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32,
+                                            device=dev) for k in names])
+        if group is not None:
+            # each rank's share of the mean is already over n_views
+            group.all_reduce_many_(list(grads.values()) + [mvec], "data")
+            flags_t = torch.stack([radii.to(torch.int32),
+                                   visible.to(torch.int32)])
+            torch.distributed.all_reduce(
+                flags_t, op=torch.distributed.ReduceOp.MAX,
+                group=group.data_group)
+            radii = flags_t[0].to(radii.dtype)
+            visible = flags_t[1].bool()
+        mvec = mvec / n_views
+        scale = torch.tensor([0.5 * W, 0.5 * H], device=dev)
+        ndc_grad = grads["mean2d"] * scale
+        new_state = _apply_update(cfg, flags, txs, state, grads, ndc_grad,
+                                  ndc_grad.abs(), radii, visible)
+        return new_state, dict(zip(names, mvec.unbind()))
 
     return step_fn
 
@@ -611,22 +725,10 @@ class GaussianFieldTrainer:
 
     def draw_samples(self, flags: StepFlags) -> StepSamples:
         """This step's random draws, from the trainer's generator."""
-        cfg = self.cfg
-        H, W = self.proxy_cam.height, self.proxy_cam.width
-
-        def perm_prefix(n, k):
-            return torch.randperm(n, generator=self.gen,
-                                  device=self.device)[:min(k, n)]
-        mv_sel = group_idx = obj_idx = None
-        if flags.multiview:
-            mv_sel = perm_prefix(H * W, cfg.multi_view_sample_num)
-        if (flags.lang or flags.instance) and cfg.grouping_loss:
-            group_idx = perm_prefix(H * W, GROUP_SAMPLES_LANG if flags.lang
-                                    else GROUP_SAMPLES_INSTANCE)
-        if (flags.lang or flags.instance) and cfg.loss_obj_3d:
-            obj_idx = perm_prefix(self.state.splats.capacity, OBJ3D_SAMPLES)
-        return StepSamples(mv_sel=mv_sel, group_idx=group_idx,
-                           obj_idx=obj_idx)
+        return draw_step_samples(self.cfg, flags, self.proxy_cam.height,
+                                 self.proxy_cam.width,
+                                 self.state.splats.capacity, self.gen,
+                                 self.device)
 
     def _get_step(self, flags: StepFlags):
         if flags not in self._steps:

@@ -26,6 +26,10 @@ import langscenex_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+for name in ("quick_start", "train_all", "convert_cli", "ops.ring_attention",
+             "utils.stepfun", "utils.profiling", "utils.pose_eval",
+             "utils.camera_paths"):
+    assert "langscenex_tpu_torch." + name in names, name
 import chip_smoke
 assert not any(k == "langscenex_tpu" or k.startswith("langscenex_tpu.")
                for k in sys.modules), "the JAX package was imported"
@@ -97,9 +101,10 @@ def test_port_imports_tensorflow_only_inside_openseg_extractor():
 
 
 def test_spawned_ranks_run_without_jax(tmp_path):
-    # the tensor-parallel ranks are fresh interpreters: with a `jax` that
-    # fails on import first on their path, the port's dry run (2 gloo
-    # ranks, one full and one LoRA step) still runs to its end
+    # the ranks are fresh interpreters: with a `jax` that fails on import
+    # first on their path, the port's dry run (2 gloo ranks: the
+    # view-parallel field step, one full and one LoRA step, the SP ring
+    # forward) still runs to its end
     fake = tmp_path / "jax"
     fake.mkdir()
     (fake / "__init__.py").write_text('raise ImportError("jax is blocked")\n')
@@ -110,3 +115,37 @@ def test_spawned_ranks_run_without_jax(tmp_path):
                           capture_output=True, text=True, timeout=180)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "dryrun lora (data=1, model=2) OK" in proc.stdout
+    assert "dryrun field (data=2) OK" in proc.stdout
+    assert "dryrun sp ring (seq over 2 ranks) OK" in proc.stdout
+
+
+def test_quick_start_tiny_chain_runs_without_jax_or_pil(tmp_path):
+    # the four-stage chain end to end (--tiny, on the CPU) in a process
+    # where jax, the JAX package's dependencies, PIL and the Hugging Face
+    # packages cannot be imported
+    code = ("import sys\n"
+            "for name in ('jax', 'PIL', 'transformers', 'safetensors',\n"
+            "             'tokenizers', 'tensorflow'):\n"
+            "    sys.modules[name] = None\n"
+            "import numpy as np, torch\n"
+            "torch.set_num_threads(2)\n"
+            "from langscenex_tpu_torch import quick_start\n"
+            "from langscenex_tpu_torch.utils.png import write_png\n"
+            f"root = {str(tmp_path)!r}\n"
+            "for name, seed in (('a', 1), ('b', 2)):\n"
+            "    img = np.random.default_rng(seed).integers(\n"
+            "        0, 255, (64, 96, 3)).astype(np.uint8)\n"
+            "    write_png(f'{root}/{name}.png', img)\n"
+            "rec = quick_start.run(['--data_path', f'{root}/demo',\n"
+            "    '--first_image', f'{root}/a.png', '--last_image',\n"
+            "    f'{root}/b.png', '--tiny', '--iterations', '3',\n"
+            "    '--ae_epochs', '1', '--pose_optim_iter', '1', '--eval'])\n"
+            "assert not any(k == 'langscenex_tpu' or k.startswith(\n"
+            "    'langscenex_tpu.') for k in sys.modules)\n"
+            "print(sorted(rec['stage_t']))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert ("['1_keyframes', '2_trimap_x3', '3_preprocess', '4_field', "
+            "'5b_eval', 'total']") in proc.stdout

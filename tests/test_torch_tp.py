@@ -188,9 +188,11 @@ def test_port_dryrun_runs_on_the_card_unless_asked_for_the_cpu(
 
 
 def test_port_dryrun_runs_to_its_end(tmp_path):
-    # the port's _dryrun_dit / _dryrun_lora_tp: one full fine-tune and one
+    # the port's _dryrun_impl / _dryrun_dit / _dryrun_sp / _dryrun_lora_tp:
+    # the view-parallel field step on data=4, one full fine-tune and one
     # LoRA step of the tiny DiT on (data=2, model=2), same finite losses
-    # on every rank
+    # on every rank, and the SP ring's max deviation from the unsharded
+    # forward
     out = dryrun.dryrun(4, "cpu", workdir=str(tmp_path))
-    assert set(out) == {"dit", "lora"}
+    assert set(out) == {"field", "dit", "lora", "sp"}
     assert all(np.isfinite(v) for v in out.values())
