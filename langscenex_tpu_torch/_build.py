@@ -14,7 +14,10 @@ the library.
 Each C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises on a non-zero code. Each wrapper counts its launches
 in :data:`launch_counts` (plain ints, reset with :func:`reset_launch_counts`)
-so a run can prove that its main path went through the kernels.
+so a run can prove that its main path went through the kernels. The
+counts live in ``utils/profiling.counters``, the port's one set of
+counters; :data:`launch_counts` reads and writes the :data:`KERNELS`
+entries of it and shows no other counter.
 """
 from __future__ import annotations
 
@@ -25,22 +28,53 @@ import os
 import subprocess
 import tempfile
 import time
+from collections.abc import MutableMapping
 from pathlib import Path
 
 import torch
+
+from .utils import profiling
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
-launch_counts = {"sort_pairs": 0, "compact_pairs": 0, "blend_forward": 0,
-                 "blend_backward": 0, "flash_attention": 0,
-                 "flash_attention_bhtd": 0, "flash_attention_backward": 0,
-                 "ln_modulate": 0, "flash_attention_online": 0,
-                 "flash_attention_h2": 0, "flash_attention_exp2": 0,
-                 "flash_attention_exp2_bf16": 0, "gather_rows": 0,
-                 "exp2_bf16x2": 0}
+KERNELS = ("sort_pairs", "compact_pairs", "blend_forward",
+           "blend_backward", "flash_attention", "flash_attention_bhtd",
+           "flash_attention_backward", "ln_modulate",
+           "flash_attention_online", "flash_attention_h2",
+           "flash_attention_exp2", "flash_attention_exp2_bf16",
+           "gather_rows", "exp2_bf16x2")
+
+
+class _LaunchCounts(MutableMapping):
+    """The kernels' entries of ``profiling.counters``, read and written
+    through; a name outside :data:`KERNELS` is a ``KeyError``."""
+
+    def __getitem__(self, name):
+        if name not in KERNELS:
+            raise KeyError(name)
+        return profiling.counters[name]
+
+    def __setitem__(self, name, value):
+        if name not in KERNELS:
+            raise KeyError(name)
+        profiling.counters[name] = value
+
+    def __delitem__(self, name):
+        raise TypeError("a kernel's launch count cannot be removed")
+
+    def __iter__(self):
+        return iter(KERNELS)
+
+    def __len__(self):
+        return len(KERNELS)
+
+
+for _name in KERNELS:
+    profiling.counters.setdefault(_name, 0)
+launch_counts = _LaunchCounts()
 
 # seconds the last nvcc build of this process took (0.0 when only the
 # cached library was loaded); read by chip_smoke.py
@@ -102,6 +136,7 @@ _SIGNATURES = {
 
 
 def reset_launch_counts() -> None:
+    """Zero every kernel's launch count."""
     for k in launch_counts:
         launch_counts[k] = 0
 

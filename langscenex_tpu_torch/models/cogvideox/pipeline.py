@@ -20,6 +20,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ...utils.profiling import span
 from .scheduler import DDIMScheduler
 
 
@@ -114,16 +115,19 @@ def guided_prediction(denoiser: Callable, latents: torch.Tensor,
     image latents channel-concatenated, then uncond + g (cond - uncond),
     in the latents' dtype."""
     B = latents.shape[0]
-    lat_in = torch.cat([latents, latents], dim=0)
-    img_in = torch.cat([image_latents, image_latents], dim=0)
-    model_in = torch.cat([lat_in, img_in], dim=2)
-    tt = torch.full((2 * B,), t, dtype=torch.int32, device=latents.device)
-    out = denoiser(model_in, text, tt)
-    uncond, cond = out.chunk(2, dim=0)
-    g = (dynamic_guidance(cfg.guidance_scale, t,
-                          scheduler.cfg.num_train_timesteps)
-         if cfg.use_dynamic_cfg else cfg.guidance_scale)
-    return (uncond + g * (cond - uncond)).to(latents.dtype)
+    with span("dit.call"):
+        lat_in = torch.cat([latents, latents], dim=0)
+        img_in = torch.cat([image_latents, image_latents], dim=0)
+        model_in = torch.cat([lat_in, img_in], dim=2)
+        tt = torch.full((2 * B,), t, dtype=torch.int32,
+                        device=latents.device)
+        out = denoiser(model_in, text, tt)
+    with span("dit.guidance"):
+        uncond, cond = out.chunk(2, dim=0)
+        g = (dynamic_guidance(cfg.guidance_scale, t,
+                              scheduler.cfg.num_train_timesteps)
+             if cfg.use_dynamic_cfg else cfg.guidance_scale)
+        return (uncond + g * (cond - uncond)).to(latents.dtype)
 
 
 def denoise_loop(denoiser: Callable, latents: torch.Tensor,
@@ -138,10 +142,12 @@ def denoise_loop(denoiser: Callable, latents: torch.Tensor,
     text = torch.cat([text_uncond, text_cond], dim=0)
     cache = torch.zeros_like(latents)
     for i, (t, t_prev, do_eval) in enumerate(zip(ts, ts_prev, compute)):
-        if do_eval:
-            cache = guided_prediction(denoiser, latents, image_latents, text,
-                                      t, scheduler, cfg)
-        latents = scheduler.step(cache, t, t_prev, latents)
+        with span("dit.step"):
+            if do_eval:
+                cache = guided_prediction(denoiser, latents, image_latents,
+                                          text, t, scheduler, cfg)
+            with span("dit.scheduler"):
+                latents = scheduler.step(cache, t, t_prev, latents)
         if callback is not None:
             callback(i, t, do_eval, latents)
     return latents

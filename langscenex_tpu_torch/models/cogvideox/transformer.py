@@ -52,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from ...ops.flash_attention import attention_bthd
 from ...ops.ln_modulate import ln_modulate, ln_modulate_plain
 from ...utils.device import resolve_device
+from ...utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +146,15 @@ def apply_rope_fused(x: torch.Tensor, cos_full: torch.Tensor,
     return x * cos_full.to(x.dtype) + xs * sin_full.to(x.dtype)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` inside a ``dit.linear`` span: every product of the
+    DiT's projections, MLP, modulations and embeddings."""
+
+    def forward(self, x):
+        with span("dit.linear"):
+            return super().forward(x)
+
+
 class LayerNormZero(nn.Module):
     """CogVideoXLayerNormZero: SiLU(temb) → 6·hidden (shift, scale, gate
     for the video rows, then for the text rows); LayerNorm of the joint
@@ -152,7 +162,7 @@ class LayerNormZero(nn.Module):
 
     def __init__(self, time_dim: int, hidden: int):
         super().__init__()
-        self.linear = nn.Linear(time_dim, 6 * hidden)
+        self.linear = Linear(time_dim, 6 * hidden)
         self.norm = nn.LayerNorm(hidden, eps=1e-5)
         self.use_kernels = True
 
@@ -160,12 +170,13 @@ class LayerNormZero(nn.Module):
         emb = self.linear(F.silu(temb))
         shift, scale, gate, t_shift, t_scale, t_gate = emb.chunk(6, dim=-1)
         fn = ln_modulate if self.use_kernels else ln_modulate_plain
-        out = fn(x, self.norm.weight, self.norm.bias, scale, shift, t_scale,
-                 t_shift, text_len)
+        with span("dit.lnz"):
+            out = fn(x, self.norm.weight, self.norm.bias, scale, shift,
+                     t_scale, t_shift, text_len)
         return out, gate[:, None], t_gate[:, None]
 
 
-class RowParallelLinear(nn.Linear):
+class RowParallelLinear(Linear):
     """One rank's rows of a linear whose input is split over the mesh's
     ``model`` axis: y = Σ_model (x_local·W_localᵀ + Σ partial terms) + b,
     with one all-reduce and the bias added once. ``partial_terms`` holds
@@ -178,10 +189,11 @@ class RowParallelLinear(nn.Linear):
         self.partial_terms = []
 
     def forward(self, x):
-        y = F.linear(x, self.weight)
-        for term in self.partial_terms:
-            y = y + term(x)
-        return self.tp.reduce_from_model(y) + self.bias
+        with span("dit.linear"):
+            y = F.linear(x, self.weight)
+            for term in self.partial_terms:
+                y = y + term(x)
+            return self.tp.reduce_from_model(y) + self.bias
 
 
 def _local(n: int, tp, what: str) -> int:
@@ -205,13 +217,13 @@ class JointAttention(nn.Module):
         self.tp = tp
         self.num_heads = _local(cfg.num_heads, tp, "num_heads")
         h, hl = cfg.hidden, self.num_heads * cfg.head_dim
-        self.to_q = nn.Linear(h, hl)
-        self.to_k = nn.Linear(h, hl)
-        self.to_v = nn.Linear(h, hl)
+        self.to_q = Linear(h, hl)
+        self.to_k = Linear(h, hl)
+        self.to_v = Linear(h, hl)
         self.norm_q = nn.LayerNorm(cfg.head_dim, eps=1e-6)
         self.norm_k = nn.LayerNorm(cfg.head_dim, eps=1e-6)
         self.to_out = nn.ModuleList([
-            nn.Linear(h, h) if tp is None else RowParallelLinear(hl, h, tp),
+            Linear(h, h) if tp is None else RowParallelLinear(hl, h, tp),
             nn.Identity()])
         self.use_kernels = True
 
@@ -226,22 +238,30 @@ class JointAttention(nn.Module):
         def heads(lin):
             return lin(x).view(B, T, self.num_heads, cfg.head_dim)
 
-        q = self.norm_q(heads(self.to_q))
-        k = self.norm_k(heads(self.to_k))
+        # each norm right after its projection, so that no pre-norm
+        # tensor outlives its norm
+        q = heads(self.to_q)
+        with span("dit.qk_norm"):
+            q = self.norm_q(q)
+        k = heads(self.to_k)
+        with span("dit.qk_norm"):
+            k = self.norm_k(k)
         v = heads(self.to_v)
         if rope is not None:
             cos_full, sin_full = rope
-            q = apply_rope_fused(q, cos_full[:, None], sin_full[:, None])
-            k = apply_rope_fused(k, cos_full[:, None], sin_full[:, None])
+            with span("dit.rope"):
+                q = apply_rope_fused(q, cos_full[:, None], sin_full[:, None])
+                k = apply_rope_fused(k, cos_full[:, None], sin_full[:, None])
         return q, k, v
 
     def forward(self, x, rope):
         cfg = self.cfg
         B, T, _ = x.shape
         q, k, v = self.qkv(x, rope)
-        out = attention_bthd(q, k, v, dtype=cfg.attn_dtype,
-                             plain=not self.use_kernels,
-                             tensor_parallel=self.tp is not None)
+        with span("dit.attn"):
+            out = attention_bthd(q, k, v, dtype=cfg.attn_dtype,
+                                 plain=not self.use_kernels,
+                                 tensor_parallel=self.tp is not None)
         return self.to_out[0](out.reshape(B, T,
                                           self.num_heads * cfg.head_dim))
 
@@ -249,7 +269,7 @@ class JointAttention(nn.Module):
 class _GELUProj(nn.Module):
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out)
+        self.proj = Linear(dim_in, dim_out)
 
     def forward(self, x):
         return F.gelu(self.proj(x), approximate="tanh")
@@ -265,7 +285,7 @@ class FeedForward(nn.Module):
         inner = _local(4 * hidden, tp, "MLP width")
         self.net = nn.ModuleList([
             _GELUProj(hidden, inner), nn.Identity(),
-            nn.Linear(inner, hidden) if tp is None
+            Linear(inner, hidden) if tp is None
             else RowParallelLinear(inner, hidden, tp)])
 
     def forward(self, x):
@@ -286,14 +306,15 @@ class Block(nn.Module):
         self.ff = FeedForward(cfg.hidden, tp)
 
     def forward(self, x, temb, rope, text_len: int):
-        def gated(y, g, tg):
-            return torch.cat([tg * y[:, :text_len], g * y[:, text_len:]],
-                             dim=1)
+        def gated(x, y, g, tg):
+            with span("dit.gate"):
+                return x + torch.cat([tg * y[:, :text_len],
+                                      g * y[:, text_len:]], dim=1)
 
         n, g, tg = self.norm1(x, temb, text_len)
-        x = x + gated(self.attn1(n, rope), g, tg)
+        x = gated(x, self.attn1(n, rope), g, tg)
         n, g, tg = self.norm2(x, temb, text_len)
-        return x + gated(self.ff(n), g, tg)
+        return gated(x, self.ff(n), g, tg)
 
 
 class _PatchEmbed(nn.Module):
@@ -301,20 +322,20 @@ class _PatchEmbed(nn.Module):
         super().__init__()
         p = cfg.patch_size
         self.proj = nn.Conv2d(cfg.in_channels, cfg.hidden, p, stride=p)
-        self.text_proj = nn.Linear(cfg.text_embed_dim, cfg.hidden)
+        self.text_proj = Linear(cfg.text_embed_dim, cfg.hidden)
 
 
 class _TimestepEmbedding(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        self.linear_1 = nn.Linear(cfg.hidden, cfg.time_embed_dim)
-        self.linear_2 = nn.Linear(cfg.time_embed_dim, cfg.time_embed_dim)
+        self.linear_1 = Linear(cfg.hidden, cfg.time_embed_dim)
+        self.linear_2 = Linear(cfg.time_embed_dim, cfg.time_embed_dim)
 
 
 class _AdaLayerNorm(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        self.linear = nn.Linear(cfg.time_embed_dim, 2 * cfg.hidden)
+        self.linear = Linear(cfg.time_embed_dim, 2 * cfg.hidden)
         self.norm = nn.LayerNorm(cfg.hidden, eps=1e-5)
 
 
@@ -335,7 +356,7 @@ class CogVideoXTransformer(nn.Module):
                 [Block(cfg, tp) for _ in range(cfg.num_layers)])
             self.norm_final = nn.LayerNorm(cfg.hidden, eps=1e-5)
             self.norm_out = _AdaLayerNorm(cfg)
-            self.proj_out = nn.Linear(
+            self.proj_out = Linear(
                 cfg.hidden, cfg.patch_size ** 2 * cfg.out_channels)
 
     def embed(self, latents, text, timestep):

@@ -23,6 +23,8 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
+
 
 @contextlib.contextmanager
 def exact_f32():
@@ -119,10 +121,13 @@ def _knn_smallest(d2: torch.Tensor, k: int) -> torch.Tensor:
     """Indices [S, k] of the k smallest entries of each row, ties to the
     lower index (the set ``lax.top_k(-d2, k)`` selects). ``topk`` gives no
     tie order, so rows where the k-th value is tied are re-ranked by a
-    stable sort."""
+    stable sort. Counts the rows (``knn.rows``) and the re-ranked ones
+    (``knn.tie_rows``)."""
     vals, idx = torch.topk(d2, k, dim=1, largest=False)
     ambiguous = (d2 <= vals[:, -1:]).sum(1) > k
     rows = torch.nonzero(ambiguous).reshape(-1)
+    profiling.count("knn.rows", d2.shape[0])
+    profiling.count("knn.tie_rows", rows.numel())
     if rows.numel():
         idx = idx.clone()
         idx[rows] = torch.sort(d2[rows], dim=1, stable=True).indices[:, :k]

@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils import profiling
 from .binning import CullSpec, TileLists, build_tile_lists
 from .projection import ProcessedSplats, RasterCamera, preprocess
 from .rasterize_cuda import blend_tiles
@@ -141,7 +142,7 @@ def prepare_blend(means3d, scales, quats, opacity, cam: RasterCamera,
 
     # binning is discrete: keep it out of the autograd graph (the JAX code
     # stop_gradients its inputs)
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("raster.bin"):
         lists = build_tile_lists(
             proc, grid_x, grid_y, cfg.max_tiles_per_splat,
             max_pairs=cfg.max_pairs, big_splats=cfg.big_splats, cull=cull,

@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import _build
+from ..utils import profiling
 from .binning import TileLists
 
 ALPHA_MAX = 0.99
@@ -375,13 +376,15 @@ class BlendTilesFn(torch.autograd.Function):
     def forward(ctx, mean2d, conic, opacity, channels, abs_hook,
                 lists: TileLists, grid_x: int, grid_y: int, cfg,
                 kernels: bool):
-        if kernels:
-            accum, T, observe = blend_forward(lists, mean2d, conic, opacity,
-                                              channels, grid_x, grid_y, cfg)
-        else:
-            accum, T, observe = blend_tiles_plain(
-                lists, mean2d, conic, opacity, channels, grid_x, grid_y,
-                cfg.tile_w, cfg.tile_h, cfg.chunk)
+        with profiling.span("raster.blend_fwd"):
+            if kernels:
+                accum, T, observe = blend_forward(
+                    lists, mean2d, conic, opacity, channels, grid_x, grid_y,
+                    cfg)
+            else:
+                accum, T, observe = blend_tiles_plain(
+                    lists, mean2d, conic, opacity, channels, grid_x, grid_y,
+                    cfg.tile_w, cfg.tile_h, cfg.chunk)
         ctx.save_for_backward(mean2d, conic, opacity, channels, accum, T)
         ctx.lists = lists
         ctx.grid = (grid_x, grid_y)
@@ -402,11 +405,12 @@ class BlendTilesFn(torch.autograd.Function):
         cfg = ctx.cfg
         args = (ctx.lists, mean2d, conic, opacity, channels, accum, T,
                 g_accum, g_T, grid_x, grid_y)
-        if ctx.kernels:
-            grad = blend_backward(*args, cfg)
-        else:
-            grad = blend_backward_plain(*args, cfg.tile_w, cfg.tile_h,
-                                        cfg.chunk)
+        with profiling.span("raster.blend_bwd"):
+            if ctx.kernels:
+                grad = blend_backward(*args, cfg)
+            else:
+                grad = blend_backward_plain(*args, cfg.tile_w, cfg.tile_h,
+                                            cfg.chunk)
         C = channels.shape[1]
         d_hook = grad[:, GEOM_ROWS + C:] if ctx.has_hook else None
         return (grad[:, 0:2], grad[:, 2:5], grad[:, 5].reshape(opacity.shape),

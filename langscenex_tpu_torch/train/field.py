@@ -25,7 +25,10 @@ from a ``torch.Generator``: the JAX package draws them from PRNG keys,
 which no torch generator reproduces, so the parity tests inject JAX's
 draws. The trainer picks views with the same numpy generator as the JAX
 trainer. :func:`make_parallel_train_step` is the view-parallel step over
-the ranks of a mesh's ``data`` axis.
+the ranks of a mesh's ``data`` axis. Spans (``utils/profiling.span``:
+``field.iter``, ``field.step``, ``field.render``, ``field.loss.*``,
+``field.backward``, ``field.optim``, ...) name the parts of an iteration
+for a profiler.
 
 The trainer's outputs under ``save_dir`` are the JAX package's: PLY and
 pose snapshots, checkpoints, the training report's side-by-side PNGs and
@@ -64,6 +67,7 @@ from ..scene.cameras import ZFAR, ZNEAR, Camera
 from ..scene.gaussians import DensifyStats, GaussianState
 from ..utils.config import OptimizationConfig
 from ..utils.png import write_png
+from ..utils.profiling import span
 from .densify import densify_and_prune
 from .multiview import multi_view_loss
 from .optim import (AdamState, make_app_optimizer, make_pose_optimizer,
@@ -262,122 +266,132 @@ def view_loss(cfg: OptimizationConfig, flags: StepFlags, rcfg: RasterConfig,
     dev = batch.gt_image.device
     splats = GaussianState(alive=alive, **params)
     pose = poses[batch.cam_idx] if flags.optim_pose else None
-    out = render_view(splats, pose, batch.w2c, proxy_cam, batch.bg,
-                      sh_degree, include_feature=True, return_plane=True,
-                      mean2d_offset=m2d_off, rcfg=rcfg,
-                      mean2d_abs_hook=m2d_abs)
+    with span("field.render"):
+        out = render_view(splats, pose, batch.w2c, proxy_cam, batch.bg,
+                          sh_degree, include_feature=True,
+                          return_plane=True, mean2d_offset=m2d_off,
+                          rcfg=rcfg, mean2d_abs_hook=m2d_abs)
     metrics = {}
     total = torch.zeros((), device=dev)
     image = out.color
     eff_w2c = camera_from_tensor(pose) if pose is not None else batch.w2c
 
     if flags.image:
-        ssim_val = L.ssim(image, batch.gt_image)
-        ssim_loss = 1.0 - ssim_val
-        app = app_ab[batch.uid]
-        app_image = torch.exp(app[0]) * image + app[1]
-        l1 = torch.where(ssim_loss < 0.5,
-                         L.l1_loss(app_image, batch.gt_image),
-                         L.l1_loss(image, batch.gt_image))
-        image_loss = ((1.0 - cfg.lambda_dssim) * l1
-                      + cfg.lambda_dssim * ssim_loss)
-        total = total + image_loss
-        metrics["image_loss"] = image_loss
-        metrics["ssim"] = ssim_val
+        with span("field.loss.image"):
+            ssim_val = L.ssim(image, batch.gt_image)
+            ssim_loss = 1.0 - ssim_val
+            app = app_ab[batch.uid]
+            app_image = torch.exp(app[0]) * image + app[1]
+            l1 = torch.where(ssim_loss < 0.5,
+                             L.l1_loss(app_image, batch.gt_image),
+                             L.l1_loss(image, batch.gt_image))
+            image_loss = ((1.0 - cfg.lambda_dssim) * l1
+                          + cfg.lambda_dssim * ssim_loss)
+            total = total + image_loss
+            metrics["image_loss"] = image_loss
+            metrics["ssim"] = ssim_val
 
-        # min-scale flatness loss (gaussian_field.py:247-252)
-        vis = out.visible & (out.radii > 0)
-        # amin spreads the gradient over tied scales, as jnp.min does
-        # (create_from_points makes every splat's three scales equal)
-        min_scale = torch.amin(splats.get_scaling(), -1)
-        n_vis = torch.clamp(vis.sum(), min=1)
-        total = total + cfg.scale_loss_weight * torch.where(
-            vis, min_scale, 0.0).sum() / n_vis
+            # min-scale flatness loss (gaussian_field.py:247-252)
+            vis = out.visible & (out.radii > 0)
+            # amin spreads the gradient over tied scales, as jnp.min does
+            # (create_from_points makes every splat's three scales equal)
+            min_scale = torch.amin(splats.get_scaling(), -1)
+            n_vis = torch.clamp(vis.sum(), min=1)
+            total = total + cfg.scale_loss_weight * torch.where(
+                vis, min_scale, 0.0).sum() / n_vis
 
     if flags.single_view:
-        # depth -> normal consistency (gaussian_field.py:255-283)
-        pts = _pix_rays(H, W, fx, fy, dev) * out.plane_depth[..., None]
-        depth_normal = points_to_normals(pts).permute(2, 0, 1)
-        depth_normal = depth_normal * out.all_map[3].detach()[None]
-        normal_ch = out.all_map[:3]
-        if cfg.normal_optim:
-            # StableNormal prior (:264-276): rendered and depth normals
-            # rotated to world, compared with the prior by cosine
-            Rcw = eff_w2c[:3, :3].T
-            rn_world = torch.einsum("ij,jhw->ihw", Rcw, normal_ch)
-            dn_world = torch.einsum("ij,jhw->ihw", Rcw, depth_normal)
-            err = ((1.0 - _cos_hw(batch.normal_prior, rn_world))
-                   + (1.0 - _cos_hw(batch.normal_prior, dn_world)))
-            msum = torch.clamp(batch.normal_mask.sum(), min=1)
-            nl = cfg.single_view_weight * torch.where(
-                batch.normal_mask, err, 0.0).sum() / msum
-        else:
-            iw = (1.0 - L.image_grad_weight(batch.gt_image))
-            iw = (torch.clamp(iw, 0, 1) ** 2).detach()
-            diff = (depth_normal - normal_ch).abs().sum(0)
-            nl = cfg.single_view_weight * (
-                diff if cfg.wo_image_weight else iw * diff).mean()
-        total = total + nl
-        metrics["normal_loss"] = nl
+        with span("field.loss.normal"):
+            # depth -> normal consistency (gaussian_field.py:255-283)
+            pts = _pix_rays(H, W, fx, fy, dev) * out.plane_depth[..., None]
+            depth_normal = points_to_normals(pts).permute(2, 0, 1)
+            depth_normal = depth_normal * out.all_map[3].detach()[None]
+            normal_ch = out.all_map[:3]
+            if cfg.normal_optim:
+                # StableNormal prior (:264-276): rendered and depth normals
+                # rotated to world, compared with the prior by cosine
+                Rcw = eff_w2c[:3, :3].T
+                rn_world = torch.einsum("ij,jhw->ihw", Rcw, normal_ch)
+                dn_world = torch.einsum("ij,jhw->ihw", Rcw, depth_normal)
+                err = ((1.0 - _cos_hw(batch.normal_prior, rn_world))
+                       + (1.0 - _cos_hw(batch.normal_prior, dn_world)))
+                msum = torch.clamp(batch.normal_mask.sum(), min=1)
+                nl = cfg.single_view_weight * torch.where(
+                    batch.normal_mask, err, 0.0).sum() / msum
+            else:
+                iw = (1.0 - L.image_grad_weight(batch.gt_image))
+                iw = (torch.clamp(iw, 0, 1) ** 2).detach()
+                diff = (depth_normal - normal_ch).abs().sum(0)
+                nl = cfg.single_view_weight * (
+                    diff if cfg.wo_image_weight else iw * diff).mean()
+            total = total + nl
+            metrics["normal_loss"] = nl
 
     if flags.multiview:
         near_pose = (poses[batch.near_idx].detach() if flags.optim_pose
                      else None)
-        near_out = render_view(
-            splats, near_pose, batch.near_w2c, proxy_cam, batch.bg,
-            sh_degree, include_feature=False, return_plane=True,
-            mean2d_offset=None, rcfg=rcfg)
-        Kmat = torch.tensor([[fx, 0, W * 0.5], [0, fy, H * 0.5],
-                             [0, 0, 1.0]], dtype=torch.float32, device=dev)
-        near_eff = (camera_from_tensor(near_pose) if near_pose is not None
-                    else batch.near_w2c)
-        mv = multi_view_loss(
-            samples.mv_sel, out.plane_depth, out.all_map[:3],
-            out.all_map[4], near_out.plane_depth, batch.gt_gray,
-            batch.near_gt_gray, eff_w2c, near_eff, Kmat,
-            patch_size=cfg.multi_view_patch_size,
-            pixel_noise_th=cfg.multi_view_pixel_noise_th,
-            geo_weight=cfg.multi_view_geo_weight,
-            ncc_weight=cfg.multi_view_ncc_weight,
-            wo_geo_occ_aware=cfg.wo_use_geo_occ_aware,
-            ncc_dense=cfg.multi_view_dense_ncc)
-        if batch.has_near:
-            total = total + (mv.geo_loss + mv.ncc_loss)
+        with span("field.render_near"):
+            near_out = render_view(
+                splats, near_pose, batch.near_w2c, proxy_cam, batch.bg,
+                sh_degree, include_feature=False, return_plane=True,
+                mean2d_offset=None, rcfg=rcfg)
+        with span("field.loss.multiview"):
+            Kmat = torch.tensor([[fx, 0, W * 0.5], [0, fy, H * 0.5],
+                                 [0, 0, 1.0]], dtype=torch.float32,
+                                device=dev)
+            near_eff = (camera_from_tensor(near_pose)
+                        if near_pose is not None else batch.near_w2c)
+            mv = multi_view_loss(
+                samples.mv_sel, out.plane_depth, out.all_map[:3],
+                out.all_map[4], near_out.plane_depth, batch.gt_gray,
+                batch.near_gt_gray, eff_w2c, near_eff, Kmat,
+                patch_size=cfg.multi_view_patch_size,
+                pixel_noise_th=cfg.multi_view_pixel_noise_th,
+                geo_weight=cfg.multi_view_geo_weight,
+                ncc_weight=cfg.multi_view_ncc_weight,
+                wo_geo_occ_aware=cfg.wo_use_geo_occ_aware,
+                ncc_dense=cfg.multi_view_dense_ncc)
+            if batch.has_near:
+                total = total + (mv.geo_loss + mv.ncc_loss)
         metrics["geo_loss"] = mv.geo_loss
         metrics["ncc_loss"] = mv.ncc_loss
 
     if flags.lang or flags.instance:
         flat_seg = torch.where(batch.lang_mask, batch.seg, -1).reshape(-1)
     if flags.lang:
-        m = batch.lang_mask[None].to(torch.float32)
-        lang_loss = L.l1_loss(out.language * m, batch.lang_feat * m)
-        total = total + lang_loss
-        metrics["lang_loss"] = lang_loss
-        if cfg.grouping_loss:
-            gl = L.loss_semantic_group(samples.group_idx, flat_seg,
-                                       out.language.reshape(3, -1).T)
-            total = total + gl
-            metrics["grouping_loss"] = gl
+        with span("field.loss.lang"):
+            m = batch.lang_mask[None].to(torch.float32)
+            lang_loss = L.l1_loss(out.language * m, batch.lang_feat * m)
+            total = total + lang_loss
+            metrics["lang_loss"] = lang_loss
+            if cfg.grouping_loss:
+                gl = L.loss_semantic_group(samples.group_idx, flat_seg,
+                                           out.language.reshape(3, -1).T)
+                total = total + gl
+                metrics["grouping_loss"] = gl
         if cfg.loss_obj_3d:
-            ol = L.loss_cls_3d(samples.obj_idx, splats.xyz.detach(),
-                               splats.language_feature, cfg.reg3d_k,
-                               cfg.reg3d_lambda_val)
-            total = total + ol
+            with span("field.loss.knn"):
+                ol = L.loss_cls_3d(samples.obj_idx, splats.xyz.detach(),
+                                   splats.language_feature, cfg.reg3d_k,
+                                   cfg.reg3d_lambda_val)
+                total = total + ol
             metrics["obj3d_loss"] = ol
 
     if flags.instance:
-        inst_flat = out.instance.reshape(3, -1).T
-        lang_flat = out.language.detach().reshape(3, -1).T
         if cfg.grouping_loss:
-            gl = L.loss_instance_group(samples.group_idx, flat_seg,
-                                       inst_flat, lang_flat)
-            total = total + gl
+            with span("field.loss.lang"):
+                inst_flat = out.instance.reshape(3, -1).T
+                lang_flat = out.language.detach().reshape(3, -1).T
+                gl = L.loss_instance_group(samples.group_idx, flat_seg,
+                                           inst_flat, lang_flat)
+                total = total + gl
             metrics["ins_grouping_loss"] = gl
         if cfg.loss_obj_3d:
-            ol = L.loss_cls_3d(samples.obj_idx, splats.xyz.detach(),
-                               splats.instance_feature, cfg.reg3d_k,
-                               cfg.reg3d_lambda_val)
-            total = total + ol
+            with span("field.loss.knn"):
+                ol = L.loss_cls_3d(samples.obj_idx, splats.xyz.detach(),
+                                   splats.instance_feature, cfg.reg3d_k,
+                                   cfg.reg3d_lambda_val)
+                total = total + ol
             metrics["ins_obj3d_loss"] = ol
 
     metrics["total"] = total
@@ -417,8 +431,9 @@ def loss_and_grads(cfg: OptimizationConfig, flags: StepFlags,
             cfg, flags, rcfg, proxy_cam, sh_degree, state.splats.alive,
             params, leaves["poses"], leaves["app_ab"], leaves["mean2d"],
             batch, samples, leaves["mean2d_abs"])
-        gs = torch.autograd.grad(total, list(leaves.values()),
-                                 allow_unused=True)
+        with span("field.backward", adopts=True):
+            gs = torch.autograd.grad(total, list(leaves.values()),
+                                     allow_unused=True)
     grads = {k: torch.zeros_like(v) if g is None else g
              for (k, v), g in zip(leaves.items(), gs)}
     metrics = {k: v.detach() for k, v in metrics.items()}
@@ -462,18 +477,21 @@ def _apply_update(cfg: OptimizationConfig, flags: StepFlags, txs,
     if state.step < min(cfg.max_geo_iter, cfg.densify_until_iter):
         stats = stats.update(ndc_grad, ndc_abs, radii, upd_filter)
     params = splat_params(state.splats)
-    gs = phase_grad_mask(flags.phase, {k: grads[k] for k in params})
-    new_params, splat_opt = splat_tx.update(gs, state.splat_opt, params)
-    new_poses, pose_opt = state.poses, state.pose_opt
-    if flags.optim_pose:
-        p, pose_opt = pose_tx.update({"poses": grads["poses"]},
-                                     state.pose_opt, {"poses": state.poses})
-        new_poses = p["poses"]
-    new_app, app_opt = state.app_ab, state.app_opt
-    if flags.image:
-        a, app_opt = app_tx.update({"app_ab": grads["app_ab"]},
-                                   state.app_opt, {"app_ab": state.app_ab})
-        new_app = a["app_ab"]
+    with span("field.optim"):
+        gs = phase_grad_mask(flags.phase, {k: grads[k] for k in params})
+        new_params, splat_opt = splat_tx.update(gs, state.splat_opt, params)
+        new_poses, pose_opt = state.poses, state.pose_opt
+        if flags.optim_pose:
+            p, pose_opt = pose_tx.update({"poses": grads["poses"]},
+                                         state.pose_opt,
+                                         {"poses": state.poses})
+            new_poses = p["poses"]
+        new_app, app_opt = state.app_ab, state.app_opt
+        if flags.image:
+            a, app_opt = app_tx.update({"app_ab": grads["app_ab"]},
+                                       state.app_opt,
+                                       {"app_ab": state.app_ab})
+            new_app = a["app_ab"]
     return TrainState(
         splats=dataclasses.replace(state.splats, **new_params),
         poses=new_poses, app_ab=new_app, splat_opt=splat_opt,
@@ -556,9 +574,10 @@ def make_parallel_train_step(cfg: OptimizationConfig, flags: StepFlags,
                     cfg, flags, rcfg, proxy_cam, sh_degree,
                     state.splats.alive, params, leaves["poses"],
                     leaves["app_ab"], leaves["mean2d"], batch, smp)
-                gs = torch.autograd.grad(total / n_views,
-                                         list(leaves.values()),
-                                         allow_unused=True)
+                with span("field.backward", adopts=True):
+                    gs = torch.autograd.grad(total / n_views,
+                                             list(leaves.values()),
+                                             allow_unused=True)
                 g = {k: torch.zeros_like(v) if x is None else x
                      for (k, v), x in zip(leaves.items(), gs)}
                 grads = g if grads is None else {k: grads[k] + g[k]
@@ -942,6 +961,75 @@ class GaussianFieldTrainer:
 
     # ---------------- main loop ----------------
 
+    def _iteration(self, it: int, save_dir, save_iterations, test_iterations,
+                   collage_interval: int) -> dict:
+        """Iteration ``it`` of :meth:`train` up to its pair-cap check: the
+        phase flags, the view and draws, the step, densification, the
+        snapshots and the check. Returns the step's metrics."""
+        cfg = self.cfg
+        if it % 100 == 0 and self.active_sh_degree < self.sh_degree_max:
+            self.active_sh_degree += 1
+
+        flags = phase_flags(it, cfg)
+
+        # instance-phase boundary: copy semantic -> instance features
+        # (gaussian_field.py:469-471)
+        if it == cfg.instance_supervision_from_iter:
+            s = self.state.splats
+            self.state.splats = dataclasses.replace(
+                s, instance_feature=s.language_feature.clone())
+
+        with span("field.batch"):
+            if not self._viewpoint_stack:
+                self._viewpoint_stack = list(range(len(self.cams)))
+            ci = self._viewpoint_stack.pop(
+                int(self.rng.integers(len(self._viewpoint_stack))))
+            batch = self._camera_batch(ci, flags)
+            samples = self.draw_samples(flags)
+        step = self._get_step(flags)
+        with span("field.step"):
+            self.state, metrics = step(self.state, batch, samples,
+                                       self.active_sh_degree)
+
+        # densification (gaussian_field.py:528-535)
+        if (cfg.densify_from_iter < it
+                < min(cfg.max_geo_iter, cfg.densify_until_iter)
+                and it % cfg.densification_interval == 0):
+            with span("field.densify"):
+                size_th = 20 if it > cfg.opacity_reset_interval else None
+                noise = torch.randn((self.state.splats.capacity, 3),
+                                    generator=self.gen, device=self.device)
+                res = densify_and_prune(noise, self.state.splats,
+                                        self.state.stats, cfg,
+                                        self.scene_extent, size_th)
+                self.state.splats = res.state
+                self.state.stats = res.stats
+                self.state.splat_opt = zero_moments_at(self.state.splat_opt,
+                                                       res.written_slots)
+
+        if save_dir and it in set(save_iterations):
+            self.save_snapshot(save_dir, it)
+        if save_dir and it in set(test_iterations):
+            self.training_report(it, save_dir)
+        if save_dir and collage_interval and it % collage_interval == 0:
+            self.debug_collage(it, ci, save_dir)
+
+        # overflow check: every 10 iterations while densification and
+        # scale dynamics are active, every 100 after (one device fetch)
+        check_every = 10 if it <= cfg.densify_until_iter else 100
+        if it % check_every == 0:
+            with span("field.check"):
+                if float(metrics["pair_overflow"]) > 0:
+                    self._grow_pair_caps(metrics)
+                    self._demand_hwm = 0.0
+                    self._last_cap_resize = it
+                elif self.rcfg.max_pairs is not None:
+                    self._demand_hwm = max(
+                        self._demand_hwm,
+                        float(metrics.get("num_pairs", 0.0)))
+                    self._maybe_shrink_pair_cap(it)
+        return metrics
+
     def train(self, iterations: Optional[int] = None, log_every: int = 0,
               callback=None, save_dir: Optional[str] = None,
               save_iterations=(), checkpoint_iterations=(),
@@ -957,64 +1045,9 @@ class GaussianFieldTrainer:
         metrics = {}
         ema_loss = 0.0
         for it in range(first_iteration, iterations + 1):
-            if it % 100 == 0 and self.active_sh_degree < self.sh_degree_max:
-                self.active_sh_degree += 1
-
-            flags = phase_flags(it, cfg)
-
-            # instance-phase boundary: copy semantic -> instance features
-            # (gaussian_field.py:469-471)
-            if it == cfg.instance_supervision_from_iter:
-                s = self.state.splats
-                self.state.splats = dataclasses.replace(
-                    s, instance_feature=s.language_feature.clone())
-
-            if not self._viewpoint_stack:
-                self._viewpoint_stack = list(range(len(self.cams)))
-            ci = self._viewpoint_stack.pop(
-                int(self.rng.integers(len(self._viewpoint_stack))))
-
-            batch = self._camera_batch(ci, flags)
-            step = self._get_step(flags)
-            self.state, metrics = step(self.state, batch,
-                                       self.draw_samples(flags),
-                                       self.active_sh_degree)
-
-            # densification (gaussian_field.py:528-535)
-            if (cfg.densify_from_iter < it
-                    < min(cfg.max_geo_iter, cfg.densify_until_iter)
-                    and it % cfg.densification_interval == 0):
-                size_th = 20 if it > cfg.opacity_reset_interval else None
-                noise = torch.randn((self.state.splats.capacity, 3),
-                                    generator=self.gen, device=self.device)
-                res = densify_and_prune(noise, self.state.splats,
-                                        self.state.stats, cfg,
-                                        self.scene_extent, size_th)
-                self.state.splats = res.state
-                self.state.stats = res.stats
-                self.state.splat_opt = zero_moments_at(self.state.splat_opt,
-                                                       res.written_slots)
-
-            if save_dir and it in set(save_iterations):
-                self.save_snapshot(save_dir, it)
-            if save_dir and it in set(test_iterations):
-                self.training_report(it, save_dir)
-            if save_dir and collage_interval and it % collage_interval == 0:
-                self.debug_collage(it, ci, save_dir)
-
-            # overflow check: every 10 iterations while densification and
-            # scale dynamics are active, every 100 after (one device fetch)
-            check_every = 10 if it <= cfg.densify_until_iter else 100
-            if it % check_every == 0:
-                if float(metrics["pair_overflow"]) > 0:
-                    self._grow_pair_caps(metrics)
-                    self._demand_hwm = 0.0
-                    self._last_cap_resize = it
-                elif self.rcfg.max_pairs is not None:
-                    self._demand_hwm = max(
-                        self._demand_hwm,
-                        float(metrics.get("num_pairs", 0.0)))
-                    self._maybe_shrink_pair_cap(it)
+            with span("field.iter"):
+                metrics = self._iteration(it, save_dir, save_iterations,
+                                          test_iterations, collage_interval)
             if save_dir and it in set(checkpoint_iterations):
                 self.save_checkpoint(save_dir, it)
             if log_every and it % log_every == 0:
