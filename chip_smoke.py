@@ -5,7 +5,7 @@ probes once on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 22    # phases 1, 2 and 22 only
-    python3 chip_smoke.py --phase 25    # (or 23, 24, 26, 27) likewise
+    python3 chip_smoke.py --phase 25    # (or 23, 24, 26, 27, 30) likewise
 
 Phases (any failure raises, so the exit code is non-zero):
   1. device: require CUDA; print nvidia-smi's name and power limit;
@@ -228,6 +228,17 @@ Phases (any failure raises, so the exit code is non-zero):
      the CPU (CLIP_REL_RMS; AE_RTOL_FIRST, AE_RTOL); CLIP seconds a
      frame, the AE fit's seconds, steps and ms a step, LSeg + VQ
      seconds a frame, peak memory. Phases 23-27 add no kernel.
+ 30. K14, the 3D kNN selection of loss_cls_3d at the cell
+     field-sem-720x480's shape (800 sampled slots of a room of 1.5M points
+     in 2^21 slots, dead ones at the origin, k = 5) on KNN_SEEDS seeds:
+     its slots against the plain version's (_knn_smallest) and its d2 at
+     them bit for bit against torch's dense d2, in every row; loss_cls_3d
+     on the card with exactly one K14 launch, no host sync and no [S, N]
+     allocation (phase 6 holds K14's launches on the training path to its
+     obj3d loss calls); CUDA-event
+     times of K14, the plain version and torch.cdist + torch.topk (a
+     yardstick the port never calls) beside its FP32-issue bound; its
+     kernels' cuobjdump resources (no spill).
 Every kernel's bound is computed from this run's shapes: the larger of
 its operations over the bf16 tensor-core peak and its bytes (each input
 read once, each output written once) over the HBM rate; K3's reads only
@@ -288,7 +299,8 @@ from langscenex_tpu_torch.ops.ln_modulate import (ln_modulate,
                                                   ln_modulate_plain)
 from langscenex_tpu_torch.ops.rasterize import RasterConfig, prepare_blend
 from langscenex_tpu_torch.ops import rasterize_cuda
-from langscenex_tpu_torch.ops.losses import exact_f32
+from langscenex_tpu_torch.ops.losses import (_knn_smallest, exact_f32,
+                                             knn_select, loss_cls_3d)
 from langscenex_tpu_torch.ops.rasterize_cuda import (blend_backward,
                                                      blend_backward_plain,
                                                      blend_forward,
@@ -320,6 +332,7 @@ from langscenex_tpu_torch.scene.dataset_readers import write_ply_points
 from langscenex_tpu_torch.train import field as train_field
 from langscenex_tpu_torch.train import render_mode
 from langscenex_tpu_torch.train.render_mode import render_all_views
+from langscenex_tpu_torch.utils import profiling
 from langscenex_tpu_torch.utils.png import read_png, write_png
 from langscenex_tpu_torch.utils.config import OptimizationConfig
 from langscenex_tpu_torch.video_inference import build_pipeline, materialize
@@ -530,6 +543,15 @@ EXPERIMENT_ITERS = 2
 K13_TOKENS, K13_H = (17776, 18432), 48
 GATHER_A, GATHER_W, GATHER_SHORT_A = 640_000, 24, 160_000
 K13_ITERS, GATHER_ITERS = 5, 200
+# K14 at field-sem-720x480's shape: KNN_S sampled slots of a room of
+# KNN_POINTS points in KNN_N slots, k = KNN_K; its bound is the FP32 issue
+# of KNN_ISSUE issue slots a (row, slot) pair (the dot's FMUL and two
+# FFMAs, the norm sum's FADD, the -2 dot FFMA and the compare's FSETP; the
+# branch is one per four slots and R rows) on 128 FP32 lanes an SM
+KNN_S, KNN_POINTS, KNN_N, KNN_K = 800, 1_500_000, 1 << 21, 5
+KNN_SEEDS = (0, 1, 2)
+KNN_ITERS, KNN_PLAIN_ITERS = 20, 3
+KNN_ISSUE, FP32_LANES_PER_SM = 6, 128
 EXP2_BF16_REL_RMS = 2 ** -5
 PACKED_EXP_ULP, K13B_REL_RMS = 2 ** -7, 2 ** -7
 # K4: calls per timing, the passes of its LSD sort, and its time at 2^19
@@ -575,6 +597,11 @@ TPU_KERNELS = {
     "flash_attention_exp2_bf16": "experiments/ab_attention2.py:129 "
                                  "_exp2_bf16_kernel",
     "gather_rows": "experiments/ab_gather2.py:63 kern (pallas_gather)",
+    "knn_select": "none: langscenex_tpu/ops/losses.py:123-147 loss_cls_3d "
+                  "leaves its [S, N] d2 and lax.top_k to XLA; added for the "
+                  "port's dense d2, topk and tie sort (ops/losses."
+                  "_knn_smallest), the largest layer of a semantic field "
+                  "step",
 }
 SOURCES = {
     "sort_pairs": "langscenex_tpu_torch/csrc/sort.cu",
@@ -597,6 +624,7 @@ SOURCES = {
     "flash_attention_exp2_bf16":
         "langscenex_tpu_torch/csrc/flash_attention_sm90.cu",
     "gather_rows": "langscenex_tpu_torch/csrc/gather_rows.cu",
+    "knn_select": "langscenex_tpu_torch/csrc/knn_select.cu",
 }
 RENDER_TRAIN_KERNELS = ("blend_forward", "blend_backward", "compact_pairs",
                         "sort_pairs")
@@ -607,6 +635,7 @@ EXACT_KERNELS = ("flash_attention_online", "flash_attention_h2",
                  "flash_attention_backward_split")
 K13_KERNELS = ("flash_attention_exp2", "flash_attention_exp2_bf16",
                "gather_rows")
+KNN_KERNELS = ("knn_select",)
 
 
 def scene(n: int, seed: int = 0):
@@ -1413,9 +1442,17 @@ def phase_train(dev, cams, lang_dir: str) -> dict:
             f"{k}={v:.5g}" for k, v in ws[-1][2].items()))
     launches = dict(_build.launch_counts)
     print(f"launch counts over the training-path run: {launches}")
-    for name in RENDER_TRAIN_KERNELS:
+    for name in RENDER_TRAIN_KERNELS + KNN_KERNELS:
         require(launches[name] > 0, f"kernel {name} was not launched on the "
                 f"training path")
+    # one K14 launch a loss_cls_3d call: the language and instance obj3d
+    # losses of the windows that train them
+    knn_calls = sum(("obj3d_loss" in m) + ("ins_obj3d_loss" in m)
+                    for _, _, m in steps)
+    print(f"obj3d loss calls {knn_calls}, K14 launches "
+          f"{launches['knn_select']}")
+    require(launches["knn_select"] == knn_calls,
+            "K14's launches differ from the obj3d loss calls")
     first = [m["total"] for _, _, m in steps[:5]]
     last = [m["total"] for _, _, m in steps[15:20]]
     print(f"window 1-20 loss: first 5 steps mean {np.mean(first):.5f}, "
@@ -2623,6 +2660,110 @@ def phase_k13(dev, results) -> dict:
                                                     *abg.values()]),
             "K13 experiments: a time is not finite")
     return launches
+
+
+def knn_room(dev, seed: int):
+    """The field cell's room for K14: KNN_POINTS points on four walls (wall
+    = slot mod 4, so the walls interleave), the rest of the KNN_N slots
+    dead at the origin, and KNN_S distinct sampled slots."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = KNN_POINTS
+    wall = torch.arange(n, device=dev) % 4
+    u = torch.rand(n, generator=g, device=dev) * 3.6 - 1.8
+    v = torch.rand(n, generator=g, device=dev) * 2.0 - 1.0
+    depth = 1.8 + 0.08 * torch.sin(2.5 * u + wall) * torch.cos(3.0 * v)
+    ang = wall * (math.pi / 2)
+    xyz = torch.zeros((KNN_N, 3), device=dev)
+    xyz[:n, 0] = u * torch.cos(ang) + depth * torch.sin(ang)
+    xyz[:n, 1] = v
+    xyz[:n, 2] = depth * torch.cos(ang) - u * torch.sin(ang)
+    idx = torch.randperm(KNN_N, generator=g, device=dev)[:KNN_S]
+    return xyz, idx
+
+
+def knn_plain(sf, sq_s, xyz, sq_f, k: int):
+    """The plain version's d2 [S, N] and slots [S, k] (ops/losses)."""
+    with exact_f32():
+        d2 = sq_s[:, None] + sq_f[None, :] - 2.0 * (sf @ xyz.T)
+    return d2, _knn_smallest(d2, k)
+
+
+def phase_knn(dev, results) -> None:
+    """Phase 30, K14 at field-sem-720x480's shape: its slots and d2 against
+    the plain version's on KNN_SEEDS rooms, loss_cls_3d's launch, syncs and
+    memory on the card, times beside the bound and the library yardstick,
+    resources."""
+    S, N, k = KNN_S, KNN_N, KNN_K
+    for seed in KNN_SEEDS:
+        xyz, idx = knn_room(dev, seed)
+        sf = xyz[idx]
+        sq_s, sq_f = (sf ** 2).sum(-1), (xyz ** 2).sum(-1)
+        before = profiling.counters.get("knn.tie_rows", 0)
+        d2, ref = knn_plain(sf, sq_s, xyz, sq_f, k)
+        tied = profiling.counters["knn.tie_rows"] - before
+        vals, cols = knn_select(sf, sq_s, xyz, sq_f, k)
+        torch.cuda.synchronize()
+        rows_same = (cols.sort(1).values == ref.sort(1).values).all(1)
+        same_d2 = torch.equal(vals.view(torch.int32),
+                              d2.gather(1, cols).view(torch.int32))
+        # topk orders equal values inside the k by an unstable sort; K14
+        # (and lax.top_k) by slot
+        reordered = int(((cols != ref).any(1) & rows_same).sum())
+        print(f"K14 knn_select seed {seed}: [{S}] x {N}, k = {k}, {tied} "
+              f"tied rows (the plain version's stable sort): rows "
+              f"with other slots {int((~rows_same).sum())}, with the same "
+              f"slots in another order {reordered}; d2 at the slots "
+              f"bit-identical {same_d2}")
+        require(bool(rows_same.all()) and same_d2,
+                "K14 selects other slots than the plain version")
+        del d2, ref
+        torch.cuda.empty_cache()
+
+    # ---- the loss on the card: one launch, no sync, no [S, N] tensor
+    g = torch.Generator(device=dev).manual_seed(11)
+    preds = torch.rand((N, 3), generator=g, device=dev)
+    loss_cls_3d(idx, xyz, preds, k, 4.0)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = loss_cls_3d(idx, xyz, preds, k, 4.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = launches_now()
+    grown = torch.cuda.max_memory_allocated() - base
+    print(f"loss_cls_3d on the card: loss {float(loss):.6f}, launches "
+          f"{launches}, peak above its inputs {grown / 2 ** 20:.1f} MiB (the "
+          f"[S, N] d2 is {S * N * 4 / 2 ** 30:.2f} GiB)")
+    require(launches == {"knn_select": 1}, "loss_cls_3d: launch counts")
+    require(grown < S * N * 4 // 10, "loss_cls_3d allocates an [S, N] tensor")
+
+    # ---- times: K14, the plain version, cdist + topk; the bound
+    ms = cuda_ms(lambda: knn_select(sf, sq_s, xyz, sq_f, k), KNN_ITERS)
+    plain = cuda_ms(lambda: knn_plain(sf, sq_s, xyz, sq_f, k),
+                    KNN_PLAIN_ITERS, warmup=1)
+    lib = cuda_ms(lambda: torch.topk(torch.cdist(sf, xyz), k, dim=1,
+                                     largest=False), KNN_PLAIN_ITERS,
+                  warmup=1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = sm_clock_mhz()
+    issue_ms = S * N * KNN_ISSUE / (sms * FP32_LANES_PER_SM * clock * 1e6) \
+        * 1e3
+    b = bound(moved=nbytes(sf, sq_s, xyz, sq_f, vals, cols))
+    print(f"K14 knn_select [{S}] x {N}, k = {k}: {ms:.4f} ms, plain version "
+          f"{plain:.4f} ms, torch.cdist + torch.topk {lib:.4f} ms; bound "
+          f"{issue_ms:.4f} ms (FP32 issue: {S * N:.3e} pairs x {KNN_ISSUE} "
+          f"on {sms} SMs x {FP32_LANES_PER_SM} lanes at {clock:.0f} MHz; "
+          f"bytes {b['bound_ms']:.4f} ms), {issue_ms / ms:.1%} of it")
+    require_no_spill("knn_select", "K14 knn_select", count=33)
+    results["knn_select"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=issue_ms,
+        bound_by="FP32 issue", library_ms=lib)
+    del xyz, sf, preds
+    torch.cuda.empty_cache()
 
 
 def call_recorder(denoiser, on_call):
@@ -4389,7 +4530,7 @@ def _vp_leaves(st, one, old, grp):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", type=int,
-                    choices=(22, 23, 24, 25, 26, 27, 28, 29),
+                    choices=(22, 23, 24, 25, 26, 27, 28, 29, 30),
                     default=None,
                     help="run phases 1, 2 and this phase only (no result "
                          "lines)")
@@ -4432,6 +4573,10 @@ def main(argv=None) -> int:
         return 0
     if args.phase == 29:
         phase_parallel(dev, smi)
+        print(smi)
+        return 0
+    if args.phase == 30:
+        phase_knn(dev, {})
         print(smi)
         return 0
 
@@ -4522,6 +4667,9 @@ def main(argv=None) -> int:
     k13 = phase_k13(dev, results)
     torch.cuda.empty_cache()
 
+    # ---- 30. K14, the 3D kNN selection at field-sem-720x480's shape -----
+    phase_knn(dev, results)
+
     # ---- 22. the field stage through its CLI, field-e2e-200k-720x480 ----
     phase_22(dev)
     torch.cuda.empty_cache()
@@ -4552,13 +4700,14 @@ def main(argv=None) -> int:
                 "flash_attention_h2": exact["flash_attention_h2"],
                 "flash_attention_backward_split":
                     exact["flash_attention_backward"],
-                **{k: k13[k] for k in K13_KERNELS}}
+                **{k: k13[k] for k in K13_KERNELS},
+                **{k: train_launches[k] for k in KNN_KERNELS}}
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=TPU_KERNELS[name], launches=launches[name],
                     **results[name])
                for name in RENDER_TRAIN_KERNELS + DIT_KERNELS
                + TRAIN_DIT_KERNELS + TP_KERNELS + EXACT_KERNELS
-               + K13_KERNELS]
+               + K13_KERNELS + KNN_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

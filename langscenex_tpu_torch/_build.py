@@ -45,7 +45,7 @@ KERNELS = ("sort_pairs", "compact_pairs", "blend_forward",
            "flash_attention_backward", "ln_modulate",
            "flash_attention_online", "flash_attention_h2",
            "flash_attention_exp2", "flash_attention_exp2_bf16",
-           "gather_rows", "exp2_bf16x2")
+           "gather_rows", "exp2_bf16x2", "knn_select")
 
 
 class _LaunchCounts(MutableMapping):
@@ -128,6 +128,10 @@ _SIGNATURES = {
     # element strides of q', k, v and do, scale, stream
     "lsx_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, *[_L] * 12, _F, _P],
+    # K14: S, N, k, out bytes of scratch (a long long*)
+    "lsx_knn_select_scratch": [_I, _I, _I, _P],
+    # K14: sf, sq_s, f, sq_f, out d2, out slots, scratch, S, N, k, stream
+    "lsx_knn_select": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, gamma, beta, sc, sh, tsc, tsh, y, B, T, H, text_len, is_f32,
     # stream
     "lsx_ln_modulate": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -15,14 +15,22 @@ Precision: every loss is exact f32 whatever the global flags say. SSIM's
 Gaussian filter is an explicit f32 shifted-slice sum (no convolution, so
 cuDNN's default TF32 never applies: E[x^2] - E[x]^2 cancels at reduced
 precision), and the matrix products run inside :func:`exact_f32`.
+
+The 3D kNN regulariser's neighbour search runs kernel K14
+(:func:`knn_select`, ``csrc/knn_select.cu``) on CUDA tensors and the plain
+dense d2 with :func:`_knn_smallest` elsewhere. On the card K14's distances
+are the dense expression's bit for bit, so both select the same neighbours.
 """
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
+from .. import _build
 from ..utils import profiling
 
 
@@ -134,22 +142,100 @@ def _knn_smallest(d2: torch.Tensor, k: int) -> torch.Tensor:
     return idx
 
 
+KNN_MAX_K = 16      # K14's largest k: its k-lists live in registers
+
+
+@functools.lru_cache(maxsize=64)
+def _knn_scratch_bytes(S: int, N: int, k: int, device: int) -> int:
+    """Device scratch K14 takes for (S, N, k) on CUDA device ``device``."""
+    n = ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        _build.check(_build.library().lsx_knn_select_scratch(
+            S, N, k, ctypes.addressof(n)), "knn_select scratch")
+    return n.value
+
+
+def _knn_check(what: str, sf, sq_s, features, sq_f) -> tuple:
+    """(S, N) of K14's inputs: f32 contiguous sf [S, 3], sq_s [S],
+    features [N, 3], sq_f [N] on one CUDA device; raises otherwise."""
+    ts = (sf, sq_s, features, sq_f)
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"{what}: inputs on {[str(t.device) for t in ts]}")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(f"{what} takes f32 tensors, got "
+                        f"{[t.dtype for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{what} takes contiguous tensors")
+    S, N = sf.shape[0], features.shape[0]
+    if (sf.shape != (S, 3) or features.shape != (N, 3)
+            or sq_s.shape != (S,) or sq_f.shape != (N,)):
+        raise ValueError(f"{what} wants sf [S, 3], sq_s [S], features "
+                         f"[N, 3], sq_f [N], got {[tuple(t.shape) for t in ts]}")
+    if sf.device.type != "cuda":
+        raise ValueError(f"{what}: kNN kernel K14 takes CUDA tensors, got "
+                         f"{sf.device}")
+    if N >= 2 ** 30 or S >= 2 ** 31:
+        raise ValueError(f"{what}: kNN kernel K14 takes fewer than 2^30 "
+                         f"slots and 2^31 rows")
+    return S, N
+
+
+def knn_select(sf: torch.Tensor, sq_s: torch.Tensor, features: torch.Tensor,
+               sq_f: torch.Tensor, k: int):
+    """Launch K14: for each row i of ``sf`` [S, 3] (norms ``sq_s`` [S]) the
+    k slots j of ``features`` [N, 3] (norms ``sq_f`` [N]) with the smallest
+    ``d2 = (sq_s[i] + sq_f[j]) - 2 sf[i] . features[j]``, ties to the lower
+    slot, in ascending (d2, slot) order. Returns (d2 [S, k] f32, slots
+    [S, k] int64); d2 is the dense expression's at "highest" precision bit
+    for bit. Takes f32 contiguous tensors on one CUDA device and
+    1 <= k <= min(16, N); raises on anything else and never falls back to
+    the plain version. Counts the rows (``knn.rows``)."""
+    if not 1 <= k <= KNN_MAX_K or k > features.shape[0]:
+        raise ValueError(f"knn_select takes 1 <= k <= min({KNN_MAX_K}, N = "
+                         f"{features.shape[0]}), got k = {k}")
+    S, N = _knn_check("knn_select", sf, sq_s, features, sq_f)
+    dev = sf.device
+    vals = torch.empty((S, k), dtype=torch.float32, device=dev)
+    cols = torch.empty((S, k), dtype=torch.int64, device=dev)
+    profiling.count("knn.rows", S)
+    if S == 0:
+        return vals, cols
+    scratch = torch.empty(_knn_scratch_bytes(S, N, k, dev.index),
+                          dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        code = _build.library().lsx_knn_select(
+            sf.data_ptr(), sq_s.data_ptr(), features.data_ptr(),
+            sq_f.data_ptr(), vals.data_ptr(), cols.data_ptr(),
+            scratch.data_ptr(), S, N, k, _build.stream_ptr(dev))
+    _build.launch_counts["knn_select"] += 1
+    _build.check(code, "knn_select")
+    return vals, cols
+
+
 def loss_cls_3d(idx: torch.Tensor, features: torch.Tensor,
                 predictions: torch.Tensor, k: int = 5,
                 lambda_val: float = 2.0) -> torch.Tensor:
     """kNN KL regularizer on per-splat predictions. ``idx`` [S] are the
     sampled splats (the JAX version's ``permutation(key, N)[:800]``),
-    ``features`` [N,3] positions, ``predictions`` [N,C]."""
+    ``features`` [N,3] positions, ``predictions`` [N,C]. The neighbours:
+    K14 on CUDA tensors, the dense d2 and :func:`_knn_smallest` elsewhere."""
     pmin, pmax = predictions.min(), predictions.max()
     preds = torch.where(pmax > pmin,
                         (predictions - pmin) / (pmax - pmin + 1e-12),
                         predictions)
     sf = features[idx]
     sp = preds[idx]
-    with exact_f32():
-        d2 = ((sf ** 2).sum(-1)[:, None] + (features ** 2).sum(-1)[None, :]
-              - 2.0 * (sf @ features.T))
-    nbr = _knn_smallest(d2.detach(), k)
+    if features.device.type == "cuda":
+        with torch.no_grad():
+            sfc, fc = sf.contiguous(), features.contiguous()
+            nbr = knn_select(sfc, (sfc ** 2).sum(-1), fc,
+                             (fc ** 2).sum(-1), k)[1]
+    else:
+        with exact_f32():
+            d2 = ((sf ** 2).sum(-1)[:, None]
+                  + (features ** 2).sum(-1)[None, :]
+                  - 2.0 * (sf @ features.T))
+        nbr = _knn_smallest(d2.detach(), k)
     nbr_preds = preds[nbr]                              # [S,k,C]
     kl = sp[:, None] * (torch.log(sp[:, None] + 1e-10)
                         - torch.log(nbr_preds + 1e-10))

@@ -1055,3 +1055,158 @@ def test_gather_kernel_matches_plain(cuda, W, dtype):
     assert gather_rows(wide[:, :W], idx).shape == (A // 512, 512, W)
     assert _build.launch_counts == {**{n: 0 for n in _build.launch_counts},
                                     "gather_rows": 3}
+
+
+# ---- K14, the 3D kNN selection ----------------------------------------------
+
+def _knn_room(device, n_points, n_slots, S, seed=0):
+    """The field cell's room: points on four walls (wall = slot mod 4, so
+    the walls interleave), the slots past them dead at the origin, and S
+    distinct sampled slots, dead ones among them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    wall = torch.arange(n_points, device=device) % 4
+    u = torch.rand(n_points, generator=g, device=device) * 3.6 - 1.8
+    v = torch.rand(n_points, generator=g, device=device) * 2.0 - 1.0
+    depth = 1.8 + 0.08 * torch.sin(2.5 * u + wall) * torch.cos(3.0 * v)
+    ang = wall * (math.pi / 2)
+    xyz = torch.zeros((n_slots, 3), device=device)
+    xyz[:n_points, 0] = u * torch.cos(ang) + depth * torch.sin(ang)
+    xyz[:n_points, 1] = v
+    xyz[:n_points, 2] = depth * torch.cos(ang) - u * torch.sin(ang)
+    idx = torch.randperm(n_slots, generator=g, device=device)[:S]
+    return xyz, idx
+
+
+def _knn_case(case, device):
+    """(sampled rows sf [S, 3], slots f [N, 3], k) of one K14 case."""
+    if case == "room":                  # the field cell's shape
+        f, idx = _knn_room(device, 1_500_000, 1 << 21, 800)
+        return f[idx], f, 5
+    if case == "ragged":                # N off the 256-slot tile
+        f, idx = _knn_room(device, 180_000, 200_003, 800)
+        return f[idx], f, 5
+    if case == "small":                 # N under one tile, no first pass
+        f, idx = _knn_room(device, 150, 200, 50)
+        return f[idx], f, 5
+    if case == "one_row":
+        f, idx = _knn_room(device, 40_000, 50_000, 1)
+        return f[idx], f, 5
+    if case == "many_rows":             # S over one block's 1,024 rows
+        f, idx = _knn_room(device, 35_000, 40_000, 3000)
+        return f[idx], f, 5
+    if case in ("k1", "k16"):           # k = 16: two rows a thread
+        f, idx = _knn_room(device, 60_000, 70_000, 800)
+        return f[idx], f, int(case[1:])
+    if case == "all_equal":             # every slot one point
+        f = torch.full((5000, 3), 0.25, device=device)
+        return f[:100].clone(), f, 16
+    if case == "all_equal_chunks":      # and across many chunks
+        f = torch.full((300_000, 3), -0.5, device=device)
+        return f[:64].clone(), f, 16
+    if case == "duplicates":            # runs of duplicated points
+        f, idx = _knn_room(device, 60_000, 60_000, 800)
+        for a in range(0, 60_000, 997):
+            f[a:a + 7] = f[a]
+        return f[idx], f, 5
+    if case == "equal_run":             # equal values straddle chunks
+        f, idx = _knn_room(device, 300_000, 300_000, 800)
+        f[100_000:200_000] = f[150_000]
+        idx[:50] = torch.arange(100_000, 200_000, 2000, device=device)
+        return f[idx], f, 5
+    if case == "unaligned":             # slots 4 bytes past a 16-byte line
+        g, idx = _knn_room(device, 45_000, 50_001, 300)
+        f = g[1:]
+        assert f.data_ptr() % 16 == 12
+        return f[idx[idx < 50_000]], f, 5
+    raise KeyError(case)
+
+
+KNN_CASES = ("room", "ragged", "small", "one_row", "many_rows", "k1", "k16",
+             "all_equal", "all_equal_chunks", "duplicates", "equal_run",
+             "unaligned")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", KNN_CASES)
+def test_knn_select_matches_plain(cuda, case):
+    # K14 against the plain dense d2 and _knn_smallest: the same sorted
+    # slots in every row and its d2 at them equal to torch's bit for bit,
+    # in ascending (d2, slot) order. K14 keeps cuBLAS's gemm order for
+    # every S; a single row's product is a gemv there, so its d2 is taken
+    # from the first row of a two-row product
+    from langscenex_tpu_torch.ops.losses import (_knn_smallest, exact_f32,
+                                                 knn_select)
+    sf, f, k = _knn_case(case, cuda)
+    sq_s, sq_f = (sf ** 2).sum(-1), (f ** 2).sum(-1)
+    S = sf.shape[0]
+    with exact_f32():
+        dot = (sf.repeat(2, 1) @ f.T)[:S] if S == 1 else sf @ f.T
+        d2 = sq_s[:, None] + sq_f[None, :] - 2.0 * dot
+    ref = _knn_smallest(d2, k)
+    _build.reset_launch_counts()
+    vals, cols = knn_select(sf, sq_s, f, sq_f, k)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["knn_select"] == 1
+    assert vals.shape == cols.shape == (sf.shape[0], k)
+    assert cols.dtype == torch.int64
+    assert torch.equal(cols.sort(1).values, ref.sort(1).values)
+    assert torch.equal(vals.view(torch.int32),
+                       d2.gather(1, cols).view(torch.int32))
+    nxt_v, nxt_c = vals[:, 1:], cols[:, 1:]
+    assert bool(((nxt_v > vals[:, :-1])
+                 | ((nxt_v == vals[:, :-1]) & (nxt_c > cols[:, :-1]))).all())
+
+
+@pytest.mark.gpu
+def test_loss_cls_3d_launches_knn_select_once(cuda):
+    # on the card the loss takes K14 once a call: no nonzero, sort or topk,
+    # no host synchronisation, and no tensor of the [S, N] matrix's size
+    from torch.profiler import ProfilerActivity, profile
+    from langscenex_tpu_torch.ops.losses import loss_cls_3d
+    f, idx = _knn_room(cuda, 1_500_000, 1 << 21, 800, seed=3)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    preds = torch.rand((1 << 21, 3), generator=g, device=cuda)
+    loss_cls_3d(idx, f, preds, 5, 4.0)           # builds the library
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = loss_cls_3d(idx, f, preds, 5, 4.0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    assert _build.launch_counts == {**{n: 0 for n in _build.launch_counts},
+                                    "knn_select": 1}
+    ops = {e.name for e in prof.events()}
+    assert not [n for n in ops if any(w in n for w in ("nonzero", "sort",
+                                                       "topk"))], ops
+    matrix = 800 * (1 << 21) * 4
+    assert torch.cuda.max_memory_allocated() - base < matrix // 10
+
+
+@pytest.mark.parametrize("case", ["device", "dtype", "contiguous", "k",
+                                  "cpu", "shape"])
+def test_knn_select_refuses(case):
+    # K14's wrapper takes f32 contiguous tensors of the documented shapes on
+    # one CUDA device and 1 <= k <= min(16, N), and raises on anything else
+    # (no plain fallback), each for its own reason
+    from langscenex_tpu_torch.ops.losses import knn_select
+    sf, f = torch.rand(8, 3), torch.rand(40, 3)
+    args = [sf, (sf ** 2).sum(-1), f, (f ** 2).sum(-1)]
+    k, err, why = 5, ValueError, "takes CUDA tensors"
+    if case == "device":
+        args[2], why = f.to("meta"), "inputs on"
+    elif case == "dtype":
+        args[0], err, why = sf.double(), TypeError, "takes f32"
+    elif case == "contiguous":
+        args[2], why = torch.rand(3, 40).T, "contiguous"
+    elif case == "k":
+        k, why = 17, "1 <= k"
+    elif case == "shape":
+        args[0], why = torch.rand(8, 2), "wants sf"
+    with pytest.raises(err, match=why):
+        knn_select(*args, k)
