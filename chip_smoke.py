@@ -201,17 +201,24 @@ Phases (any failure raises, so the exit code is non-zero):
      first-frame embeddings; ms of the generator per keyframe, the SAM2
      image encode and the track step per frame, the whole run, peak
      memory;
- 26. configuration vggt-1b-49x518, pose lifting: VGGTConfig() (VGGT-1B:
+ 26. configuration vggt-1b-49x518, pose lifting: K9 against its plain
+     version at VGGT's two attention shapes, [1, 16, 67326, 64] and
+     [49, 16, 1374, 64] (all heads, K5's bounds on o and each l2), with its
+     time beside its bound; then VGGTConfig() (VGGT-1B:
      24 + 24 aggregator blocks at 1024, DINOv2 ViT-L, the camera head and
-     both DPT heads) with seeded random weights, f32, over 49 720x480
+     both DPT heads) with seeded random weights, the aggregator and the
+     ViT in bf16 on K9 and the heads in f32, over 49 720x480
      PNG frames the port renders from phase 22's room along phase 25's
      arc, through FieldConstructionPipeline.estimate_poses (camera/*.npz
-     and points3D.ply), after a warmup at 2 frames; then
+     and points3D.ply: one forward with 72 K9 launches, the camera
+     trunk's 16 SDPA calls and no other, no point head), after a warmup
+     at 2 frames; then
      estimate_poses_dense_init on 8 of the frames (the sparse_0/0 COLMAP
      tree, the confidences, pts_num.txt) and generate_normals on the
      first and last frames: finite outputs, the file trees; a 2-block cut
      (2 aggregator and 2 ViT blocks, both heads, 2 frames at 518) on the
-     card against the CPU (VGGT_REL_RMS per output); the state_dict saved
+     card (bf16) against the CPU (f32) (VGGT_REL_RMS per output); the
+     state_dict saved
      with torch.save and read back through the get_normal CLI giving the
      same pose encoding; the forward's seconds, the export's and the
      normals', peak memory;
@@ -3713,13 +3720,23 @@ def phase_autoseg(dev, smi: str) -> None:
 LIFT_FRAMES = 49                    # the TriMap clip quick_start feeds VGGT
 DENSE_STRIDE = 6                    # every 6th frame: 8 for the export
 VGGT_WARMUP = 2                     # frames of the warmup forward
-# the 2-block cut on the card vs the CPU, f32 without TF32 (phase 24's
-# pattern): the convolutions and attention sum in another order
-VGGT_REL_RMS = 1e-4
+# the 2-block cut on the card vs the CPU: the card runs the aggregator and
+# the ViT in bf16 (VGGTConfig.dtype), the CPU in f32, so each output is
+# held to bf16's rounding carried through the blocks and the heads
+VGGT_REL_RMS = 2e-2
 VGGT_CUT = dict(depth=2, vit_depth=2, intermediate_layers=(0, 0, 1, 1))
 # the checkpoint read back through the CLI: the same weights and the same
 # inputs, so the same pose encoding up to the card's choice of kernels
 VGGT_CKPT_ATOL = 1e-5
+# K9 at VGGT-1B's two attention shapes (B, T): a global block's one
+# sequence of 49 frames x 1,374 tokens (its last 128-key tile holds 126
+# keys) and a frame block's 49 sequences (94); 16 heads of 64 drawn as
+# phase 20's, the plain version run VGGT_K9_HEADS heads at a time. The
+# mean |l2| bound is not held there: K9's l, summed on the tensor cores
+# over every tile, drifts from the plain version's by a share that grows
+# with Tk (1.1e-4 in log2 at 67,326 keys; o moves by 8e-5 of itself)
+VGGT_K9_SHAPES = ((1, LIFT_FRAMES * 1374), (LIFT_FRAMES, 1374))
+VGGT_K9_HEADS = 4
 LANG_GRID = 8                       # an 8 x 8 grid: 64 seg ids a frame
 CLIP_REL_RMS = 1e-4                 # one CLIP-L forward, card vs CPU
 AE_CHECK_STEPS = 4
@@ -3760,8 +3777,50 @@ def require_finite(what: str, **tensors) -> None:
         require(bool(torch.isfinite(v).all()), f"{what}: {k} is not finite")
 
 
+def check_k9_vggt(dev) -> None:
+    """K9 against its plain version at its 128-key tile at VGGT_K9_SHAPES,
+    over all 16 heads, with K5's bounds on o and on each l2 (check_attention;
+    the mean |l2| printed, not held: see VGGT_K9_SHAPES); q,
+    k, v strided views of one [B, T, 3, H, D] tensor, as the model's fused
+    qkv gives them; each launch's time beside its bound."""
+    H, D = 16, 64
+    sc = D ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(26)
+    for B, T in VGGT_K9_SHAPES:
+        qkv = torch.randn((B, T, 3, H, D), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+        del qkv
+        n0 = _build.launch_counts["flash_attention_online"]
+        with torch.inference_mode():
+            o, l2 = flash_attention_online_kernel(q, k, v, sc)
+            torch.cuda.synchronize()
+            require(_build.launch_counts["flash_attention_online"] - n0
+                    == 1, f"K9 at [{B}, {H}, {T}, {D}]: not one launch")
+            ms = cuda_ms(lambda: flash_attention_online_kernel(q, k, v, sc),
+                         5, warmup=1)
+            ro, rl2 = [], []
+            for h in range(0, H, VGGT_K9_HEADS):
+                hs = slice(h, h + VGGT_K9_HEADS)
+                a, b = flash_attention_online_plain(
+                    q[:, hs], k[:, hs], v[:, hs], sc, block_k=WGMMA_BLOCK_K)
+                ro.append(a)
+                rl2.append(b.view(B, -1, T))
+            ro, rl2 = torch.cat(ro, 1), torch.cat(rl2, 1).reshape(B * H, T)
+        tail = T % WGMMA_BLOCK_K or WGMMA_BLOCK_K
+        check_attention(f"K9 vs plain at its {WGMMA_BLOCK_K}-key tile, VGGT "
+                        f"q, k, v [{B}, {H}, {T}, {D}] (last tile {tail} "
+                        f"keys), all heads", o, l2, ro, rl2, l2_mean=False)
+        forward_terms(f"K9 at VGGT's {'global' if B == 1 else 'frame'} "
+                      f"shape", ms, B, H, T, T,
+                      B * H * T * (T + -(-T // WGMMA_BLOCK_K)), dev)
+        del q, k, v, o, l2, ro, rl2
+        torch.cuda.empty_cache()
+
+
 def phase_vggt(dev, smi: str, root: str) -> None:
     """vggt-1b-49x518 over root/input (LIFT_FRAMES PNGs)."""
+    check_k9_vggt(dev)
     from langscenex_tpu_torch import get_normal, pose_estimation
     from langscenex_tpu_torch.models import vggt as vggt_mod
     from langscenex_tpu_torch.pipeline import (FieldConstructionPipeline,
@@ -3793,17 +3852,37 @@ def phase_vggt(dev, smi: str, root: str) -> None:
         skip_lang_feature_extraction=True), device=dev)
     pipe.vggt = model
     fwd = []
-    with recorded_forwards(model, fwd):
-        t0 = time.perf_counter()
-        pipe.preprocess()
-        torch.cuda.synchronize()
-        t_pose = time.perf_counter() - t0
+    sdpa = []
+    nnf = torch.nn.functional
+    inner_sdpa = nnf.scaled_dot_product_attention
+
+    def counted_sdpa(*a, **k):
+        sdpa.append(1)
+        return inner_sdpa(*a, **k)
+    k9 = _build.launch_counts["flash_attention_online"]
+    nnf.scaled_dot_product_attention = counted_sdpa
+    try:
+        with recorded_forwards(model, fwd):
+            t0 = time.perf_counter()
+            pipe.preprocess()
+            torch.cuda.synchronize()
+            t_pose = time.perf_counter() - t0
+    finally:
+        nnf.scaled_dot_product_attention = inner_sdpa
+    k9 = _build.launch_counts["flash_attention_online"] - k9
     peak = gib(torch.cuda.max_memory_allocated())
     require(len(fwd) == 1, f"vggt: {len(fwd)} forwards in estimate_poses")
     fwd_s, out = fwd[0]
     require_finite("vggt", pose_enc=out["pose_enc"], depth=out["depth"],
                    depth_conf=out["depth_conf"])
-    wp_finite = float(torch.isfinite(out["world_points"]).float().mean())
+    want_k9 = cfg.vit_depth + 2 * cfg.depth
+    want_sdpa = cfg.camera_trunk_depth * cfg.camera_iterations
+    print(f"vggt forward: {k9} K9 launches (want {want_k9}), {len(sdpa)} "
+          f"SDPA calls (the camera trunk's {want_sdpa}), outputs "
+          f"{sorted(out)}")
+    require(k9 == want_k9 and len(sdpa) == want_sdpa,
+            "vggt: the aggregator and the ViT are not on K9 alone")
+    require("world_points" not in out, "vggt: run_vggt ran the point head")
     cams = sorted(os.listdir(os.path.join(root, "camera")))
     require(cams == [f"{i + 1:04d}.npz" for i in range(n)],
             f"vggt: camera files {cams[:3]}... ({len(cams)})")
@@ -3931,8 +4010,8 @@ def phase_vggt(dev, smi: str, root: str) -> None:
             "disagree")
     print(f"vggt-1b-49x518: forward {fwd_s:.2f} s over {n} frames at "
           f"{S}x{S} (after a {VGGT_WARMUP}-frame warmup), estimate_poses "
-          f"{t_pose:.2f} s whole ({len(pts)} init points; world points "
-          f"finite {wp_finite:.4f}), dense-init export of {len(picked)} "
+          f"{t_pose:.2f} s whole ({len(pts)} init points), dense-init "
+          f"export of {len(picked)} "
           f"frames {t_dense:.2f} s ({n_pts} points), normals of 2 keyframes "
           f"{t_norm:.2f} s, peak {peak:.2f} GiB on {smi}")
     del keep, outs

@@ -22,12 +22,24 @@ vggt/utils/pose_enc.py):
   of 128-channel maps at 518 x 518 alone would take 6.7 GB;
 - ``TrackHead`` (``models/vggt_track``), when query points are given.
 
-Attention is ``F.scaled_dot_product_attention`` (the JAX package computes
-an einsum; no Pallas kernel is involved). On a CUDA tensor it may use the
-flash, memory-efficient or cuDNN backends but never the math one: the
-global attention over 49 frames at 518 x 518 spans 67,326 tokens, whose
-score matrix the math backend would materialise (290 GB), so a call that
-no fused backend takes raises instead.
+Precision: on CUDA the aggregator and its DINOv2 ViT run under
+``torch.autocast`` to bf16 (``VGGTConfig.dtype``, which takes no other
+value), as
+upstream's published usage runs the model on sm80 and newer: bf16 matmul
+and attention operands, LayerNorms and the residual stream in f32. The
+camera and depth heads run in f32 (upstream disables autocast around
+them). CPU tensors run in f32 throughout.
+
+Attention in the aggregator and the ViT is ``ops/flash_attention.
+flash_attention`` (online softmax): K9 on CUDA, whose operands are the bf16
+q, k, v views read through their strides, and its plain version on the
+CPU. The global attention over 49 frames at 518 x 518 spans 67,326 tokens.
+The camera head's trunk (heads of 128 over one token a frame, f32) stays
+on ``F.scaled_dot_product_attention`` with the fused backends only.
+
+2D RoPE's tables are built once per forward for the patch grid, in the
+dtype of the rotated operands (the qk-LayerNorms' f32), and a global
+block applies the frame's tables to each frame of its [B, S*T] sequence.
 
 The state_dict has facebook/VGGT-1B's keys (``tests/torch_vggt_mirror.py``
 is their record; the DINOv2 ``mask_token`` is there, unused, so that
@@ -46,9 +58,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.flash_attention import flash_attention
 from ..ops.interp import resize_bicubic_torch
 from ..ops.quat import quat_normalize, quat_to_rotmat
 from ..utils.device import resolve_device
+from ..utils.profiling import count, span
 
 RESNET_MEAN = (0.485, 0.456, 0.406)
 RESNET_STD = (0.229, 0.224, 0.225)
@@ -90,6 +104,16 @@ class VGGTConfig:
     track_hidden: int = 384
     track_virtual: int = 64
     track_num_heads: int = 8
+    # the aggregator's and the ViT's autocast dtype on CUDA, bf16 as
+    # upstream's (the only one K9 takes); the heads and every CPU tensor
+    # run in f32
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.dtype != "bfloat16":
+            raise ValueError(f"VGGTConfig.dtype {self.dtype!r}: the "
+                             f"aggregator runs in bfloat16 on CUDA (K9 "
+                             f"takes bf16 operands) and in f32 on the CPU")
 
     @property
     def vit_pos_grid(self) -> int:
@@ -99,32 +123,57 @@ class VGGTConfig:
 
 # ---------------------------------------------------------------- layers
 
-def apply_rope_2d(t: torch.Tensor, pos: torch.Tensor,
-                  freq: float) -> torch.Tensor:
-    """2D RoPE (vggt/layers/rope.py:62-188): the head dim splits into a
-    vertical half rotated by pos y and a horizontal half by pos x, each
-    NeoX rotate-half with its angles repeated twice. t [B,H,N,hd], pos
-    [N,2] float (y, x); position 0 is the identity."""
-    hd = t.shape[-1]
-    half = hd // 2
-    quarter = half // 2
+def rope_2d_tables(pos: torch.Tensor, head_dim: int, freq: float,
+                   dtype: torch.dtype = torch.float32):
+    """2D RoPE (vggt/layers/rope.py:62-188) as two tables [N, head_dim]
+    for :func:`rotate_2d`: the head dim splits into a vertical half rotated
+    by pos y and a horizontal half by pos x, each NeoX rotate-half with its
+    angles repeated twice; the sine carries rotate-half's sign (minus on
+    the first quarter of each half). pos [N, 2] float (y, x); position 0
+    is the identity."""
+    half = head_dim // 2
     exponents = torch.arange(0, half, 2, dtype=torch.float32,
-                             device=t.device) / half
+                             device=pos.device) / half
     inv_freq = 1.0 / (freq ** exponents)                     # [quarter]
+    ay, ax = (pos[:, i, None] * inv_freq for i in (0, 1))
+    ang = torch.cat([ay, ay, ax, ax], -1)                    # [N, hd]
+    sign = torch.ones(head_dim, device=pos.device).unflatten(
+        0, (2, 2, -1))
+    sign[:, 0] = -1.0
+    return ang.cos().to(dtype), (ang.sin() * sign.flatten()).to(dtype)
 
-    def rotate(x, p):
-        ang = p[:, None] * inv_freq
-        ang = torch.cat([ang, ang], -1)                      # [N, half]
-        x1, x2 = x[..., :quarter], x[..., quarter:]
-        return x * ang.cos() + torch.cat([-x2, x1], -1) * ang.sin()
 
-    return torch.cat([rotate(t[..., :half], pos[:, 0]),
-                      rotate(t[..., half:], pos[:, 1])], -1)
+def rotate_2d(x: torch.Tensor, cos: torch.Tensor,
+              sin: torch.Tensor) -> torch.Tensor:
+    """x·cos + swap(x)·sin, swap exchanging the two quarters of each half
+    of the head dim: :func:`rope_2d_tables`' rotation of x [..., D], the
+    tables broadcast against it. The DiT's ``apply_rope_fused`` swaps
+    adjacent pairs (interleaved RoPE), which is another layout."""
+    swapped = x.unflatten(-1, (2, 2, -1)).flip(-2).flatten(-3)
+    return (x * cos).addcmul_(swapped, sin)
+
+
+class Rope2D:
+    """A frame's 2D RoPE tables, built once per forward, applied to
+    [B, N, H, hd] operands whose N is a whole number of frames (a frame
+    block's T, a global block's S·T: every frame has the same
+    positions)."""
+
+    def __init__(self, pos: torch.Tensor, head_dim: int, freq: float,
+                 dtype: torch.dtype = torch.float32):
+        cos, sin = rope_2d_tables(pos, head_dim, freq, dtype)
+        self.cos, self.sin = cos[:, None], sin[:, None]      # [T, 1, hd]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, H, D = x.shape
+        T = self.cos.shape[0]
+        x = x.reshape(B, N // T, T, H, D)
+        return rotate_2d(x, self.cos, self.sin).reshape(B, N, H, D)
 
 
 def fused_sdpa(q, k, v):
     """``scaled_dot_product_attention`` that on CUDA tensors may not take
-    the math backend (see the module's docstring)."""
+    the math backend (it would materialise the score matrix)."""
     if q.is_cuda:
         from torch.nn.attention import SDPBackend, sdpa_kernel
         ctx = sdpa_kernel([SDPBackend.FLASH_ATTENTION,
@@ -138,10 +187,13 @@ def fused_sdpa(q, k, v):
 
 class Attention(nn.Module):
     """vggt/layers/attention.py:21-77: fused qkv, optional per-head qk
-    LayerNorm and 2D RoPE, softmax(QK^T/sqrt(hd))V."""
+    LayerNorm and 2D RoPE (q and k rotated in the norms' f32, then taken
+    to v's dtype), softmax(QK^T/sqrt(hd))V: through ``flash_attention``
+    (K9 on CUDA), or with ``sdpa`` (the camera head's trunk) through
+    :func:`fused_sdpa`."""
 
     def __init__(self, dim: int, heads: int, qk_norm: bool = False,
-                 rope_freq: Optional[float] = None, ln_eps: float = 1e-5):
+                 ln_eps: float = 1e-5, sdpa: bool = False):
         super().__init__()
         self.heads = heads
         hd = dim // heads
@@ -149,18 +201,23 @@ class Attention(nn.Module):
         self.q_norm = nn.LayerNorm(hd, eps=ln_eps) if qk_norm else None
         self.k_norm = nn.LayerNorm(hd, eps=ln_eps) if qk_norm else None
         self.proj = nn.Linear(dim, dim)
-        self.rope_freq = rope_freq
+        self.sdpa = sdpa
 
-    def forward(self, x, pos=None):
+    def forward(self, x, rope: Optional[Rope2D] = None):
         B, N, C = x.shape
-        q, k, v = self.qkv(x).reshape(B, N, 3, self.heads, -1).permute(
-            2, 0, 3, 1, 4).unbind(0)                         # [B,H,N,hd]
+        q, k, v = self.qkv(x).reshape(B, N, 3, self.heads, -1).unbind(2)
         if self.q_norm is not None:
-            q, k = self.q_norm(q), self.k_norm(k)
-        if self.rope_freq is not None and pos is not None:
-            q = apply_rope_2d(q, pos, self.rope_freq)
-            k = apply_rope_2d(k, pos, self.rope_freq)
-        o = fused_sdpa(q, k, v)
+            with span("vggt.qk_norm"):
+                q, k = self.q_norm(q), self.k_norm(k)
+        if rope is not None:
+            with span("vggt.rope"):
+                q, k = rope(q).to(v.dtype), rope(k).to(v.dtype)
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))    # [B,H,N,hd]
+        with span("vggt.attn"):
+            if self.sdpa:
+                o = fused_sdpa(q, k, v)
+            else:
+                o = flash_attention(q, k, v)
         return self.proj(o.transpose(1, 2).reshape(B, N, C))
 
 
@@ -189,17 +246,17 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0,
                  ls_init: Optional[float] = None, qk_norm: bool = False,
-                 rope_freq: Optional[float] = None, ln_eps: float = 1e-5):
+                 ln_eps: float = 1e-5, sdpa: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
-        self.attn = Attention(dim, heads, qk_norm, rope_freq, ln_eps)
+        self.attn = Attention(dim, heads, qk_norm, ln_eps, sdpa)
         self.ls1 = LayerScale(dim, ls_init) if ls_init is not None else None
         self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
         self.ls2 = LayerScale(dim, ls_init) if ls_init is not None else None
 
-    def forward(self, x, pos=None):
-        h = self.attn(self.norm1(x), pos)
+    def forward(self, x, rope: Optional[Rope2D] = None):
+        h = self.attn(self.norm1(x), rope)
         x = x + (self.ls1(h) if self.ls1 is not None else h)
         h = self.mlp(self.norm2(x))
         return x + (self.ls2(h) if self.ls2 is not None else h)
@@ -283,8 +340,7 @@ class Aggregator(nn.Module):
 
         def aa_block():
             return Block(C, cfg.num_heads, cfg.mlp_ratio,
-                         ls_init=cfg.layerscale_init, qk_norm=cfg.qk_norm,
-                         rope_freq=cfg.rope_freq)
+                         ls_init=cfg.layerscale_init, qk_norm=cfg.qk_norm)
         self.frame_blocks = nn.ModuleList([aa_block()
                                            for _ in range(cfg.depth)])
         self.global_blocks = nn.ModuleList([aa_block()
@@ -299,41 +355,59 @@ class Aggregator(nn.Module):
         B, S, _, H, W = images.shape
         Hp, Wp = H // cfg.patch_size, W // cfg.patch_size
         C = cfg.embed_dim
-        x = (images - self.mean) / self.std
-        patch_tokens = self.patch_embed(x.reshape(B * S, 3, H, W))
+        with torch.autocast("cuda", torch.bfloat16, enabled=images.is_cuda):
+            x = (images - self.mean) / self.std
+            with span("vggt.vit"):
+                patch_tokens = self.patch_embed(x.reshape(B * S, 3, H, W))
 
-        # index 0 of the special tokens for the first frame (it anchors the
-        # world frame), index 1 for the others (aggregator.py:123-133)
-        ns = 1 + cfg.num_register_tokens
-        sel = torch.clamp(torch.arange(S, device=images.device), max=1)
-        special = torch.cat([self.camera_token[0][sel],
-                             self.register_token[0][sel]], 1)   # [S,ns,C]
-        special = special[None].expand(B, S, ns, C).reshape(B * S, ns, C)
-        tokens = torch.cat([special, patch_tokens], 1)
-        T = tokens.shape[1]
+            # index 0 of the special tokens for the first frame (it anchors
+            # the world frame), index 1 for the others (aggregator.py:
+            # 123-133)
+            ns = 1 + cfg.num_register_tokens
+            sel = torch.clamp(torch.arange(S, device=images.device), max=1)
+            special = torch.cat([self.camera_token[0][sel],
+                                 self.register_token[0][sel]], 1)  # [S,ns,C]
+            special = special[None].expand(B, S, ns, C).reshape(B * S, ns,
+                                                                 C)
+            tokens = torch.cat([special, patch_tokens], 1)
+            T = tokens.shape[1]
+            count("vggt.frames", B * S)
+            count("vggt.global_tokens", B * S * T)
 
-        # the patch grid (y, x) + 1; special tokens at 0 (aggregator.py:
-        # 226-234)
-        ys, xs = torch.meshgrid(
-            torch.arange(Hp, dtype=torch.float32, device=images.device),
-            torch.arange(Wp, dtype=torch.float32, device=images.device),
-            indexing="ij")
-        grid = torch.stack([ys.reshape(-1), xs.reshape(-1)], -1) + 1.0
-        pos_f = torch.cat([grid.new_zeros(ns, 2), grid], 0)      # [T, 2]
-        pos_g = pos_f.repeat(S, 1)                               # [S*T, 2]
+            # the patch grid (y, x) + 1; special tokens at 0 (aggregator.py:
+            # 226-234)
+            ys, xs = torch.meshgrid(
+                torch.arange(Hp, dtype=torch.float32, device=images.device),
+                torch.arange(Wp, dtype=torch.float32, device=images.device),
+                indexing="ij")
+            grid = torch.stack([ys.reshape(-1), xs.reshape(-1)], -1) + 1.0
+            pos = torch.cat([grid.new_zeros(ns, 2), grid], 0)     # [T, 2]
+            rope = Rope2D(pos, C // cfg.num_heads, cfg.rope_freq)
 
-        needed = set(cfg.intermediate_layers) | {cfg.depth - 1}
-        inters: Dict[int, torch.Tensor] = {}
-        for i, (fb, gb) in enumerate(zip(self.frame_blocks,
-                                         self.global_blocks)):
-            tokens = fb(tokens, pos_f)
-            frame_out = tokens
-            tokens = gb(tokens.reshape(B, S * T, C), pos_g).reshape(
-                B * S, T, C)
-            if i in needed:
-                inters[i] = torch.cat([frame_out, tokens], -1).reshape(
-                    B, S, T, 2 * C)
+            needed = set(cfg.intermediate_layers) | {cfg.depth - 1}
+            inters: Dict[int, torch.Tensor] = {}
+            for i, (fb, gb) in enumerate(zip(self.frame_blocks,
+                                             self.global_blocks)):
+                tokens = frame_out = self._frame(fb, tokens, rope)
+                tokens = self._global(gb, tokens, B, S, rope)
+                if i in needed:
+                    inters[i] = torch.cat([frame_out, tokens], -1).reshape(
+                        B, S, T, 2 * C)
         return inters, (Hp, Wp), ns
+
+    def _frame(self, blk: Block, tokens: torch.Tensor,
+               rope: Rope2D) -> torch.Tensor:
+        """A frame block: attention within each frame, [B·S, T, C]."""
+        with span("vggt.frame"):
+            return blk(tokens, rope)
+
+    def _global(self, blk: Block, tokens: torch.Tensor, B: int, S: int,
+                rope: Rope2D) -> torch.Tensor:
+        """A global block: attention over every token of the clip,
+        [B, S·T, C]."""
+        BS, T, C = tokens.shape
+        with span("vggt.global"):
+            return blk(tokens.reshape(B, S * T, C), rope).reshape(BS, T, C)
 
 
 # ------------------------------------------------------------ camera head
@@ -350,7 +424,7 @@ class CameraHead(nn.Module):
         self.cfg = cfg
         self.trunk = nn.Sequential(*[
             Block(dim, cfg.num_heads, cfg.mlp_ratio,
-                  ls_init=cfg.layerscale_init)
+                  ls_init=cfg.layerscale_init, sdpa=True)
             for _ in range(cfg.camera_trunk_depth)])
         self.token_norm = nn.LayerNorm(dim)
         self.trunk_norm = nn.LayerNorm(dim)
@@ -645,27 +719,36 @@ class VGGT(nn.Module):
         return self.camera_head.empty_pose_tokens.device
 
     def forward(self, images: torch.Tensor,
-                query_points: Optional[torch.Tensor] = None) -> dict:
+                query_points: Optional[torch.Tensor] = None,
+                with_points: bool = True) -> dict:
         """images [B, S, 3, H, W] in [0, 1] -> {pose_enc [B,S,9], depth
         [B,S,H,W], depth_conf, world_points [B,S,H,W,3],
-        world_points_conf, (track, vis, conf)}."""
+        world_points_conf, (track, vis, conf)}; ``with_points=False``
+        leaves the point head out. The pose estimators pass it: they read
+        no point, but their model keeps the point head so that a whole
+        facebook/VGGT-1B state_dict loads into it strictly."""
         cfg = self.cfg
-        inters, patch_hw, ns = self.aggregator(images)
-        out = {"pose_enc": self.camera_head(inters[cfg.depth - 1][:, :, 0])}
-        dpt_in = [inters[i][:, :, ns:] for i in cfg.intermediate_layers]
-        img_hw = tuple(images.shape[-2:])
-        if self.depth_head is not None:
-            depth, conf = self.depth_head(dpt_in, patch_hw, img_hw)
-            out["depth"] = depth[..., 0]
-            out["depth_conf"] = conf
-        if self.point_head is not None:
-            out["world_points"], out["world_points_conf"] = self.point_head(
-                dpt_in, patch_hw, img_hw)
-        if self.track_head is not None and query_points is not None:
-            # vggt/models/vggt.py:87-93: the last coordinate prediction
-            tracks, vis, conf_t = self.track_head(dpt_in, patch_hw, img_hw,
-                                                  query_points)
-            out["track"], out["vis"], out["conf"] = tracks[-1], vis, conf_t
+        with span("vggt.forward"):
+            inters, patch_hw, ns = self.aggregator(images)
+            with span("vggt.camera_head"):
+                out = {"pose_enc": self.camera_head(
+                    inters[cfg.depth - 1][:, :, 0])}
+            dpt_in = [inters[i][:, :, ns:] for i in cfg.intermediate_layers]
+            img_hw = tuple(images.shape[-2:])
+            if self.depth_head is not None:
+                with span("vggt.depth_head"):
+                    depth, conf = self.depth_head(dpt_in, patch_hw, img_hw)
+                out["depth"] = depth[..., 0]
+                out["depth_conf"] = conf
+            if self.point_head is not None and with_points:
+                out["world_points"], out["world_points_conf"] = \
+                    self.point_head(dpt_in, patch_hw, img_hw)
+            if self.track_head is not None and query_points is not None:
+                # vggt/models/vggt.py:87-93: the last coordinate prediction
+                tracks, vis, conf_t = self.track_head(dpt_in, patch_hw,
+                                                      img_hw, query_points)
+                out["track"], out["vis"], out["conf"] = tracks[-1], vis, \
+                    conf_t
         return out
 
 

@@ -51,14 +51,17 @@ def load_frames(paths, size: int) -> np.ndarray:
         .transpose(2, 0, 1) / 255.0 for p in paths])
 
 
-def run_vggt(model, frames: np.ndarray) -> dict:
-    """One forward of [N,3,S,S] frames as a batch of one clip; returns the
-    outputs of its one batch element on the model's device and the
-    extrinsics [N,3,4] and intrinsics [N,3,3] decoded from ``pose_enc``."""
+def run_vggt(model, frames) -> dict:
+    """One forward of [N,3,S,S] frames (a numpy array, or a tensor on any
+    device) as a batch of one clip: the aggregator, the camera head and
+    the depth head, as the reference's estimator runs them (no estimator
+    reads the point head's output, so it is not run). Returns the outputs
+    of its one batch element on the model's device and the extrinsics
+    [N,3,4] and intrinsics [N,3,3] decoded from ``pose_enc``."""
     from .models.vggt import pose_encoding_to_extri_intri
-    batch = torch.from_numpy(frames).to(model.device)[None]
+    batch = torch.as_tensor(frames, device=model.device)[None]
     with torch.no_grad():
-        out = {k: v[0] for k, v in model(batch).items()}
+        out = {k: v[0] for k, v in model(batch, with_points=False).items()}
     out["extri"], out["K"] = pose_encoding_to_extri_intri(
         out["pose_enc"], tuple(batch.shape[-2:]))
     return out

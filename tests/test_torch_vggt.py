@@ -76,7 +76,8 @@ def jit_apply(jcfg, params, *args):
 def test_rope_matches_jax():
     x = RNG.normal(size=(1, 2, 7, 16)).astype(np.float32)
     pos = RNG.integers(0, 9, (7, 2)).astype(np.float32)
-    got = tv.apply_rope_2d(torch.from_numpy(x), torch.from_numpy(pos), 100.0)
+    got = tv.rotate_2d(torch.from_numpy(x), *tv.rope_2d_tables(
+        torch.from_numpy(pos), 16, 100.0))
     want = jv.apply_rope_2d(jnp.asarray(x), jnp.asarray(pos), 100.0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
 
