@@ -5,7 +5,9 @@ Parity target: GaussianField.train (field_construction/gaussian_field.py:
 
   - one step function per static phase-flag combination (:class:`StepFlags`);
     frozen groups are masked by zeroing their gradients
-    (``train/optim.phase_grad_mask``);
+    (``train/optim.phase_grad_mask``), and a step differentiates only the
+    leaves its update reads (:func:`trained_leaves`), as ``jit`` drops
+    the dead gradients of a static phase;
   - camera-pose gradients flow by moving the splats with the learnable
     quat + t and rendering with an identity view matrix (the reference
     shim, gaussian_renderer/__init__.py:79-91);
@@ -28,7 +30,9 @@ trainer. :func:`make_parallel_train_step` is the view-parallel step over
 the ranks of a mesh's ``data`` axis. Spans (``utils/profiling.span``:
 ``field.iter``, ``field.step``, ``field.render``, ``field.loss.*``,
 ``field.backward``, ``field.optim``, ...) name the parts of an iteration
-for a profiler.
+for a profiler; the counters ``field.grad_leaves`` and
+``field.grad_leaves_skipped`` count a step's differentiated and detached
+leaves.
 
 The trainer's outputs under ``save_dir`` are the JAX package's: PLY and
 pose snapshots, checkpoints, the training report's side-by-side PNGs and
@@ -67,12 +71,12 @@ from ..scene.cameras import ZFAR, ZNEAR, Camera
 from ..scene.gaussians import DensifyStats, GaussianState
 from ..utils.config import OptimizationConfig
 from ..utils.png import write_png
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .densify import densify_and_prune
 from .multiview import multi_view_loss
-from .optim import (AdamState, make_app_optimizer, make_pose_optimizer,
-                    make_splat_optimizer, phase_grad_mask, splat_params,
-                    zero_moments_at)
+from .optim import (PARAM_FIELDS, AdamState, make_app_optimizer,
+                    make_pose_optimizer, make_splat_optimizer,
+                    phase_grad_mask, splat_params, zero_moments_at)
 
 log = logging.getLogger(__name__)
 
@@ -405,6 +409,67 @@ def view_loss(cfg: OptimizationConfig, flags: StepFlags, rcfg: RasterConfig,
     return total, (metrics, out.radii, out.out_observe, out.visible)
 
 
+def tracks_densify_stats(cfg: OptimizationConfig, step: int) -> bool:
+    """Whether the step at ``step`` adds to the densify statistics: before
+    the geometry phase or densification ends. Only then does a step take
+    the screen-space gradients."""
+    return step < min(cfg.max_geo_iter, cfg.densify_until_iter)
+
+
+def trained_leaves(cfg: OptimizationConfig, flags: StepFlags,
+                   step: int) -> set:
+    """The leaves whose gradients the step's update reads: the splat
+    groups that ``phase_grad_mask`` lets through (asked of the mask itself,
+    which passes a kept group's tensor on as it came), ``poses`` where the
+    flags train the pose, ``app_ab`` where they train the exposure, and
+    ``mean2d`` and ``mean2d_abs`` while the densify statistics are
+    tracked. The step differentiates these alone (the reference's
+    per-phase ``requires_grad``)."""
+    probe = {k: torch.empty(0) for k in PARAM_FIELDS}
+    kept = phase_grad_mask(flags.phase, probe)
+    names = {k for k, g in kept.items() if g is probe[k]}
+    if flags.optim_pose:
+        names.add("poses")
+    if flags.image:
+        names.add("app_ab")
+    if tracks_densify_stats(cfg, step):
+        names |= {"mean2d", "mean2d_abs"}
+    return names
+
+
+def _step_leaves(state: "TrainState", trained: set, abs_hook: bool) -> dict:
+    """The step's leaves, detached from the state: the splat groups,
+    ``poses``, ``app_ab``, a zero ``mean2d`` offset and (``abs_hook``) a
+    zero ``mean2d_abs`` hook. Those in ``trained`` require grad; the rest
+    enter the loss as constants."""
+    cap, dev = state.splats.capacity, state.splats.device
+    leaves = dict(splat_params(state.splats), poses=state.poses,
+                  app_ab=state.app_ab,
+                  mean2d=torch.zeros((cap, 2), device=dev))
+    if abs_hook:
+        leaves["mean2d_abs"] = torch.zeros((cap, 2), device=dev)
+    return {k: v.detach().requires_grad_(k in trained)
+            for k, v in leaves.items()}
+
+
+def _count_leaves(leaves: dict) -> None:
+    """Count a step's differentiated and detached leaves (once a step)."""
+    n = sum(v.requires_grad for v in leaves.values())
+    count("field.grad_leaves", n)
+    count("field.grad_leaves_skipped", len(leaves) - n)
+
+
+def _leaf_grads(total: torch.Tensor, leaves: dict) -> dict:
+    """d total / d leaf for the leaves that require grad; zeros for the
+    others and for those the loss does not reach."""
+    live = [k for k, v in leaves.items() if v.requires_grad]
+    gs = torch.autograd.grad(total, [leaves[k] for k in live],
+                             allow_unused=True) if live else ()
+    got = dict(zip(live, gs))
+    return {k: torch.zeros_like(v) if got.get(k) is None else got[k]
+            for k, v in leaves.items()}
+
+
 def loss_and_grads(cfg: OptimizationConfig, flags: StepFlags,
                    rcfg: RasterConfig, proxy_cam: RasterCamera,
                    state: "TrainState", batch: CameraBatch,
@@ -414,28 +479,19 @@ def loss_and_grads(cfg: OptimizationConfig, flags: StepFlags,
     splat parameter group, ``poses``, ``app_ab``, ``mean2d`` (the signed
     screen-space gradient, from a fresh zero offset) and ``mean2d_abs``
     (the per-splat sum of |screen-space gradient|, from the abs hook) to
-    a tensor, zeros where the loss does not reach it."""
-    cap = state.splats.capacity
-    dev = state.splats.device
+    a tensor. Only :func:`trained_leaves` are differentiated: the others,
+    and those the loss does not reach, get zeros."""
+    trained = trained_leaves(cfg, flags, state.step)
     with L.exact_f32():
-        leaves = {k: v.detach().requires_grad_()
-                  for k, v in splat_params(state.splats).items()}
-        leaves["poses"] = state.poses.detach().requires_grad_()
-        leaves["app_ab"] = state.app_ab.detach().requires_grad_()
-        leaves["mean2d"] = torch.zeros((cap, 2), device=dev,
-                                       requires_grad=True)
-        leaves["mean2d_abs"] = torch.zeros((cap, 2), device=dev,
-                                           requires_grad=True)
-        params = {k: leaves[k] for k in splat_params(state.splats)}
+        leaves = _step_leaves(state, trained, abs_hook=True)
+        params = {k: leaves[k] for k in PARAM_FIELDS}
         total, (metrics, radii, _, visible) = view_loss(
             cfg, flags, rcfg, proxy_cam, sh_degree, state.splats.alive,
             params, leaves["poses"], leaves["app_ab"], leaves["mean2d"],
             batch, samples, leaves["mean2d_abs"])
         with span("field.backward", adopts=True):
-            gs = torch.autograd.grad(total, list(leaves.values()),
-                                     allow_unused=True)
-    grads = {k: torch.zeros_like(v) if g is None else g
-             for (k, v), g in zip(leaves.items(), gs)}
+            grads = _leaf_grads(total, leaves)
+    _count_leaves(leaves)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return total.detach(), metrics, radii, visible, grads
 
@@ -474,7 +530,7 @@ def _apply_update(cfg: OptimizationConfig, flags: StepFlags, txs,
     exposure steps where the flags train them."""
     splat_tx, pose_tx, app_tx = txs
     stats = state.stats
-    if state.step < min(cfg.max_geo_iter, cfg.densify_until_iter):
+    if tracks_densify_stats(cfg, state.step):
         stats = stats.update(ndc_grad, ndc_abs, radii, upd_filter)
     params = splat_params(state.splats)
     with span("field.optim"):
@@ -535,16 +591,17 @@ def make_parallel_train_step(cfg: OptimizationConfig, flags: StepFlags,
     every rank).
 
     The loss is the mean over all the ranks' views of :func:`view_loss`.
-    Each rank takes the gradients of the mean over its own views (the
-    splat groups, ``poses``, ``app_ab`` and the 2-D mean offsets, one view
-    at a time) and averages them over ``data`` in one flat
-    ``all_reduce_many_``; the densify statistics take the signed
-    screen-space gradient's magnitude as their abs channel (as JAX's step,
-    which has no abs hook), the radii max-reduced and the visibility
-    any-reduced over every view. Every rank then applies the same update
-    to its replica of the state, and the metrics are the means over all
-    views. With ``mesh=None`` (or a mesh without a ``data`` group) the one
-    process holds every view: the step's own single-process reference."""
+    Each rank takes the gradients of the mean over its own views (of the
+    splat groups, ``poses``, ``app_ab`` and the 2-D mean offsets, those
+    in :func:`trained_leaves`; one view at a time) and averages them over
+    ``data`` in one flat ``all_reduce_many_``; the densify statistics take
+    the signed screen-space gradient's magnitude as their abs channel (as
+    JAX's step, which has no abs hook), the radii max-reduced and the
+    visibility any-reduced over every view. Every rank then applies the
+    same update to its replica of the state, and the metrics are the means
+    over all views. With ``mesh=None`` (or a mesh without a ``data``
+    group) the one process holds every view: the step's own single-process
+    reference."""
     txs = _optimizers(cfg, spatial_lr_scale)
     H, W = proxy_cam.height, proxy_cam.width
     group = mesh if mesh is not None and mesh.data_group is not None \
@@ -556,30 +613,21 @@ def make_parallel_train_step(cfg: OptimizationConfig, flags: StepFlags,
         if not batches or len(batches) != len(samples):
             raise ValueError(f"{len(batches)} views and {len(samples)} "
                              f"draws: give one StepSamples per view")
-        cap = state.splats.capacity
         dev = state.splats.device
         n_views = len(batches) * n_data
+        trained = trained_leaves(cfg, flags, state.step)
         grads, metrics = None, {}
         radii = visible = None
         with L.exact_f32():
             for batch, smp in zip(batches, samples):
-                leaves = {k: v.detach().requires_grad_()
-                          for k, v in splat_params(state.splats).items()}
-                leaves["poses"] = state.poses.detach().requires_grad_()
-                leaves["app_ab"] = state.app_ab.detach().requires_grad_()
-                leaves["mean2d"] = torch.zeros((cap, 2), device=dev,
-                                               requires_grad=True)
-                params = {k: leaves[k] for k in splat_params(state.splats)}
+                leaves = _step_leaves(state, trained, abs_hook=False)
+                params = {k: leaves[k] for k in PARAM_FIELDS}
                 total, (m, r, _, vis) = view_loss(
                     cfg, flags, rcfg, proxy_cam, sh_degree,
                     state.splats.alive, params, leaves["poses"],
                     leaves["app_ab"], leaves["mean2d"], batch, smp)
                 with span("field.backward", adopts=True):
-                    gs = torch.autograd.grad(total / n_views,
-                                             list(leaves.values()),
-                                             allow_unused=True)
-                g = {k: torch.zeros_like(v) if x is None else x
-                     for (k, v), x in zip(leaves.items(), gs)}
+                    g = _leaf_grads(total / n_views, leaves)
                 grads = g if grads is None else {k: grads[k] + g[k]
                                                  for k in grads}
                 for k, v in m.items():
@@ -587,6 +635,7 @@ def make_parallel_train_step(cfg: OptimizationConfig, flags: StepFlags,
                 seen = vis & (r > 0)
                 radii = r if radii is None else torch.maximum(radii, r)
                 visible = seen if visible is None else visible | seen
+        _count_leaves(leaves)
         names = sorted(metrics)
         mvec = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32,
                                             device=dev) for k in names])
