@@ -46,7 +46,7 @@ Phases (any failure raises, so the exit code is non-zero):
      and finite parameters, the loss falling over the first window, and
      every kernel's launch counter > 0 for the phase;
   7. one geometry + multi-view train step through the kernels and
-     through the plain path (use_pallas=False) on the same state, batch
+     through the plain path (_build.plain()) on the same state, batch
      and draws: loss and per-group gradients within stated bounds (the
      pose row against the plain step on the kernels' rendered values);
      then K1 and K2 against their plain versions on that step's real inputs
@@ -349,10 +349,9 @@ W, H = 720, 480
 FOVX = 1.0
 # the exact raster config of the JAX package's flagship render entry
 EXACT_CFG = RasterConfig(tile_w=32, tile_h=32, max_tiles_per_splat=16,
-                         chunk=128, max_splats_per_tile=1024, big_splats=64,
+                         chunk=128, big_splats=64,
                          extra_tiers=((7168, 16), (1536, 32)),
-                         rank_key_sort=True, max_pairs=520_000,
-                         compact_sort=True, pallas_sort=True)
+                         rank_key_sort=True, max_pairs=520_000)
 # Kernel K1 vs the plain blend: the kernel evaluates dx, dy relative to
 # the tile centre and carries log T as a running sum, the plain version
 # uses global pixel coordinates and a per-chunk cumsum. Near the T < 1e-4
@@ -1215,11 +1214,11 @@ def compare_plain_view(dev, splats, cam) -> float:
     rcam = cam.raster_camera(device=dev)
     w2c = torch.as_tensor(cam.w2c, device=dev)
     bg = torch.zeros(3, device=dev)
-    plain_cfg = dataclasses.replace(EXACT_CFG, use_pallas=False)
     k = render_view(splats, None, w2c, rcam, bg, 3, True, True, None,
                     EXACT_CFG)
-    r = render_view(splats, None, w2c, rcam, bg, 3, True, True, None,
-                    plain_cfg)
+    with _build.plain():
+        r = render_view(splats, None, w2c, rcam, bg, 3, True, True, None,
+                        EXACT_CFG)
     err = 0.0
     for f in ("color", "language", "instance", "all_map"):
         torch.testing.assert_close(getattr(k, f), getattr(r, f),
@@ -1480,12 +1479,16 @@ def app_grad_floor(tr, flags, batch) -> torch.Tensor:
     inequality) plus 32 f32 ulps of the largest term for the reductions;
     a gap beyond it is not the renders'. Renders the step's view again
     through both paths, as the step does."""
-    plain = dataclasses.replace(tr.rcfg, use_pallas=False)
     pose = tr.state.poses[batch.cam_idx] if flags.optim_pose else None
+
+    def render():
+        return render_view(tr.state.splats, pose, batch.w2c, tr.proxy_cam,
+                           batch.bg, tr.active_sh_degree, True, True, None,
+                           tr.rcfg).color
     with torch.no_grad(), exact_f32():
-        imgs = [render_view(tr.state.splats, pose, batch.w2c, tr.proxy_cam,
-                            batch.bg, tr.active_sh_degree, True, True, None,
-                            rcfg).color for rcfg in (tr.rcfg, plain)]
+        imgs = [render()]
+        with _build.plain():
+            imgs.append(render())
         a, b = tr.state.app_ab[batch.uid]
         terms = []
         for img in imgs:
@@ -1504,20 +1507,22 @@ def app_grad_floor(tr, flags, batch) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def kernel_render_values(kernel_cfg: RasterConfig):
-    """Inside the block every render of the field step also renders
-    through ``kernel_cfg`` without gradients and returns the render's own
-    output carrying the kernels' values: each float map is its own plus
-    (the kernels' - its own), detached. A plain step then computes its
-    loss on the kernels' values, with the kernel step's masks, bilinear
-    cells and weights, and takes its gradients back through the plain
-    backward."""
+def kernel_render_values():
+    """Inside the block every render of the field step renders through
+    the kernels without gradients and through the plain path (inside
+    ``_build.plain()``), and returns the plain render's output carrying the
+    kernels' values: each float map is its own plus (the kernels' - its
+    own), detached. The step then computes its loss on the kernels'
+    values, with the kernel step's masks, bilinear cells and weights, and
+    takes its gradients back through the plain backward (the blend keeps
+    its forward's choice)."""
     inner = train_field.rasterize
 
-    def hybrid(*args, cfg, **kw):
+    def hybrid(*args, **kw):
         with torch.no_grad():
-            k = inner(*args, cfg=kernel_cfg, **dict(kw, mean2d_abs_hook=None))
-        p = inner(*args, cfg=cfg, **kw)
+            k = inner(*args, **dict(kw, mean2d_abs_hook=None))
+        with _build.plain():
+            p = inner(*args, **kw)
         return p._replace(**{
             f: getattr(p, f) + (getattr(k, f) - getattr(p, f)).detach()
             for f in RENDER_MAPS if getattr(p, f) is not None})
@@ -1552,17 +1557,17 @@ def compare_plain_step(tr, it: int = 600) -> dict:
     flags, batch, samples = (step_in[n] for n in ("flags", "batch",
                                                   "samples"))
     require(batch.has_near, "the plain-step view has no near view")
-    plain = dataclasses.replace(tr.rcfg, use_pallas=False)
     _build.reset_launch_counts()
-    r = loss_and_grads(tr.cfg, flags, plain, tr.proxy_cam, tr.state, batch,
-                       samples, tr.active_sh_degree)
-    require(sum(_build.launch_counts.values()) == 0,
-            "the plain step launched a kernel")
-    r_ulp = loss_and_grads(tr.cfg, flags, plain, tr.proxy_cam,
-                           ulp_apart(tr.state), batch, samples,
-                           tr.active_sh_degree)
-    with kernel_render_values(tr.rcfg):
-        h = loss_and_grads(tr.cfg, flags, plain, tr.proxy_cam, tr.state,
+    with _build.plain():
+        r = loss_and_grads(tr.cfg, flags, tr.rcfg, tr.proxy_cam, tr.state,
+                           batch, samples, tr.active_sh_degree)
+        require(sum(_build.launch_counts.values()) == 0,
+                "the plain step launched a kernel")
+        r_ulp = loss_and_grads(tr.cfg, flags, tr.rcfg, tr.proxy_cam,
+                               ulp_apart(tr.state), batch, samples,
+                               tr.active_sh_degree)
+    with kernel_render_values():
+        h = loss_and_grads(tr.cfg, flags, tr.rcfg, tr.proxy_cam, tr.state,
                            batch, samples, tr.active_sh_degree)
     lk, lr = float(k[0]), float(r[0])
     refs = dict(r[4], poses=h[4]["poses"])
@@ -1746,28 +1751,27 @@ def phase_dit_compare(dit, model_in, txt, tt) -> None:
     Tt = txt.shape[1]
     joint, temb, rope = dit.embed(model_in, txt, tt)
 
-    def two_blocks(kernels: bool):
-        dit.set_use_kernels(kernels)
+    def two_blocks():
         x = joint
         for blk in dit.transformer_blocks[:2]:
             x = blk(x, temb, rope, Tt)
         return x
 
-    k2, p2 = two_blocks(True), two_blocks(False)
+    k2 = two_blocks()
+    with _build.plain():
+        p2 = two_blocks()
     e2 = rel_rms(k2, p2)
     del k2, p2
-    dit.set_use_kernels(True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     kout = dit(model_in, txt, tt)
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
-    dit.set_use_kernels(False)
     t0 = time.perf_counter()
-    pout = dit(model_in, txt, tt)
+    with _build.plain():
+        pout = dit(model_in, txt, tt)
     torch.cuda.synchronize()
     t_p = time.perf_counter() - t0
-    dit.set_use_kernels(True)
     require(bool(torch.isfinite(kout.float()).all()
                  and torch.isfinite(pout.float()).all()),
             "DiT: non-finite noise prediction")
@@ -2017,10 +2021,10 @@ def compare_lora_grads(dev, dit, batch) -> None:
         tables = _sched_tables(LORA_TRAIN, dev)
         out = {}
         for kernels in (True, False):
-            dit.set_use_kernels(kernels)
             _build.reset_launch_counts()
-            out[kernels] = lora_loss_and_grads(dit, ad, lcfg, batch, t,
-                                               noise, tables)
+            with (contextlib.nullcontext() if kernels else _build.plain()):
+                out[kernels] = lora_loss_and_grads(dit, ad, lcfg, batch, t,
+                                                   noise, tables)
             torch.cuda.synchronize()
             launches = dict(_build.launch_counts)
             want = ({"flash_attention": 4, "flash_attention_backward": 2,
@@ -2030,7 +2034,6 @@ def compare_lora_grads(dev, dit, batch) -> None:
                     f"launches {got}, expected {want}")
     finally:
         dit.transformer_blocks = blocks
-        dit.set_use_kernels(True)
     (lk, gk), (lp, gp) = out[True], out[False]
     worst = max((rel_rms(gk[s][x], gp[s][x]), f"{s}/{x}")
                 for s in gk for x in gk[s])
@@ -4631,7 +4634,6 @@ def main(argv=None) -> int:
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
     _build.build(verbose=True)          # prints ptxas registers / spills
-    _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{_build.last_build_seconds:.2f} s) -> {_build.library_path()}")
     if args.phase == 22:

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels under ``csrc/``.
+"""Build, load and launch the hand-written CUDA kernels under ``csrc/``,
+and the one rule that picks a kernel or its plain version.
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
 -fPIC`` compiles every ``csrc/*.cu`` to an object, one nvcc process per
@@ -11,16 +12,23 @@ pointers and the CUDA stream travel as ``c_void_p``. Nothing here runs at
 import time: the first CUDA tensor that reaches a kernel wrapper builds
 the library.
 
-Each C entry point returns ``cudaGetLastError()`` after its launches;
-:func:`check` raises on a non-zero code. Each wrapper counts its launches
-in :data:`launch_counts` (plain ints, reset with :func:`reset_launch_counts`)
-so a run can prove that its main path went through the kernels. The
-counts live in ``utils/profiling.counters``, the port's one set of
-counters; :data:`launch_counts` reads and writes the :data:`KERNELS`
-entries of it and shows no other counter.
+The rule: an op runs its kernel on a CUDA tensor unless a :func:`plain`
+scope is open, and its plain version on every other tensor
+(:func:`use_kernel`). An op asks once, at its entry or in its autograd
+``forward``, and keeps the answer for its backward.
+
+:func:`launch` is every kernel's launch: it calls the kernel's C entry
+(``_TABLE``) with the current stream of the device last, counts the
+launch in :data:`launch_counts` (plain ints, reset with
+:func:`reset_launch_counts`) so a run can prove that its main path went
+through the kernels, and raises on the non-zero ``cudaGetLastError()``
+code the entry returns. The counts live in ``utils/profiling.counters``,
+the port's one set of counters; :data:`launch_counts` reads and writes
+the :data:`KERNELS` entries of it and shows no other counter.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -40,12 +48,81 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
-KERNELS = ("sort_pairs", "compact_pairs", "blend_forward",
-           "blend_backward", "flash_attention", "flash_attention_bhtd",
-           "flash_attention_backward", "ln_modulate",
-           "flash_attention_online", "flash_attention_h2",
-           "flash_attention_exp2", "flash_attention_exp2_bf16",
-           "gather_rows", "exp2_bf16x2", "knn_select")
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+# kernel name -> (C entry, argument types); the stream is every entry's
+# last argument. KERNELS, the launch counters and the ctypes binding all
+# come from this one table.
+_TABLE = {
+    # keys_in, vals_in, keys_out, vals_out, scratch, n, stream
+    "sort_pairs": ("lsx_sort_pairs", [_P, _P, _P, _P, _P, _I, _P]),
+    # key, sid, out_key, out_sid, status words, n, out_len, n_tiles,
+    # sent_min, fill_key, fill_sid, stream
+    "compact_pairs": ("lsx_compact_pairs",
+                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    # point_list, tile_starts, tile_counts, payload, accum, final_T,
+    # observe, n_tiles, grid_x, tile_w, tile_h, n_channels, row_stride,
+    # n_splats, stream
+    "blend_forward": ("lsx_blend_forward",
+                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _P]),
+    # point_list, tile_starts, tile_counts, payload, accum, final_T,
+    # g_accum, g_T, grad, n_tiles, grid_x, tile_w, tile_h, n_channels,
+    # row_stride, n_splats, stream
+    "blend_backward": ("lsx_blend_backward",
+                       [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _P]),
+    # K5: q, k, v, o, l2, B, T, H, (b, t, h) element strides of q, k, v
+    # and o, scale2, stream
+    "flash_attention": ("lsx_flash_attention_fwd",
+                        [_P, _P, _P, _P, _P, _I, _I, _I, *[_L] * 12, _F,
+                         _P]),
+    # K6: q, k, v, o, l2, B, H, T, Tk, (b, h, t) element strides of q, k,
+    # v and o, scale2, stream
+    "flash_attention_bhtd": ("lsx_flash_attention_bhtd_fwd",
+                             [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              *[_L] * 12, _F, _P]),
+    # K7: q', k, v, do, aux (l2 and dvec), dq, dk, dv, B, T, Tk, H,
+    # (b, t, h) element strides of q', k, v and do, scale, stream
+    "flash_attention_backward": ("lsx_flash_attention_bwd",
+                                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, *[_L] * 12, _F, _P]),
+    # K8: x, gamma, beta, sc, sh, tsc, tsh, y, B, T, H, text_len, is_f32,
+    # stream
+    "ln_modulate": ("lsx_ln_modulate",
+                    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _P]),
+    # K9: as K6's
+    "flash_attention_online": ("lsx_flash_attention_online_fwd",
+                               [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                *[_L] * 12, _F, _P]),
+    # K11: q, k, v, o, B, H, T, Tk, (b, h, t) element strides of q, k, v
+    # and o, bf16(scale), stream
+    "flash_attention_h2": ("lsx_flash_attention_h2_fwd",
+                           [_P, _P, _P, _P, _I, _I, _I, _I, *[_L] * 12, _F,
+                            _P]),
+    # K13a, K13b: as K11's, with bf16(scale * log2 e)
+    "flash_attention_exp2": ("lsx_flash_attention_exp2_fwd",
+                             [_P, _P, _P, _P, _I, _I, _I, _I, *[_L] * 12,
+                              _F, _P]),
+    "flash_attention_exp2_bf16": ("lsx_flash_attention_exp2_bf16_fwd",
+                                  [_P, _P, _P, _P, _I, _I, _I, _I,
+                                   *[_L] * 12, _F, _P]),
+    # K13c: tab, idx, out, R, W, A, elem_bytes, stream
+    "gather_rows": ("lsx_gather_rows", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    # K13b's packed exp alone: x, y, n, stream
+    "exp2_bf16x2": ("lsx_exp2_bf16x2", [_P, _P, _I, _P]),
+    # K14: sf, sq_s, f, sq_f, out d2, out slots, scratch, S, N, k, stream
+    "knn_select": ("lsx_knn_select",
+                   [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+}
+KERNELS = tuple(_TABLE)
+# every C entry ctypes binds: the kernels' and K14's scratch-size query
+# (S, N, k, out bytes of scratch as a long long*), which launches nothing
+_SIGNATURES = {entry: argtypes for entry, argtypes in _TABLE.values()}
+_SIGNATURES["lsx_knn_select_scratch"] = [_I, _I, _I, _P]
 
 
 class _LaunchCounts(MutableMapping):
@@ -80,63 +157,38 @@ launch_counts = _LaunchCounts()
 # cached library was loaded); read by chip_smoke.py
 last_build_seconds = 0.0
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
-_F = ctypes.c_float
-_SIGNATURES = {
-    # keys_in, vals_in, keys_out, vals_out, scratch, n, stream
-    "lsx_sort_pairs": [_P, _P, _P, _P, _P, _I, _P],
-    # key, sid, out_key, out_sid, status words, n, out_len, n_tiles,
-    # sent_min, fill_key, fill_sid, stream
-    "lsx_compact_pairs": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # point_list, tile_starts, tile_counts, payload, accum, final_T,
-    # observe, n_tiles, grid_x, tile_w, tile_h, n_channels, row_stride,
-    # n_splats, stream
-    "lsx_blend_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _I, _P],
-    # point_list, tile_starts, tile_counts, payload, accum, final_T,
-    # g_accum, g_T, grad, n_tiles, grid_x, tile_w, tile_h, n_channels,
-    # row_stride, n_splats, stream
-    "lsx_blend_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _I, _I, _I, _P],
-    # q, k, v, o, l2, B, T, H, (b, t, h) element strides of q, k, v and o,
-    # scale2, stream
-    "lsx_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, *[_L] * 12,
-                                _F, _P],
-    # q, k, v, o, l2, B, H, T, Tk, (b, h, t) element strides of q, k, v
-    # and o, scale2, stream
-    "lsx_flash_attention_bhtd_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     *[_L] * 12, _F, _P],
-    # K9: as K6's
-    "lsx_flash_attention_online_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       *[_L] * 12, _F, _P],
-    # K11: q, k, v, o, B, H, T, Tk, (b, h, t) element strides of q, k, v
-    # and o, bf16(scale), stream
-    "lsx_flash_attention_h2_fwd": [_P, _P, _P, _P, _I, _I, _I, _I,
-                                   *[_L] * 12, _F, _P],
-    # K13a, K13b: as K11's, with bf16(scale * log2 e)
-    "lsx_flash_attention_exp2_fwd": [_P, _P, _P, _P, _I, _I, _I, _I,
-                                     *[_L] * 12, _F, _P],
-    "lsx_flash_attention_exp2_bf16_fwd": [_P, _P, _P, _P, _I, _I, _I, _I,
-                                          *[_L] * 12, _F, _P],
-    # K13c: tab, idx, out, R, W, A, elem_bytes, stream
-    "lsx_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # K13b's packed exp alone: x, y, n, stream
-    "lsx_exp2_bf16x2": [_P, _P, _I, _P],
-    # q', k, v, do, aux (l2 and dvec), dq, dk, dv, B, T, Tk, H, (b, t, h)
-    # element strides of q', k, v and do, scale, stream
-    "lsx_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, *[_L] * 12, _F, _P],
-    # K14: S, N, k, out bytes of scratch (a long long*)
-    "lsx_knn_select_scratch": [_I, _I, _I, _P],
-    # K14: sf, sq_s, f, sq_f, out d2, out slots, scratch, S, N, k, stream
-    "lsx_knn_select": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x, gamma, beta, sc, sh, tsc, tsh, y, B, T, H, text_len, is_f32,
-    # stream
-    "lsx_ln_modulate": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _P],
-}
+_PLAIN = False
+
+
+@contextlib.contextmanager
+def plain():
+    """Inside the block every op runs its plain version, on CUDA tensors
+    too: how the kernels are held against their plain versions on the
+    card. Process-wide; nests; the state before it returns on exit, an
+    exception's too."""
+    global _PLAIN
+    prev = _PLAIN
+    _PLAIN = True
+    try:
+        yield
+    finally:
+        _PLAIN = prev
+
+
+def in_plain() -> bool:
+    """Whether a :func:`plain` scope is open."""
+    return _PLAIN
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """The rule: ``t`` goes to the kernel when it is a CUDA tensor and no
+    :func:`plain` scope is open, to the plain version when it is a CPU
+    tensor or inside one. A tensor on any other device raises: it never
+    falls back to the plain version."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}: the port's ops "
+                         "take CPU and CUDA tensors")
+    return t.device.type == "cuda" and not _PLAIN
 
 
 def reset_launch_counts() -> None:
@@ -232,3 +284,24 @@ def check(code: int, what: str) -> None:
 def stream_ptr(device) -> int:
     """PyTorch's current CUDA stream on ``device``, as an int."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, device, *args) -> None:
+    """Launch kernel ``name`` (a :data:`KERNELS` entry): its C entry with
+    ``args`` and the current CUDA stream of ``device`` last. Counts one
+    launch under ``name``; raises on a CUDA error."""
+    entry = _TABLE[name][0]
+    code = getattr(library(), entry)(*args, stream_ptr(device))
+    launch_counts[name] += 1
+    check(code, name)
+
+
+@functools.lru_cache(maxsize=64)
+def knn_select_scratch(S: int, N: int, k: int, device: int) -> int:
+    """Bytes of device scratch K14 takes for (S, N, k) on CUDA device
+    index ``device``: a query of its C side, no launch."""
+    n = ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        check(library().lsx_knn_select_scratch(S, N, k, ctypes.addressof(n)),
+              "knn_select scratch")
+    return n.value

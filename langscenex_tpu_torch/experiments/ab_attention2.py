@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from .. import _build
 from ..ops.flash_attention import (_check_bhtd, flash_attention,
                                    flash_attention_exp2_bf16_kernel,
                                    flash_attention_exp2_bf16_plain,
@@ -39,12 +40,12 @@ BLOCK = 1024                 # the JAX probes' default block_q and block_k
 def flash_exp2(q, k, v, block_q: int = BLOCK, block_k: int = BLOCK):
     """JAX's ``flash_exp2``: q [B,H,T,D], k, v [B,H,Tk,D] -> o [B,H,T,D]
     with scale 1/√D folded into q with log2 e in q's dtype, keys past Tk
-    masked before the max, the normalizer summed from the unrounded p. K13a
-    on CUDA tensors (bf16, D = 64), the plain version at JAX's key block
-    min(block_k, Tk) on CPU tensors."""
+    masked before the max, the normalizer summed from the unrounded p. By
+    ``_build``'s rule K13a (bf16, D = 64) or the plain version at JAX's
+    key block min(block_k, Tk)."""
     _check_bhtd(q, k, v)
     scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
+    if not _build.use_kernel(q):
         return flash_attention_exp2_plain(q, k, v, scale, block_k=block_k)
     return flash_attention_exp2_kernel(q, k, v, scale)
 
@@ -54,8 +55,8 @@ def flash_exp2_bf16(q, k, v, block_q: int = BLOCK, block_k: int = BLOCK):
     in bf16 and the normalizer summed from those p. JAX's grid covers
     T // block of each axis and takes Tk = T, so a ValueError is raised
     unless both blocks divide T and Tk == T (JAX would drop the last keys
-    and leave the last rows unwritten). K13b on CUDA tensors, the plain
-    version at ``block_k`` on CPU tensors."""
+    and leave the last rows unwritten). By ``_build``'s rule K13b or the
+    plain version at ``block_k``."""
     _check_bhtd(q, k, v)
     T, Tk = q.shape[2], k.shape[2]
     if Tk != T or T % block_q or T % block_k:
@@ -63,7 +64,7 @@ def flash_exp2_bf16(q, k, v, block_q: int = BLOCK, block_k: int = BLOCK):
                          f"block_q and block_k, got T {T}, Tk {Tk}, blocks "
                          f"{block_q}, {block_k}")
     scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
+    if not _build.use_kernel(q):
         return flash_attention_exp2_bf16_plain(q, k, v, scale,
                                                block_k=block_k)
     return flash_attention_exp2_bf16_kernel(q, k, v, scale)

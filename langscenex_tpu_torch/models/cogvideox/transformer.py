@@ -16,14 +16,14 @@ head; here they stay separate). ``proj_out`` rows are in diffusers'
 (c, ph, pw) order and the unpatchify reads them so.
 
 Kernels: LayerNormZero runs K8 (``ops/ln_modulate``) and the joint
-attention K5 forward and K7 backward (``ops/flash_attention``) on CUDA
-tensors (K6 forward in a tensor-parallel shard, below);
-``CogVideoXTransformer.set_use_kernels(False)`` runs their plain versions
-on any device (the reference the kernels are held against on the
-card). ``TransformerConfig.remat`` recomputes each block in the
-backward (``torch.utils.checkpoint``), as the JAX ``nn.remat`` does for
-training: only the residual stream between blocks is kept, and K5 and K8
-run twice per block and step.
+attention K5 forward and K7 backward (``ops/flash_attention``; K6 forward
+in a tensor-parallel shard, below), or their plain versions, by
+``_build``'s rule: inside ``_build.plain()`` the plain versions run on the
+card too (the reference the kernels are held against there).
+``TransformerConfig.remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``), as the JAX ``nn.remat`` does for training:
+only the residual stream between blocks is kept, and K5 and K8 run twice
+per block and step.
 Shapes: latents [B, F, C, H, W], text [B, L, text_dim], timestep [B].
 
 Tensor parallelism: built with ``tp`` (a ``parallel.mesh.Mesh``), the
@@ -50,7 +50,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.flash_attention import attention_bthd
-from ...ops.ln_modulate import ln_modulate, ln_modulate_plain
+from ...ops.ln_modulate import ln_modulate
 from ...utils.device import resolve_device
 from ...utils.profiling import span
 
@@ -164,15 +164,13 @@ class LayerNormZero(nn.Module):
         super().__init__()
         self.linear = Linear(time_dim, 6 * hidden)
         self.norm = nn.LayerNorm(hidden, eps=1e-5)
-        self.use_kernels = True
 
     def forward(self, x, temb, text_len: int):
         emb = self.linear(F.silu(temb))
         shift, scale, gate, t_shift, t_scale, t_gate = emb.chunk(6, dim=-1)
-        fn = ln_modulate if self.use_kernels else ln_modulate_plain
         with span("dit.lnz"):
-            out = fn(x, self.norm.weight, self.norm.bias, scale, shift,
-                     t_scale, t_shift, text_len)
+            out = ln_modulate(x, self.norm.weight, self.norm.bias, scale,
+                              shift, t_scale, t_shift, text_len)
         return out, gate[:, None], t_gate[:, None]
 
 
@@ -225,7 +223,6 @@ class JointAttention(nn.Module):
         self.to_out = nn.ModuleList([
             Linear(h, h) if tp is None else RowParallelLinear(hl, h, tp),
             nn.Identity()])
-        self.use_kernels = True
 
     def qkv(self, x, rope):
         """(q, k, v) [B, T, H, D] after qk-norm and RoPE (H the rank's
@@ -260,7 +257,6 @@ class JointAttention(nn.Module):
         q, k, v = self.qkv(x, rope)
         with span("dit.attn"):
             out = attention_bthd(q, k, v, dtype=cfg.attn_dtype,
-                                 plain=not self.use_kernels,
                                  tensor_parallel=self.tp is not None)
         return self.to_out[0](out.reshape(B, T,
                                           self.num_heads * cfg.head_dim))
@@ -407,13 +403,6 @@ class CogVideoXTransformer(nn.Module):
             else:
                 joint = blk(joint, temb, rope, text.shape[1])
         return self.head(joint, temb, text.shape[1], latents.shape)
-
-    def set_use_kernels(self, flag: bool) -> None:
-        """Run K5/K8 (True) or their plain versions (False) from now on,
-        with the same weights."""
-        for m in self.modules():
-            if isinstance(m, (LayerNormZero, JointAttention)):
-                m.use_kernels = flag
 
 
 @torch.no_grad()

@@ -15,12 +15,12 @@ Sorting differs in mechanism only. Valid pairs are first compacted to the
 front of a ``min(max_pairs, A)``-slot stream (kernel K3,
 :mod:`.compaction`) and then sorted by one packed int32 key
 ``tile << 22 | depth rank`` (kernel K4, :mod:`.sort_engine`, a stable
-radix sort). ``compact`` and ``pallas_sort`` therefore select nothing
-here: the JAX docstrings state that the lists are identical either way,
-and this port always compacts and radix-sorts. When ``(n_tiles + 1) << 22``
-would overflow int32, the (tile, depth) order comes from two stable
-radix sorts instead (the JAX ``_finish`` fallback). ``key_only`` belongs
-to a path that is not ported and raises ``NotImplementedError``.
+radix sort). The JAX ``compact`` and ``pallas_sort`` choices have no
+counterpart: the JAX docstrings state that the lists are identical either
+way, and this port always compacts and radix-sorts. When ``(n_tiles + 1)
+<< 22`` would overflow int32, the (tile, depth) order comes from two
+stable radix sorts instead (the JAX ``_finish`` fallback). The JAX
+``key_only`` path is not ported.
 
 When nothing overflows, ``(point_list, tile_starts, tile_counts)``,
 ``num_pairs``, ``overflowed``, ``k_overflowed`` and ``num_big`` equal the
@@ -350,19 +350,13 @@ def build_tile_lists(proc: ProcessedSplats, grid_x: int, grid_y: int,
                      cull: CullSpec | None = None,
                      extra_tiers: tuple = (),
                      rank_key: bool = False,
-                     key_only: bool = False,
-                     compact: bool = False,
-                     pallas_sort: bool = False,
                      kernels: bool = True) -> TileLists:
     """Build depth-sorted per-tile splat lists (JAX ``build_tile_lists``
-    contract; see the module docstring). ``kernels=False`` runs the plain
-    sort and compaction on any device (the reference path); otherwise
-    CUDA tensors go through kernels K3 and K4."""
-    if key_only:
-        raise NotImplementedError(
-            "key_only sort is not ported (the CUDA path always sorts the "
-            "(key, sid) pair)")
-    del compact, pallas_sort    # always compact + radix sort (docstring)
+    contract; see the module docstring). Compaction and sort follow
+    ``_build``'s rule (kernels K3 and K4, or their plain versions);
+    ``kernels=False`` takes the plain versions even on CUDA tensors. It is
+    kept only because the benchmark's tests call it so: in the port,
+    ``_build.plain()`` is the way to the plain path."""
     sort = sort_pairs if kernels else sort_pairs_plain
     comp = compact_pairs if kernels else compact_pairs_plain
     n_tiles = grid_x * grid_y

@@ -10,8 +10,8 @@ the TPU kernel's in-row order was arbitrary, so against it the streams
 agree after a sort. The output has ``out_len`` slots: valid slots past it
 are dropped (binning's budget mask keeps the valid count within it).
 
-:func:`compact_pairs` launches the kernel for CUDA tensors and runs the
-plain version (:func:`compact_pairs_plain`) for CPU tensors.
+:func:`compact_pairs` launches the kernel or runs the plain version
+(:func:`compact_pairs_plain`) by ``_build``'s rule.
 """
 from __future__ import annotations
 
@@ -83,8 +83,7 @@ class StatusWords:
     def __init__(self):
         self._bufs: dict = {}
 
-    def get(self, device: torch.device, stream: int,
-            n_tiles: int) -> torch.Tensor:
+    def get(self, device: torch.device, stream, n_tiles: int) -> torch.Tensor:
         need = STATUS_STRIDE * (1 + n_tiles)
         buf = self._bufs.get((device, stream))
         if buf is None or buf.numel() < need:
@@ -101,11 +100,9 @@ def compact_pairs(key: torch.Tensor, sid: torch.Tensor, sent_min: int,
                   out_len: int, sent_fill_key: int, sent_fill_sid: int):
     """Front-pack the valid (key < sent_min) slots into [out_len] streams."""
     _check(key, sid, out_len)
-    if key.device.type == "cpu":
+    if not _build.use_kernel(key):
         return compact_pairs_plain(key, sid, sent_min, out_len,
                                    sent_fill_key, sent_fill_sid)
-    if key.device.type != "cuda":
-        raise ValueError(f"compact_pairs: unsupported device {key.device}")
     key = key.contiguous()
     sid = sid.contiguous()
     n = key.numel()
@@ -114,13 +111,10 @@ def compact_pairs(key: torch.Tensor, sid: torch.Tensor, sent_min: int,
     if out_len == 0:
         return out_k, out_s
     _, n_tiles = tile_layout(key.data_ptr(), n)
-    stream = _build.stream_ptr(key.device)
-    status = _status.get(key.device, stream, n_tiles)
-    lib = _build.library()
-    code = lib.lsx_compact_pairs(
-        key.data_ptr(), sid.data_ptr(), out_k.data_ptr(), out_s.data_ptr(),
-        status.data_ptr(), n, out_len, n_tiles, int(sent_min),
-        int(sent_fill_key), int(sent_fill_sid), stream)
-    _build.launch_counts["compact_pairs"] += 1
-    _build.check(code, "compact_pairs")
+    status = _status.get(key.device, torch.cuda.current_stream(key.device),
+                         n_tiles)
+    _build.launch("compact_pairs", key.device, key.data_ptr(), sid.data_ptr(),
+                  out_k.data_ptr(), out_s.data_ptr(), status.data_ptr(), n,
+                  out_len, n_tiles, int(sent_min), int(sent_fill_key),
+                  int(sent_fill_sid))
     return out_k, out_s

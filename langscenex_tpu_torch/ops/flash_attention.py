@@ -76,9 +76,8 @@ same kernel, :func:`flash_attention_backward_kernel` /
 :func:`flash_attention_backward_plain` (K7). :class:`FlashBTHDFn`,
 :class:`FlashFn` and :class:`OnlineFn` are the autograd functions of the
 bounded [B, T, H, D], bounded [B, H, T, D] and online [B, H, T, D]
-attention: the kernels on CUDA tensors, the plain versions on CPU
-tensors or when the caller asks for them. Inside
-:func:`sequence_parallel`, :func:`attention_auto` and
+attention: the kernels or the plain versions, by ``_build``'s rule.
+Inside :func:`sequence_parallel`, :func:`attention_auto` and
 :func:`attention_bthd` route through the ring of ``ops/ring_attention.py``
 (K9 per block, K7 backward), as JAX's ``fa:1138`` and ``fa:1198-1203`` do.
 """
@@ -277,8 +276,6 @@ def _check_devices(q, k, v) -> None:
     devs = {q.device, k.device, v.device}
     if len(devs) != 1:
         raise ValueError(f"attention: operands on several devices {devs}")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"attention: unsupported device {q.device}")
 
 
 def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
@@ -319,21 +316,16 @@ def attention_bthd_kernel(q, k, v, scale: float):
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     l2 = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
-    lib = _build.library()
-    code = lib.lsx_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        l2.data_ptr(), B, T, H, *strides, float(_scale2(scale,
-                                                        torch.bfloat16)),
-        _build.stream_ptr(q.device))
-    _build.launch_counts["flash_attention"] += 1
-    _build.check(code, "flash_attention")
+    _build.launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), o.data_ptr(), l2.data_ptr(), B, T, H,
+                  *strides, float(_scale2(scale, torch.bfloat16)))
     return o, l2
 
 
-def _launch_bhtd(what: str, entry: str, counter: str, q, k, v,
-                 q_scale: float, with_l2: bool = True):
-    """Launch one of the [B, H, T, D] forward kernels (K6, K9, K11, K13a/b)
-    through its C entry ``entry``: o laid out as a [B, T, H, 64] tensor
+def _launch_bhtd(what: str, name: str, q, k, v, q_scale: float,
+                 with_l2: bool = True):
+    """Launch one of the [B, H, T, D] forward kernels (K6, K9, K11, K13a/b),
+    ``name`` in ``_build.KERNELS``: o laid out as a [B, T, H, 64] tensor
     and, with ``with_l2``, l2 [B·H, T] f32. No key (Tk = 0) raises: the
     softmax has nothing to normalise over."""
     _check_bhtd(q, k, v)
@@ -350,11 +342,8 @@ def _launch_bhtd(what: str, entry: str, counter: str, q, k, v,
           if with_l2 else None)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     outs = [o.data_ptr()] + ([l2.data_ptr()] if with_l2 else [])
-    code = getattr(_build.library(), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), *outs, B, H, T, Tk,
-        *strides, q_scale, _build.stream_ptr(q.device))
-    _build.launch_counts[counter] += 1
-    _build.check(code, counter)
+    _build.launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  *outs, B, H, T, Tk, *strides, q_scale)
     return o, l2
 
 
@@ -364,8 +353,7 @@ def flash_attention_kernel(q, k, v, scale: float):
     of [B,T,H,64] tensors is read in place) -> (o [B,H,T,64] bf16, laid
     out as a [B,T,H,64] tensor so that its [B,T,H·64] reshape is free,
     l2 [B·H, T] f32)."""
-    return _launch_bhtd("K6", "lsx_flash_attention_bhtd_fwd",
-                        "flash_attention_bhtd", q, k, v,
+    return _launch_bhtd("K6", "flash_attention_bhtd", q, k, v,
                         float(_scale2(scale, torch.bfloat16)))
 
 
@@ -375,8 +363,7 @@ def flash_attention_online_kernel(q, k, v, scale: float):
     after every 128-key tile (``WGMMA_BLOCK_K``), where JAX's falls after
     every ``block_k`` keys; :func:`flash_attention_online_plain` with
     ``block_k=WGMMA_BLOCK_K`` has its rounding points."""
-    return _launch_bhtd("K9", "lsx_flash_attention_online_fwd",
-                        "flash_attention_online", q, k, v,
+    return _launch_bhtd("K9", "flash_attention_online", q, k, v,
                         float(_scale2(scale, torch.bfloat16)))
 
 
@@ -387,8 +374,7 @@ def flash_attention_h2_kernel(q, k, v, scale: float):
     rescale falls after every 128-key tile (``WGMMA_BLOCK_K``): its plain
     version is :func:`flash_attention_h2_plain` with
     ``block_k=WGMMA_BLOCK_K``."""
-    return _launch_bhtd("K11", "lsx_flash_attention_h2_fwd",
-                        "flash_attention_h2", q, k, v,
+    return _launch_bhtd("K11", "flash_attention_h2", q, k, v,
                         float(torch.tensor(scale, dtype=torch.bfloat16)),
                         with_l2=False)[0]
 
@@ -398,8 +384,7 @@ def flash_attention_exp2_kernel(q, k, v, scale: float):
     unrounded p, on K6's operands -> o [B,H,T,64] bf16 laid out as K6's.
     Its rescale falls after every 128-key tile: its plain version is
     :func:`flash_attention_exp2_plain` with ``block_k=WGMMA_BLOCK_K``."""
-    return _launch_bhtd("K13a", "lsx_flash_attention_exp2_fwd",
-                        "flash_attention_exp2", q, k, v,
+    return _launch_bhtd("K13a", "flash_attention_exp2", q, k, v,
                         float(_scale2(scale, torch.bfloat16)),
                         with_l2=False)[0]
 
@@ -412,8 +397,7 @@ def flash_attention_exp2_bf16_kernel(q, k, v, scale: float):
     every 128-key tile: its plain version is
     :func:`flash_attention_exp2_bf16_plain` with
     ``block_k=WGMMA_BLOCK_K``."""
-    return _launch_bhtd("K13b", "lsx_flash_attention_exp2_bf16_fwd",
-                        "flash_attention_exp2_bf16", q, k, v,
+    return _launch_bhtd("K13b", "flash_attention_exp2_bf16", q, k, v,
                         float(_scale2(scale, torch.bfloat16)),
                         with_l2=False)[0]
 
@@ -433,10 +417,8 @@ def exp2_bf16x2_kernel(x: torch.Tensor) -> torch.Tensor:
     _device_check("exp2_bf16x2", (x,))
     x = x.contiguous()
     y = torch.empty_like(x)
-    code = _build.library().lsx_exp2_bf16x2(
-        x.data_ptr(), y.data_ptr(), x.numel(), _build.stream_ptr(x.device))
-    _build.launch_counts["exp2_bf16x2"] += 1
-    _build.check(code, "exp2_bf16x2")
+    _build.launch("exp2_bf16x2", x.device, x.data_ptr(), y.data_ptr(),
+                  x.numel())
     return y
 
 
@@ -513,16 +495,12 @@ def attention_bthd_backward_launch(q, k, v, o, l2, do, scale: float):
     dk = torch.empty((B, Tk, H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, Tk, H, D), dtype=q.dtype, device=q.device)
     strides = [s for t in (qs, k, v, do_k) for s in t.stride()[:3]]
-    stream = _build.stream_ptr(q.device)
-    lib = _build.library()
 
     def launch():
-        code = lib.lsx_flash_attention_bwd(
-            qs.data_ptr(), k.data_ptr(), v.data_ptr(), do_k.data_ptr(),
-            aux.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
-            T, Tk, H, *strides, float(scale), stream)
-        _build.launch_counts["flash_attention_backward"] += 1
-        _build.check(code, "flash_attention_backward")
+        _build.launch("flash_attention_backward", q.device, qs.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), do_k.data_ptr(),
+                      aux.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                      dv.data_ptr(), B, T, Tk, H, *strides, float(scale))
 
     return launch, dq, dk, dv
 
@@ -553,25 +531,25 @@ def flash_attention_backward_kernel(q, k, v, o, l2, do, scale: float):
 
 def _attention_fn(name: str, fwd_kernel, fwd_plain, bwd_kernel, bwd_plain):
     """An autograd function over one layout's forward and backward: the
-    kernels on CUDA tensors, the plain versions on CPU tensors or with
-    ``plain=True``. Saves q, k, v, o and l2 for the backward, as the JAX
-    custom_vjp does. ``apply(q, k, v, scale, plain)``."""
+    kernels or the plain versions, by ``_build``'s rule, asked in the
+    forward. Saves q, k, v, o and l2 for the backward, as the JAX
+    custom_vjp does. ``apply(q, k, v, scale)``."""
 
     class Fn(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, q, k, v, scale: float, plain: bool):
-            use_plain = plain or q.device.type == "cpu"
-            o, l2 = (fwd_plain if use_plain else fwd_kernel)(q, k, v, scale)
+        def forward(ctx, q, k, v, scale: float):
+            kernel = _build.use_kernel(q)
+            o, l2 = (fwd_kernel if kernel else fwd_plain)(q, k, v, scale)
             ctx.save_for_backward(q, k, v, o, l2)
-            ctx.scale, ctx.use_plain = scale, use_plain
+            ctx.scale, ctx.kernel = scale, kernel
             return o
 
         @staticmethod
         def backward(ctx, do):
             q, k, v, o, l2 = ctx.saved_tensors
-            bwd = bwd_plain if ctx.use_plain else bwd_kernel
+            bwd = bwd_kernel if ctx.kernel else bwd_plain
             dq, dk, dv = bwd(q, k, v, o, l2, do, ctx.scale)
-            return dq, dk, dv, None, None
+            return dq, dk, dv, None
 
     Fn.__name__ = Fn.__qualname__ = name
     return Fn
@@ -594,37 +572,37 @@ OnlineFn = _attention_fn("OnlineFn", flash_attention_online_kernel,
 def flash_attention(q, k, v, scale: Optional[float] = None,
                     bounded_logits: bool = False):
     """[B,H,T,D] q and [B,H,Tk,D] k, v -> [B,H,T,D], non-causal, in q's
-    dtype, differentiable. On CUDA tensors the kernels (they raise on a
-    head dim or dtype they do not take): K9 forward with the online
+    dtype, differentiable. By ``_build``'s rule the kernels (they raise on
+    a head dim or dtype they do not take): K9 forward with the online
     softmax, or with ``bounded_logits=True`` (|natural logits| well below
     80, as under the DiT's qk-LayerNorm) K6 with no running max, and K7
-    backward for both. On CPU tensors their plain versions, K9's with
-    JAX's default block of 1024 keys. One difference from a CPU call: on
-    the card K9 rescales after every 128-key tile, so bf16(p), and so o,
-    may round differently, at the 2⁻⁸ level."""
+    backward for both; or their plain versions, K9's with JAX's default
+    block of 1024 keys. One difference from the plain version: K9
+    rescales after every 128-key tile, so bf16(p), and so o, may round
+    differently, at the 2⁻⁸ level."""
     _check_bhtd(q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     fn = FlashFn if bounded_logits else OnlineFn
-    return fn.apply(q, k, v, float(scale), False)
+    return fn.apply(q, k, v, float(scale))
 
 
 def flash_attention_h2(q, k, v, scale: Optional[float] = None):
     """[B,H,T,D] q and [B,H,Tk,D] k, v -> [B,H,T,D] in q's dtype, the JAX
-    package's head-pair forward in the natural-exp domain: K11 on CUDA
-    tensors (a head dim other than 64 or a dtype other than bf16 raises;
-    the kernel's key tile is 128), the plain version with JAX's default key
-    block of 512 on CPU tensors. Forward only, as in JAX, which has no VJP
-    for it: an input that requires grad raises. Odd B·H is taken (JAX
-    asserts it even for its MXU packing)."""
+    package's head-pair forward in the natural-exp domain, by ``_build``'s
+    rule K11 (a head dim other than 64 or a dtype other than bf16 raises;
+    the kernel's key tile is 128) or the plain version with JAX's default
+    key block of 512. Forward only, as in JAX, which has no VJP for it:
+    an input that requires grad raises. Odd B·H is taken (JAX asserts it
+    even for its MXU packing)."""
     _check_bhtd(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise ValueError("flash_attention_h2 is forward only (the JAX "
                          "package has no VJP for it): detach its inputs or "
                          "use flash_attention")
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return flash_attention_h2_plain(q, k, v, float(scale))
-    return flash_attention_h2_kernel(q, k, v, float(scale))
+    fn = (flash_attention_h2_kernel if _build.use_kernel(q)
+          else flash_attention_h2_plain)
+    return fn(q, k, v, float(scale))
 
 
 _SEQ_PARALLEL = None
@@ -651,11 +629,11 @@ def attention_auto(q, k, v, scale: Optional[float] = None,
                    dtype: torch.dtype = torch.bfloat16,
                    flash_threshold: int = 2048,
                    bounded_logits: bool = False):
-    """[B,H,T,D] attention dispatch, the JAX package's: on CUDA tensors
-    with T >= ``flash_threshold``, :func:`flash_attention` (K9 forward, or
-    K6 for bounded logits, and K7 backward); below the threshold or on the
-    CPU, the einsum softmax (logits in f32 from ``dtype`` operands, p in
-    ``dtype``). The output has q's dtype. Inside :func:`sequence_parallel`
+    """[B,H,T,D] attention dispatch, the JAX package's: where ``_build``'s
+    rule takes the kernels and T >= ``flash_threshold``,
+    :func:`flash_attention` (K9 forward, or K6 for bounded logits, and K7
+    backward); otherwise the einsum softmax (logits in f32 from ``dtype``
+    operands, p in ``dtype``). The output has q's dtype. Inside :func:`sequence_parallel`
     the ring attention of ``dtype`` operands, whatever T."""
     T = q.shape[2]
     out_dtype = q.dtype
@@ -663,7 +641,7 @@ def attention_auto(q, k, v, scale: Optional[float] = None,
         from .ring_attention import ring_attention
         return ring_attention(q.to(dtype), k.to(dtype), v.to(dtype),
                               _SEQ_PARALLEL, scale).to(out_dtype)
-    if q.device.type == "cuda" and T >= flash_threshold:
+    if _build.use_kernel(q) and T >= flash_threshold:
         return flash_attention(q.to(dtype), k.to(dtype), v.to(dtype), scale,
                                bounded_logits=bounded_logits).to(out_dtype)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
@@ -675,18 +653,17 @@ def attention_auto(q, k, v, scale: Optional[float] = None,
 
 
 def attention_bthd(q, k, v, scale: Optional[float] = None,
-                   dtype: torch.dtype = torch.bfloat16, plain: bool = False,
+                   dtype: torch.dtype = torch.bfloat16,
                    tensor_parallel: bool = False):
     """[B, T, H, D] non-causal attention for bounded logits. q, k, v are
     cast to ``dtype``; the output has q's dtype, and its gradient reaches
-    the backward in ``dtype``. K5 forward and K7 backward on CUDA tensors
-    (they raise on a head dim or dtype they do not take, with no
-    fallback), the plain versions on CPU tensors or when the caller asks
-    for them with ``plain=True`` (the DiT's plain path). With
-    ``tensor_parallel=True`` (a tensor-parallel shard's attention over its
-    own heads; JAX's ``tensor_parallel`` context) it follows the JAX
-    package instead: the [B, H, T, D] views go to :func:`attention_auto`
-    (or, with ``plain=True``, to K6's plain version), without a copy.
+    the backward in ``dtype``. K5 forward and K7 backward (they raise on a
+    head dim or dtype they do not take, with no fallback) or the plain
+    versions, by ``_build``'s rule. With ``tensor_parallel=True`` (a
+    tensor-parallel shard's attention over its own heads; JAX's
+    ``tensor_parallel`` context) it follows the JAX package instead: the
+    [B, H, T, D] views go to :func:`attention_auto` (or, inside
+    ``_build.plain()``, to K6's plain version), without a copy.
     Inside :func:`sequence_parallel` the [B, H, T, D] views go to
     :func:`attention_auto` and so to the ring, as in the JAX package."""
     _check(q, k, v)
@@ -698,13 +675,13 @@ def attention_bthd(q, k, v, scale: Optional[float] = None,
         return _bthd(o).to(out_dtype)
     if tensor_parallel:
         qh, kh, vh = _bthd(q), _bthd(k), _bthd(v)
-        if plain:
+        if _build.in_plain():
             o = FlashFn.apply(qh.to(dtype), kh.to(dtype), vh.to(dtype),
-                              float(scale), True)
+                              float(scale))
         else:
             o = attention_auto(qh, kh, vh, scale, dtype,
                                bounded_logits=True)
         return _bthd(o).to(out_dtype)
     qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
-    o = FlashBTHDFn.apply(qd, kd, vd, float(scale), bool(plain))
+    o = FlashBTHDFn.apply(qd, kd, vd, float(scale))
     return o.to(out_dtype)

@@ -12,8 +12,9 @@ index in [-R, 0) counts from the end, any other outside [0, R) gives a row
 of NaN. In range the gather is ``tab.index_select(0, idx)`` exactly.
 
 :func:`gather_rows_kernel` launches the kernel on CUDA tensors and raises
-on what it does not take; :func:`gather_rows_plain` is its plain version,
-which :func:`gather_rows` runs on CPU tensors and never falls back to.
+on what it does not take; :func:`gather_rows_plain` is its plain version.
+:func:`gather_rows` takes one or the other by ``_build``'s rule and never
+falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -63,27 +64,20 @@ def gather_rows_kernel(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     tab, idx = tab.contiguous(), idx.contiguous()
     A, (R, W) = idx.shape[0], tab.shape
     out = torch.empty((A, W), dtype=tab.dtype, device=tab.device)
-    code = _build.library().lsx_gather_rows(
-        tab.data_ptr(), idx.data_ptr(), out.data_ptr(), R, W, A,
-        tab.element_size(), _build.stream_ptr(tab.device))
-    _build.launch_counts["gather_rows"] += 1
-    _build.check(code, "gather_rows")
+    _build.launch("gather_rows", tab.device, tab.data_ptr(), idx.data_ptr(),
+                  out.data_ptr(), R, W, A, tab.element_size())
     return out
 
 
 def gather_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``pallas_gather``'s function: rows [A / 512, 512, W] of ``tab``
-    [R, W] at ``idx`` [A], A a multiple of 512. K13c on CUDA tensors, its
-    plain version on CPU tensors."""
+    [R, W] at ``idx`` [A], A a multiple of 512: K13c or its plain version
+    by ``_build``'s rule."""
     _check(tab, idx)
     A = idx.shape[0]
     if A % CHUNK:
         raise ValueError(f"gather_rows takes a multiple of {CHUNK} indices "
                          f"(the TPU kernel's chunk), got {A}")
-    if tab.device.type == "cpu":
-        rows = gather_rows_plain(tab, idx)
-    elif tab.device.type == "cuda":
-        rows = gather_rows_kernel(tab, idx)
-    else:
-        raise ValueError(f"gather_rows: unsupported device {tab.device}")
+    rows = (gather_rows_kernel if _build.use_kernel(tab)
+            else gather_rows_plain)(tab, idx)
     return rows.reshape(A // CHUNK, CHUNK, tab.shape[1])

@@ -7,11 +7,11 @@ then y = n·γ + β modulated per stream — rows ``< text_len`` take the
 text (scale, shift), later rows the video pair:
 y = (n·γ + β)(1 + scale) + shift.
 
-:func:`ln_modulate` launches ``csrc/ln_modulate.cu`` on CUDA tensors
-(one read of x, one write of y; bf16 or f32, one type for every
-operand, as the JAX kernel reads each operand in its own type: the bf16
-DiT serves and LoRA-trains in bf16, the full fine-tune runs f32) and
-runs :func:`ln_modulate_plain` on CPU tensors. It is an autograd function
+:func:`ln_modulate` launches ``csrc/ln_modulate.cu`` (one read of x, one
+write of y; bf16 or f32, one type for every operand, as the JAX kernel
+reads each operand in its own type: the bf16 DiT serves and LoRA-trains
+in bf16, the full fine-tune runs f32) or runs :func:`ln_modulate_plain`,
+by ``_build``'s rule. It is an autograd function
 whose backward differentiates the plain formula, as the JAX
 ``custom_vjp`` does.
 """
@@ -55,8 +55,6 @@ def _check(x, gamma, beta, mods) -> None:
     devs = {t.device for t in (x, gamma, beta, *mods)}
     if len(devs) != 1:
         raise ValueError(f"ln_modulate: operands on several devices {devs}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"ln_modulate: unsupported device {x.device}")
 
 
 def _ln_modulate_cuda(x, gamma, beta, sc, sh, tsc, tsh, text_len: int):
@@ -78,28 +76,23 @@ def _ln_modulate_cuda(x, gamma, beta, sc, sh, tsc, tsh, text_len: int):
     if any(t.data_ptr() % 16 for t in (x, gamma, beta, *mods)):
         raise ValueError("ln_modulate kernel wants 16-byte aligned operands")
     y = torch.empty_like(x)
-    lib = _build.library()
-    code = lib.lsx_ln_modulate(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        *[m.data_ptr() for m in mods], y.data_ptr(), B, T, H, int(text_len),
-        int(x.dtype == torch.float32), _build.stream_ptr(x.device))
-    _build.launch_counts["ln_modulate"] += 1
-    _build.check(code, "ln_modulate")
+    _build.launch("ln_modulate", x.device, x.data_ptr(), gamma.data_ptr(),
+                  beta.data_ptr(), *[m.data_ptr() for m in mods],
+                  y.data_ptr(), B, T, H, int(text_len),
+                  int(x.dtype == torch.float32))
     return y
 
 
 class LnModulateFn(torch.autograd.Function):
-    """K8 (or the plain version on CPU tensors) forward; backward through
-    the plain formula (the JAX ``_lnz_vjp_bwd``)."""
+    """K8 or the plain version forward, by ``_build``'s rule; backward
+    through the plain formula (the JAX ``_lnz_vjp_bwd``)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, sc, sh, tsc, tsh, text_len: int):
         ctx.save_for_backward(x, gamma, beta, sc, sh, tsc, tsh)
         ctx.text_len = text_len
-        if x.device.type == "cpu":
-            return ln_modulate_plain(x, gamma, beta, sc, sh, tsc, tsh,
-                                     text_len)
-        return _ln_modulate_cuda(x, gamma, beta, sc, sh, tsc, tsh, text_len)
+        fn = _ln_modulate_cuda if _build.use_kernel(x) else ln_modulate_plain
+        return fn(x, gamma, beta, sc, sh, tsc, tsh, text_len)
 
     @staticmethod
     def backward(ctx, g):
@@ -116,9 +109,9 @@ class LnModulateFn(torch.autograd.Function):
 
 def ln_modulate(x, gamma, beta, sc, sh, tsc, tsh, text_len: int):
     """Fused LNZ: LN(x)·γ + β then per-stream (1 + scale), shift.
-    x [B,T,H]; gamma/beta [H]; sc/sh/tsc/tsh [B,H]. Kernel K8 on CUDA
-    tensors (or an error for what it does not take), the plain version on
-    CPU tensors."""
+    x [B,T,H]; gamma/beta [H]; sc/sh/tsc/tsh [B,H]. Kernel K8 (or an error
+    for what it does not take) or the plain version, by ``_build``'s
+    rule."""
     _check(x, gamma, beta, (sc, sh, tsc, tsh))
     return LnModulateFn.apply(x, gamma, beta, sc, sh, tsc, tsh,
                               int(text_len))

@@ -17,15 +17,13 @@ cuDNN's default TF32 never applies: E[x^2] - E[x]^2 cancels at reduced
 precision), and the matrix products run inside :func:`exact_f32`.
 
 The 3D kNN regulariser's neighbour search runs kernel K14
-(:func:`knn_select`, ``csrc/knn_select.cu``) on CUDA tensors and the plain
-dense d2 with :func:`_knn_smallest` elsewhere. On the card K14's distances
+(:func:`knn_select`, ``csrc/knn_select.cu``) or the plain dense d2 with
+:func:`_knn_smallest`, by ``_build``'s rule. On the card K14's distances
 are the dense expression's bit for bit, so both select the same neighbours.
 """
 from __future__ import annotations
 
 import contextlib
-import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
@@ -145,16 +143,6 @@ def _knn_smallest(d2: torch.Tensor, k: int) -> torch.Tensor:
 KNN_MAX_K = 16      # K14's largest k: its k-lists live in registers
 
 
-@functools.lru_cache(maxsize=64)
-def _knn_scratch_bytes(S: int, N: int, k: int, device: int) -> int:
-    """Device scratch K14 takes for (S, N, k) on CUDA device ``device``."""
-    n = ctypes.c_longlong(0)
-    with torch.cuda.device(device):
-        _build.check(_build.library().lsx_knn_select_scratch(
-            S, N, k, ctypes.addressof(n)), "knn_select scratch")
-    return n.value
-
-
 def _knn_check(what: str, sf, sq_s, features, sq_f) -> tuple:
     """(S, N) of K14's inputs: f32 contiguous sf [S, 3], sq_s [S],
     features [N, 3], sq_f [N] on one CUDA device; raises otherwise."""
@@ -200,15 +188,12 @@ def knn_select(sf: torch.Tensor, sq_s: torch.Tensor, features: torch.Tensor,
     profiling.count("knn.rows", S)
     if S == 0:
         return vals, cols
-    scratch = torch.empty(_knn_scratch_bytes(S, N, k, dev.index),
+    scratch = torch.empty(_build.knn_select_scratch(S, N, k, dev.index),
                           dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        code = _build.library().lsx_knn_select(
-            sf.data_ptr(), sq_s.data_ptr(), features.data_ptr(),
-            sq_f.data_ptr(), vals.data_ptr(), cols.data_ptr(),
-            scratch.data_ptr(), S, N, k, _build.stream_ptr(dev))
-    _build.launch_counts["knn_select"] += 1
-    _build.check(code, "knn_select")
+        _build.launch("knn_select", dev, sf.data_ptr(), sq_s.data_ptr(),
+                      features.data_ptr(), sq_f.data_ptr(), vals.data_ptr(),
+                      cols.data_ptr(), scratch.data_ptr(), S, N, k)
     return vals, cols
 
 
@@ -218,14 +203,14 @@ def loss_cls_3d(idx: torch.Tensor, features: torch.Tensor,
     """kNN KL regularizer on per-splat predictions. ``idx`` [S] are the
     sampled splats (the JAX version's ``permutation(key, N)[:800]``),
     ``features`` [N,3] positions, ``predictions`` [N,C]. The neighbours:
-    K14 on CUDA tensors, the dense d2 and :func:`_knn_smallest` elsewhere."""
+    K14, or the dense d2 and :func:`_knn_smallest`, by ``_build``'s rule."""
     pmin, pmax = predictions.min(), predictions.max()
     preds = torch.where(pmax > pmin,
                         (predictions - pmin) / (pmax - pmin + 1e-12),
                         predictions)
     sf = features[idx]
     sp = preds[idx]
-    if features.device.type == "cuda":
+    if _build.use_kernel(features):
         with torch.no_grad():
             sfc, fc = sf.contiguous(), features.contiguous()
             nbr = knn_select(sfc, (sfc ** 2).sum(-1), fc,

@@ -5,12 +5,11 @@
 the full :class:`RenderOutput`. Gradients flow by autograd through
 preprocess, the blend (a ``torch.autograd.Function``, see
 :mod:`.rasterize_cuda`) and the assembly; binning is discrete and runs
-outside the graph, on detached inputs. On CUDA tensors binning goes
-through kernels K3 (compaction) and K4 (radix sort) and the blend through
-kernels K1 (forward) and K2 (backward); on CPU tensors every wrapper runs
-its plain version. ``RasterConfig(use_pallas=False)`` selects the plain
-path on any device, which is how the kernels are held against the
-reference on the card.
+outside the graph, on detached inputs. Binning goes through kernels K3
+(compaction) and K4 (radix sort) and the blend through kernels K1
+(forward) and K2 (backward), or every wrapper runs its plain version, by
+``_build``'s rule: inside ``_build.plain()`` the plain path runs on the
+card too, which is how the kernels are held against it there.
 
 Channel layout (config.h:15-20): 3 RGB + 3 language + 3 instance + 5
 all_map (local normal xyz, alpha-constant 1, plane distance).
@@ -30,49 +29,26 @@ from .rasterize_cuda import blend_tiles
 
 @dataclasses.dataclass(frozen=True)
 class RasterConfig:
-    """The JAX ``RasterConfig`` fields, so a config carries across.
-
-    Port notes: ``use_pallas`` None/True runs the kernels on CUDA tensors
-    and False runs the plain path everywhere. ``compact_sort`` and
-    ``pallas_sort`` select nothing (binning always compacts and
-    radix-sorts; the lists are identical either way). ``chunk`` is the
-    plain blend's chunk length; ``max_splats_per_tile`` is unused (the
-    plain blend walks every pair, as the kernel does). The knobs of
-    paths that are not ported — ``depth_presort``, ``payload_depth_rank``,
-    ``packed_sort``, ``key_only_sort`` and ``align_free=False`` — raise
-    NotImplementedError when set away from their defaults."""
+    """The fields of the JAX ``RasterConfig`` that select something on the
+    port's path; ``chunk`` is the plain blend's chunk length. The JAX
+    config's other fields have no counterpart here: the port has none of
+    their paths (``depth_presort``, ``payload_depth_rank``,
+    ``packed_sort``, ``key_only_sort``, ``align_free``), it makes their
+    choice once (binning always compacts and radix-sorts, which the JAX
+    docstrings give the same lists as ``compact_sort`` and ``pallas_sort``;
+    the plain blend walks every pair, as the kernel does, with no
+    ``max_splats_per_tile``), or it picks the kernels by ``_build``'s
+    rule."""
     tile_w: int = 32
     tile_h: int = 32
     max_tiles_per_splat: int = 32
     max_pairs: int | None = None
     big_splats: int = 256
     chunk: int = 128
-    max_splats_per_tile: int = 4096
-    use_pallas: Optional[bool] = None
     opacity_aware_radius: bool = True
-    depth_presort: bool = False
     tile_cull: bool = True
-    payload_depth_rank: bool = False
-    align_free: bool = True
-    packed_sort: bool = False
     extra_tiers: tuple = ()
     rank_key_sort: bool = True
-    compact_sort: bool = False
-    pallas_sort: bool = False
-    key_only_sort: bool = False
-
-    def __post_init__(self):
-        for name in ("depth_presort", "payload_depth_rank", "packed_sort",
-                     "key_only_sort"):
-            if getattr(self, name):
-                raise NotImplementedError(f"RasterConfig.{name} is not "
-                                          f"ported to the CUDA path")
-        if not self.align_free:
-            raise NotImplementedError(
-                "RasterConfig.align_free=False is not ported")
-
-    def use_kernels(self) -> bool:
-        return self.use_pallas is not False
 
 
 class RenderOutput(NamedTuple):
@@ -146,9 +122,7 @@ def prepare_blend(means3d, scales, quats, opacity, cam: RasterCamera,
         lists = build_tile_lists(
             proc, grid_x, grid_y, cfg.max_tiles_per_splat,
             max_pairs=cfg.max_pairs, big_splats=cfg.big_splats, cull=cull,
-            extra_tiers=cfg.extra_tiers, rank_key=cfg.rank_key_sort,
-            key_only=cfg.key_only_sort, compact=cfg.compact_sort,
-            pallas_sort=cfg.pallas_sort, kernels=cfg.use_kernels())
+            extra_tiers=cfg.extra_tiers, rank_key=cfg.rank_key_sort)
 
     parts = [proc.rgb]
     for extra in (language_feature, instance_feature, all_map):

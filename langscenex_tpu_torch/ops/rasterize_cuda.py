@@ -22,9 +22,9 @@ row with float atomics.
 ``mean2d_abs_hook`` argument: a zero [P, 2] tensor whose gradient receives
 each splat's exact sum over pixels of |dL/d mean2d| (the densification
 statistic). Gradients flow to mean2d, conic, opacity and channels through
-:class:`BlendTilesFn`. On CUDA tensors it launches K1 and K2; on CPU
-tensors, or with ``use_pallas=False``, it runs the plain versions:
-:func:`blend_tiles_plain`, a torch port of the JAX ``blend_tiles_xla``
+:class:`BlendTilesFn`. By ``_build``'s rule it launches K1 and K2
+(:func:`blend_forward`, :func:`blend_backward`) or runs the plain
+versions: :func:`blend_tiles_plain`, a torch port of the JAX ``blend_tiles_xla``
 that walks every chunk of the longest tile list (the XLA path's
 ``max_splats_per_tile`` truncation would disagree with the kernel, which
 never truncates), and :func:`blend_backward_plain`, the same recurrence
@@ -241,6 +241,10 @@ def blend_work(lists: TileLists, mean2d, conic, opacity, grid_x: int,
 def _check_inputs(lists: TileLists, n_tiles: int, tile_w: int, tile_h: int,
                   **floats):
     npx = tile_w * tile_h
+    for name, t in floats.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"blend kernels: unsupported device {t.device} "
+                             f"for {name}; they take CUDA tensors")
     dev = lists.point_list.device
     if npx > MAX_TILE_PIXELS:
         raise ValueError(f"blend kernels take tiles of <= {MAX_TILE_PIXELS} "
@@ -282,14 +286,10 @@ def _blend_tiles_cuda(lists: TileLists, mean2d, conic, opacity, channels,
     accum = torch.empty((n_tiles, C, npx), dtype=torch.float32, device=dev)
     final_T = torch.empty((n_tiles, npx), dtype=torch.float32, device=dev)
     observe = torch.empty((P,), dtype=torch.int32, device=dev)
-    lib = _build.library()
-    code = lib.lsx_blend_forward(
-        point_list.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-        payload.data_ptr(), accum.data_ptr(), final_T.data_ptr(),
-        observe.data_ptr(), n_tiles, grid_x, tile_w, tile_h, C, 6 + C, P,
-        _build.stream_ptr(dev))
-    _build.launch_counts["blend_forward"] += 1
-    _build.check(code, "blend_forward")
+    _build.launch("blend_forward", dev, point_list.data_ptr(),
+                  starts.data_ptr(), counts.data_ptr(), payload.data_ptr(),
+                  accum.data_ptr(), final_T.data_ptr(), observe.data_ptr(),
+                  n_tiles, grid_x, tile_w, tile_h, C, 6 + C, P)
     return accum, final_T, observe
 
 
@@ -320,32 +320,19 @@ def _blend_backward_cuda(lists: TileLists, mean2d, conic, opacity, channels,
     counts = lists.tile_counts.contiguous()
     grad = torch.empty((P, GEOM_ROWS + C + 2), dtype=torch.float32,
                        device=dev)
-    lib = _build.library()
-    code = lib.lsx_blend_backward(
-        point_list.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-        payload.data_ptr(), bufs["accum"].data_ptr(),
-        bufs["final_T"].data_ptr(), bufs["g_accum"].data_ptr(),
-        bufs["g_T"].data_ptr(), grad.data_ptr(), n_tiles, grid_x, tile_w,
-        tile_h, C, 6 + C, P, _build.stream_ptr(dev))
-    _build.launch_counts["blend_backward"] += 1
-    _build.check(code, "blend_backward")
+    _build.launch("blend_backward", dev, point_list.data_ptr(),
+                  starts.data_ptr(), counts.data_ptr(), payload.data_ptr(),
+                  bufs["accum"].data_ptr(), bufs["final_T"].data_ptr(),
+                  bufs["g_accum"].data_ptr(), bufs["g_T"].data_ptr(),
+                  grad.data_ptr(), n_tiles, grid_x, tile_w, tile_h, C, 6 + C,
+                  P)
     return grad
-
-
-def _device_kind(t: torch.Tensor, what: str) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {t.device}")
-    return t.device.type
 
 
 def blend_forward(lists: TileLists, mean2d, conic, opacity, channels,
                   grid_x: int, grid_y: int, cfg):
-    """Blend forward without autograd: kernel K1 on CUDA tensors,
-    :func:`blend_tiles_plain` on CPU tensors."""
-    if _device_kind(mean2d, "blend_forward") == "cpu":
-        return blend_tiles_plain(lists, mean2d, conic, opacity, channels,
-                                 grid_x, grid_y, cfg.tile_w, cfg.tile_h,
-                                 cfg.chunk)
+    """Kernel K1, without autograd: (accum, T, observe) as
+    :func:`blend_tiles_plain` returns them."""
     return _blend_tiles_cuda(lists, mean2d, conic, opacity, channels,
                              grid_x, grid_y, cfg.tile_w, cfg.tile_h)
 
@@ -353,13 +340,8 @@ def blend_forward(lists: TileLists, mean2d, conic, opacity, channels,
 def blend_backward(lists: TileLists, mean2d, conic, opacity, channels,
                    accum, final_T, g_accum, g_T, grid_x: int, grid_y: int,
                    cfg) -> torch.Tensor:
-    """Blend backward: kernel K2 on CUDA tensors,
-    :func:`blend_backward_plain` on CPU tensors. Returns the per-splat
-    gradient rows [P, 8 + C] (see :func:`blend_backward_plain`)."""
-    if _device_kind(mean2d, "blend_backward") == "cpu":
-        return blend_backward_plain(lists, mean2d, conic, opacity, channels,
-                                    accum, final_T, g_accum, g_T, grid_x,
-                                    grid_y, cfg.tile_w, cfg.tile_h, cfg.chunk)
+    """Kernel K2: the per-splat gradient rows [P, 8 + C] (see
+    :func:`blend_backward_plain`)."""
     return _blend_backward_cuda(lists, mean2d, conic, opacity, channels,
                                 accum, final_T, g_accum, g_T, grid_x, grid_y,
                                 cfg.tile_w, cfg.tile_h)
@@ -367,15 +349,16 @@ def blend_backward(lists: TileLists, mean2d, conic, opacity, channels,
 
 class BlendTilesFn(torch.autograd.Function):
     """(accum, T, observe) = blend(mean2d, conic, opacity, channels) with
-    the JAX ``blend_pairs`` VJP: the forward is K1 (or the plain forward)
-    and the backward K2 (or the plain backward); ``abs_hook`` [P, 2] is a
-    zero input whose gradient is the per-splat sum of |dL/d mean2d| over
-    pixels. Tile lists carry no gradient (binning is discrete)."""
+    the JAX ``blend_pairs`` VJP: the forward is K1 and the backward K2, or
+    the plain forward and backward, by ``_build``'s rule asked in the
+    forward; ``abs_hook`` [P, 2] is a zero input whose gradient is the
+    per-splat sum of |dL/d mean2d| over pixels. Tile lists carry no
+    gradient (binning is discrete)."""
 
     @staticmethod
     def forward(ctx, mean2d, conic, opacity, channels, abs_hook,
-                lists: TileLists, grid_x: int, grid_y: int, cfg,
-                kernels: bool):
+                lists: TileLists, grid_x: int, grid_y: int, cfg):
+        kernels = _build.use_kernel(mean2d)
         with profiling.span("raster.blend_fwd"):
             if kernels:
                 accum, T, observe = blend_forward(
@@ -415,17 +398,13 @@ class BlendTilesFn(torch.autograd.Function):
         d_hook = grad[:, GEOM_ROWS + C:] if ctx.has_hook else None
         return (grad[:, 0:2], grad[:, 2:5], grad[:, 5].reshape(opacity.shape),
                 grad[:, GEOM_ROWS:GEOM_ROWS + C], d_hook,
-                None, None, None, None, None)
+                None, None, None, None)
 
 
 def blend_tiles(lists: TileLists, mean2d, conic, opacity, channels,
                 grid_x: int, grid_y: int, cfg,
                 mean2d_abs_hook: Optional[torch.Tensor] = None):
     """Differentiable drop-in for the JAX ``blend_tiles_pallas``: kernels
-    K1/K2 on CUDA tensors unless ``cfg.use_pallas`` is False, the plain
-    versions otherwise (always on CPU tensors)."""
-    kind = _device_kind(mean2d, "blend_tiles")
-    kernels = kind == "cuda" and cfg.use_kernels()
+    K1/K2 or the plain versions, by ``_build``'s rule."""
     return BlendTilesFn.apply(mean2d, conic, opacity, channels,
-                              mean2d_abs_hook, lists, grid_x, grid_y, cfg,
-                              kernels)
+                              mean2d_abs_hook, lists, grid_x, grid_y, cfg)

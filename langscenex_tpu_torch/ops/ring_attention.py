@@ -12,12 +12,12 @@ ceil/floor split of T (the first T mod n ranks take one row more); there
 is no pad and no mask (the JAX package pads T to a multiple of n and
 masks the pad keys, which computes the same function).
 
-The local block:
+The local block, by ``_build``'s rule:
 
-* on CPU tensors, the JAX package's ``_local_block``: logits in f32 from
+* plain, the JAX package's ``_local_block``: logits in f32 from
   the working-dtype operands, a running max m, l and acc carried across
   the ring's steps, p rounded to v's dtype in the PV product, o = acc / l;
-* on CUDA tensors, K9's kernel (``flash_attention_online_kernel``) on the
+* with the kernels, K9's kernel (``flash_attention_online_kernel``) on the
   rank's rows against the shard's keys, with the shard's own key length:
   it returns o normalised over the shard and l2 = m + log2 l (base 2, of
   the logits times log2 e), and the partial results merge by their l2 in
@@ -27,7 +27,7 @@ The local block:
 The backward (:class:`RingFn`) is a second ring pass: each step feeds the
 rank's rows of the global o, its l2 and the output gradient do to K7 with
 the shard's key length (``flash_attention_backward_kernel``, the K12
-route) on the card, or to its plain version on the CPU. dq accumulates at
+route), or to its plain version. dq accumulates at
 home in f32; dk and dv (f32) travel with their shard, and one more step
 brings them back to the shard's owner. Then dq, dk and dv are gathered
 like the output.
@@ -46,6 +46,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from .. import _build
 from .flash_attention import (LOG2E, NEG_INF, flash_attention_backward_kernel,
                               flash_attention_backward_plain,
                               flash_attention_online_kernel)
@@ -141,23 +142,24 @@ def _merge(o_a, l2_a, o_b, l2_b):
     return o, m + torch.log2(den)
 
 
-def _ring_forward(ring: _Ring, q, k, v, scale: float, sizes: list):
-    """This rank's rows: (o [B,H,Tq,D] in q's dtype, l2 [B·H, Tq] f32)."""
+def _ring_forward(ring: _Ring, q, k, v, scale: float, sizes: list,
+                  kernel: bool):
+    """This rank's rows: (o [B,H,Tq,D] in q's dtype, l2 [B·H, Tq] f32),
+    through K9 per block with ``kernel``, else the einsum block."""
     r, n = ring.rank, ring.n
     lo = sum(sizes[:r])
     qr = q[:, :, lo:lo + sizes[r]]
     k_cur = k[:, :, lo:lo + sizes[r]]
     v_cur = v[:, :, lo:lo + sizes[r]]
     B, H, Tq, D = qr.shape
-    cuda = q.device.type == "cuda"
-    if cuda:
+    if kernel:
         o = l2 = None
     else:
         m = torch.full((B, H, Tq, 1), NEG_INF, device=q.device)
         l = torch.zeros((B, H, Tq, 1), device=q.device)
         acc = torch.zeros((B, H, Tq, D), device=q.device)
     for step in range(n):
-        if cuda:
+        if kernel:
             ob, l2b = flash_attention_online_kernel(qr, k_cur, v_cur, scale)
             l2b = l2b.view(B, H, Tq)
             if o is None:
@@ -170,7 +172,7 @@ def _ring_forward(ring: _Ring, q, k, v, scale: float, sizes: list):
             # the shard this rank holds next started on rank r - step - 1
             k_cur, v_cur = ring.shift([k_cur, v_cur],
                                       sizes[(r - step - 1) % n])
-    if not cuda:
+    if not kernel:
         l = l.clamp(min=1e-30)
         o = acc / l
         l2 = m[..., 0] * LOG2E + torch.log2(l[..., 0])
@@ -185,9 +187,11 @@ class RingFn(torch.autograd.Function):
     def forward(ctx, q, k, v, mesh, scale: float):
         ring = _Ring(mesh)
         sizes = shard_sizes(q.shape[2], ring.n)
-        o, l2 = _ring_forward(ring, q, k, v, scale, sizes)
+        kernel = _build.use_kernel(q)
+        o, l2 = _ring_forward(ring, q, k, v, scale, sizes, kernel)
         ctx.save_for_backward(q, k, v, o, l2)
         ctx.ring, ctx.sizes, ctx.scale = ring, sizes, scale
+        ctx.kernel = kernel
         return ring.gather(o, sizes)
 
     @staticmethod
@@ -199,7 +203,7 @@ class RingFn(torch.autograd.Function):
         rows = slice(lo, lo + sizes[r])
         qr, dor = q[:, :, rows], do[:, :, rows].to(q.dtype)
         k_cur, v_cur = k[:, :, rows], v[:, :, rows]
-        bwd = (flash_attention_backward_kernel if q.device.type == "cuda"
+        bwd = (flash_attention_backward_kernel if ctx.kernel
                else flash_attention_backward_plain)
         dq = torch.zeros(qr.shape, dtype=torch.float32, device=q.device)
         dk = torch.zeros(k_cur.shape, dtype=torch.float32, device=q.device)
@@ -226,9 +230,9 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
     """Exact non-causal attention of global [B,H,T,D] q, k, v held by every
     rank of ``mesh``'s ``data`` group, the token axis split over the ring;
     returns the global [B,H,T,D] output in q's dtype on every rank,
-    differentiable. K9 forward and K7 backward on CUDA tensors (bf16, head
-    dim 64; they raise on anything else), the JAX package's einsum block
-    and K7's plain version on CPU tensors."""
+    differentiable. By ``_build``'s rule K9 forward and K7 backward (bf16,
+    head dim 64; they raise on anything else), or the JAX package's einsum
+    block and K7's plain version."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"ring_attention wants q, k, v [B,H,T,D] of one "
                          f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "

@@ -11,8 +11,8 @@ upsweep over all four digits, then one launch per digit whose blocks find
 their offsets by decoupled look-back; the wrapper allocates one scratch
 tensor per call, sized by :func:`sort_scratch_words`.
 
-:func:`sort_pairs` launches the kernel for CUDA tensors and runs the plain
-version (:func:`sort_pairs_plain`) for CPU tensors.
+:func:`sort_pairs` launches the kernel or runs the plain version
+(:func:`sort_pairs_plain`) by ``_build``'s rule.
 """
 from __future__ import annotations
 
@@ -56,10 +56,8 @@ def sort_pairs_plain(key: torch.Tensor, val: torch.Tensor):
 def sort_pairs(key: torch.Tensor, val: torch.Tensor):
     """(sorted key, val in key order); stable on equal keys."""
     _check_pair(key, val)
-    if key.device.type == "cpu":
+    if not _build.use_kernel(key):
         return sort_pairs_plain(key, val)
-    if key.device.type != "cuda":
-        raise ValueError(f"sort_pairs: unsupported device {key.device}")
     n = key.numel()
     if n >= MAX_PAIRS:
         raise ValueError(f"sort_pairs takes fewer than 2^30 pairs, got {n}")
@@ -69,9 +67,6 @@ def sort_pairs(key: torch.Tensor, val: torch.Tensor):
     out_v = torch.empty_like(val)
     scratch = torch.empty(sort_scratch_words(n), dtype=torch.int32,
                           device=key.device)
-    code = _build.library().lsx_sort_pairs(
-        key.data_ptr(), val.data_ptr(), out_k.data_ptr(), out_v.data_ptr(),
-        scratch.data_ptr(), n, _build.stream_ptr(key.device))
-    _build.launch_counts["sort_pairs"] += 1
-    _build.check(code, "sort_pairs")
+    _build.launch("sort_pairs", key.device, key.data_ptr(), val.data_ptr(),
+                  out_k.data_ptr(), out_v.data_ptr(), scratch.data_ptr(), n)
     return out_k, out_v

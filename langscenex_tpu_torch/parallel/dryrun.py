@@ -326,7 +326,7 @@ def field_dryrun_inputs(n_views: int, device):
     cfg = OptimizationConfig(loss_obj_3d=True, grouping_loss=True,
                              multi_view_sample_num=64)
     rcfg = RasterConfig(tile_w=16, tile_h=8, max_tiles_per_splat=32,
-                        chunk=32, max_splats_per_tile=64)
+                        chunk=32)
     fovx = 1.0
     fovy = focal2fov(fov2focal(fovx, W), H)
     eye = torch.eye(4, device=device)

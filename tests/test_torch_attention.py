@@ -13,6 +13,7 @@ from test_torch_threads import few_torch_threads  # noqa: F401
 
 from langscenex_tpu.ops.flash_attention import (_flash_fwd_impl_bthd,
                                                 attention_bthd as jax_attn)
+from langscenex_tpu_torch import _build
 from langscenex_tpu_torch.ops.flash_attention import (attention_bthd,
                                                       attention_bthd_kernel,
                                                       attention_bthd_plain)
@@ -84,11 +85,13 @@ def test_dispatch_matches_jax_cpu_dispatch():
                          dtype=torch.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=2e-5)
-    # on CPU tensors it is exactly the plain version, as with plain=True
+    # on CPU tensors it is exactly the plain version, as inside
+    # _build.plain()
     o, _ = attention_bthd_plain(*map(torch.from_numpy, (q, k, v)), 0.125)
     torch.testing.assert_close(o, got, atol=0, rtol=0)
-    asked = attention_bthd(*map(torch.from_numpy, (q, k, v)),
-                           dtype=torch.float32, plain=True)
+    with _build.plain():
+        asked = attention_bthd(*map(torch.from_numpy, (q, k, v)),
+                               dtype=torch.float32)
     torch.testing.assert_close(asked, got, atol=0, rtol=0)
 
 

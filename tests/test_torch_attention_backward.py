@@ -125,7 +125,7 @@ def test_autograd_function_runs_the_plain_backward_on_cpu():
     # the autograd function's gradients are exactly the plain backward's
     q, k, v, do = map(torch.from_numpy, _mk(B=1, T=40, H=2, seed=5))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    FlashBTHDFn.apply(*leaves, SCALE, False).backward(do)
+    FlashBTHDFn.apply(*leaves, SCALE).backward(do)
     o, l2 = attention_bthd_plain(q, k, v, SCALE)
     want = attention_bthd_backward_plain(q, k, v, o, l2, do, SCALE)
     for leaf, w in zip(leaves, want):

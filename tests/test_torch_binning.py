@@ -138,15 +138,9 @@ def test_compact_pallas_sort_lists_bit_identical():
     # interpret mode; the port compacts and radix-sorts
     proc, jcull, tproc, tcull, (gx, gy) = _setup(256, 128, 1000, 7)
     kw = dict(max_tiles_per_splat=8, max_pairs=4000, big_splats=16,
-              extra_tiers=((512, 8),), rank_key=True, compact=True,
-              pallas_sort=True)
-    a = _jax_build(proc, gx, gy, cull=jcull, **kw)
+              extra_tiers=((512, 8),), rank_key=True)
+    a = _jax_build(proc, gx, gy, cull=jcull, compact=True, pallas_sort=True,
+                   **kw)
     b = build_tile_lists(tproc, gx, gy, cull=tcull, **kw)
     _assert_same(a, b)
     assert not bool(a.overflowed)
-
-
-def test_key_only_is_not_ported():
-    _, _, tproc, tcull, (gx, gy) = _setup(64, 64, 50, 0)
-    with pytest.raises(NotImplementedError):
-        build_tile_lists(tproc, gx, gy, rank_key=True, key_only=True)

@@ -21,7 +21,7 @@ from langscenex_tpu.ops.rasterize import RasterConfig as JConfig
 from langscenex_tpu.ops.rasterize_pallas import blend_tiles_pallas
 from langscenex_tpu_torch.ops.binning import TileLists
 from langscenex_tpu_torch.ops.rasterize import RasterConfig
-from langscenex_tpu_torch.ops.rasterize_cuda import (blend_backward,
+from langscenex_tpu_torch.ops.rasterize_cuda import (blend_backward_plain,
                                                      blend_tiles,
                                                      blend_tiles_plain)
 
@@ -147,15 +147,14 @@ def test_plain_backward_matches_autograd_of_plain_forward(chunk):
                                                     opac)), None)
     tl = TileLists(*(_t(x) for x in lists[:7]))
     ins = [_t(x) for x in (proc.mean2d, proc.conic, op, colors)]
-    cfg = RasterConfig(tile_w=128, tile_h=8, chunk=chunk)
     leaves = [x.clone().requires_grad_() for x in ins]
     accum, T, _ = blend_tiles_plain(tl, *leaves, GX, GY, 128, 8, chunk)
     ref = torch.autograd.grad((accum * _t(wts)).sum() + (T * _t(twts)).sum(),
                               leaves)
     with torch.no_grad():
         accum, T, _ = blend_tiles_plain(tl, *ins, GX, GY, 128, 8, chunk)
-        got = blend_backward(tl, *ins, accum, T, _t(wts), _t(twts), GX, GY,
-                             cfg)
+        got = blend_backward_plain(tl, *ins, accum, T, _t(wts), _t(twts), GX,
+                                   GY, 128, 8, chunk)
     assert int(np.asarray(lists.tile_counts).max()) > chunk
     cols = (got[:, 0:2], got[:, 2:5], got[:, 5], got[:, 6:6 + C])
     for a, b, nm in zip(ref, cols, NAMES):

@@ -22,7 +22,7 @@ from langscenex_tpu.models.cogvideox import transformer as jtr
 from langscenex_tpu.models.cogvideox import vae as jvae
 from langscenex_tpu.utils.convert import (convert_cogvideox_dit,
                                           convert_cogvideox_vae)
-from langscenex_tpu_torch import convert, video_inference
+from langscenex_tpu_torch import _build, convert, video_inference
 from langscenex_tpu_torch.models import t5
 from langscenex_tpu_torch.models.cogvideox import pipeline, scheduler, vae
 from langscenex_tpu_torch.models.cogvideox import transformer as tr
@@ -87,16 +87,15 @@ def test_dit_matches_jax(dit_pair):
 
 
 def test_dit_plain_switch_is_the_same_model(dit_pair):
-    # on CPU tensors the kernel wrappers run the plain versions, so the
-    # use_kernels switch must not change a bit
+    # on CPU tensors the kernel wrappers run the plain versions, so
+    # _build.plain() must not change a bit
     _, _, tmodel = dit_pair
     lat, txt = map(torch.from_numpy, _inputs(1))
     t = torch.tensor([250, 250])
     with torch.no_grad():
         a = tmodel(lat, txt, t)
-        tmodel.set_use_kernels(False)
-        b = tmodel(lat, txt, t)
-        tmodel.set_use_kernels(True)
+        with _build.plain():
+            b = tmodel(lat, txt, t)
     torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 

@@ -15,6 +15,7 @@ from jax.experimental.pallas import tpu as pltpu
 from test_torch_threads import few_torch_threads  # noqa: F401
 
 from langscenex_tpu.ops import flash_attention as jfa
+from langscenex_tpu_torch import _build
 from langscenex_tpu_torch.ops.flash_attention import (
     attention_auto, attention_bthd, flash_attention,
     flash_attention_online_plain, flash_attention_plain)
@@ -157,16 +158,17 @@ def test_attention_auto_cpu_matches_jax(dtype):
 def test_attention_bthd_under_tensor_parallel_matches_jax():
     # for a TP shard attention_bthd hands [B, H, T, D] views to
     # attention_auto (on the CPU the einsum, as the JAX CPU dispatch of
-    # attention_bthd always is): 2e-5 in f32. With plain=True it runs K6's
-    # plain version instead, the function of the card's kernel
+    # attention_bthd always is): 2e-5 in f32. Inside _build.plain() it runs
+    # K6's plain version instead, the function of the card's kernel
     q, k, v = (a.transpose(0, 2, 1, 3) for a in _mk(70, 70, seed=14))
     want = jfa.attention_bthd(*map(jnp.asarray, (q, k, v)),
                               dtype=jnp.float32)
     tq, tk, tv = map(torch.from_numpy, (q, k, v))
     got = attention_bthd(tq, tk, tv, dtype=torch.float32,
                          tensor_parallel=True)
-    plain = attention_bthd(tq, tk, tv, dtype=torch.float32, plain=True,
-                           tensor_parallel=True)
+    with _build.plain():
+        plain = attention_bthd(tq, tk, tv, dtype=torch.float32,
+                               tensor_parallel=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=2e-5)
     o, _ = flash_attention_plain(*(t.transpose(1, 2) for t in (tq, tk, tv)),

@@ -210,10 +210,12 @@ def _scene(P, seed):
 
 
 # the JAX blend through the Pallas kernel (interpret mode) and the port's
-# plain path; both take the exact-config binning at test size
+# plain path; both take the exact-config binning at test size (the port's
+# config has no field for the JAX blend's max_splats_per_tile of CFG_J)
 CFG = dict(tile_w=32, tile_h=32, max_tiles_per_splat=4, chunk=128,
-           max_splats_per_tile=1024, big_splats=16, extra_tiers=((128, 4),),
-           rank_key_sort=True, max_pairs=4000)
+           big_splats=16, extra_tiers=((128, 4),), rank_key_sort=True,
+           max_pairs=4000)
+CFG_J = dict(CFG, max_splats_per_tile=1024)
 OUT_NAMES = ("color", "language", "instance", "all_map", "final_T")
 # gradients through preprocess + the blend: the bounds of the JAX
 # package's Pallas-vs-XLA gradient test (2e-3 of the largest magnitude +
@@ -231,7 +233,7 @@ def test_rasterize_grads_match_jax():
                               width=W, height=H, tan_fovx=TANX, tan_fovy=TANY)
     bg = np.array([0.1, 0.2, 0.3], np.float32)
     ins = (means, scales, quats, opac, shs, lang, inst, amap)
-    cfg = JConfig(use_pallas=True, **CFG)
+    cfg = JConfig(use_pallas=True, **CFG_J)
 
     def jrender(m, s, q, o, sh, la, ins_, am):
         return jax_rasterize(m, s, q, o, jcam, jnp.asarray(bg), shs=sh,
@@ -290,7 +292,7 @@ def test_render_view_grads_match_jax(pose_mode):
     pose = np.array([0.999, 0.02, -0.03, 0.01, 0.1, -0.05, 0.2], np.float32)
     jcam = jproj.RasterCamera(w2c=jnp.eye(4), proj=jnp.asarray(PROJ),
                               width=W, height=H, tan_fovx=TANX, tan_fovy=TANY)
-    cfg = JConfig(use_pallas=True, **CFG)
+    cfg = JConfig(use_pallas=True, **CFG_J)
     alive = jnp.asarray(d["alive"])
 
     def jrender(params, p):

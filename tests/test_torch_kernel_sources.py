@@ -1,9 +1,7 @@
 """The port's tables of its CUDA kernels against the sources they name,
 read as text with no build (the kernels compile only where nvcc is):
 ``chip_smoke.SOURCES`` and ``TPU_KERNELS``, the C signatures of
-``langscenex_tpu_torch._build``, the includes under ``csrc/`` and the
-order of the wgmma forward's softmax modes in
-``tools/ab_forward_sm90.py``."""
+``langscenex_tpu_torch._build`` and the includes under ``csrc/``."""
 import ast
 import pathlib
 import re
@@ -59,14 +57,3 @@ def test_includes_exist(path):
                           re.M):
         assert (path.parent / inc).is_file(), (path.name, inc)
 
-
-def test_ab_tool_modes_follow_softmax_enum():
-    # the tool labels ptxas's lines of flash_fwd_wgmma<Softmax(i)> by
-    # MODES[i]: its order is the enum's
-    enum = re.search(r"enum\s+class\s+Softmax\s*\{([^}]*)\}",
-                     (CSRC / "flash_attention_sm90.cu").read_text())
-    assert enum is not None
-    names = [n.strip() for n in enum.group(1).split(",") if n.strip()]
-    modes = _assigned(ROOT / "tools" / "ab_forward_sm90.py", "MODES")
-    assert [m[0] for m in modes] == names
-    assert "kBounded" in names

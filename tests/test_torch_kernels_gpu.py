@@ -231,13 +231,16 @@ def test_rasterize_kernels_match_plain_path(cuda, tile, tiers):
     t = {k: torch.from_numpy(v).to(cuda) for k, v in dict(
         means=means, scales=scales, quats=quats, opac=opac, shs=shs,
         feats=feats).items()}
-    outs = [rasterize(t["means"], t["scales"], t["quats"], t["opac"], cam,
-                      torch.zeros(3, device=cuda), shs=t["shs"], sh_degree=3,
-                      language_feature=t["feats"][:, :3],
-                      instance_feature=t["feats"][:, 3:6],
-                      all_map=t["feats"][:, 6:11], cfg=c)
-            for c in (cfg, dataclasses.replace(cfg, use_pallas=False))]
-    k, r = outs
+
+    def render():
+        return rasterize(t["means"], t["scales"], t["quats"], t["opac"], cam,
+                         torch.zeros(3, device=cuda), shs=t["shs"],
+                         sh_degree=3, language_feature=t["feats"][:, :3],
+                         instance_feature=t["feats"][:, 3:6],
+                         all_map=t["feats"][:, 6:11], cfg=cfg)
+    k = render()
+    with _build.plain():
+        r = render()
     assert not bool(k.pairs_overflowed) and int(k.num_pairs) > 4000
     for f in ("color", "language", "instance", "all_map"):
         torch.testing.assert_close(getattr(k, f), getattr(r, f), atol=5e-4,

@@ -265,13 +265,12 @@ def test_denoise_loop_spans():
                                text_embed_dim=32, time_embed_dim=32)
     torch.manual_seed(0)
     model = tm.CogVideoXTransformer(cfg, device="cpu")
-    model.set_use_kernels(False)
     pcfg = pl.PipelineConfig(num_frames=5, height=32, width=32,
                              num_inference_steps=STEPS, latent_channels=4)
     lat = torch.randn(1, pcfg.latent_frames, 4, pcfg.latent_height,
                       pcfg.latent_width)
     text = torch.randn(1, 8, 32)
-    with torch.no_grad(), profile(activities=CPU):
+    with torch.no_grad(), _build.plain(), profile(activities=CPU):
         pl.denoise_loop(model, lat, torch.zeros_like(lat), text, text,
                         DDIMScheduler(), pcfg)
     recs = profiling.records()

@@ -44,11 +44,13 @@ FOVX = 1.0
 FOVY = jtf.focal2fov(jtf.fov2focal(FOVX, W), H)
 PROJ = jtf.projection_matrix(0.01, 100.0, FOVX, FOVY)
 # exact-style config at test size: K1 + a mid tier + catch-all, rank key,
-# compaction and the sort engine (interpret mode on the JAX side)
+# compaction and the sort engine (interpret mode on the JAX side; the
+# port's config has no fields for the JAX-only choices of EXACT_J)
 EXACT = dict(tile_w=32, tile_h=32, max_tiles_per_splat=4, chunk=128,
-             max_splats_per_tile=1024, big_splats=16,
-             extra_tiers=((128, 4),), rank_key_sort=True, max_pairs=4000,
-             compact_sort=True, pallas_sort=True)
+             big_splats=16, extra_tiers=((128, 4),), rank_key_sort=True,
+             max_pairs=4000)
+EXACT_J = dict(EXACT, max_splats_per_tile=1024, compact_sort=True,
+               pallas_sort=True)
 # Pallas/kernel vs the plain masked-cumsum blend (test_rasterize_pallas.py
 # :88-106): the log-space carry and the cumsum round differently, and
 # the Pallas blend takes dx, dy from the tile centre where the plain one
@@ -129,7 +131,7 @@ def test_plain_blend_matches_pallas_blend(dense):
 
 
 def _jax_rasterize_exact(means, scales, quats, opac, shs, lang, inst, amap):
-    cfg = JConfig(use_pallas=True, **EXACT)
+    cfg = JConfig(use_pallas=True, **EXACT_J)
     f = jax.jit(lambda *a: jax_rasterize(
         *a[:4], _jcam(), jnp.asarray([0.1, 0.2, 0.3]), shs=a[4], sh_degree=3,
         language_feature=a[5], instance_feature=a[6], all_map=a[7], cfg=cfg))
@@ -181,17 +183,17 @@ def test_rasterize_exact_config_matches_jax():
     b = rasterize(*map(_t, (means, scales, quats, opac)), _tcam(),
                   torch.tensor([0.1, 0.2, 0.3]), shs=_t(shs), sh_degree=3,
                   language_feature=_t(lang), instance_feature=_t(inst),
-                  all_map=_t(amap), cfg=RasterConfig(use_pallas=True,
-                                                     **EXACT))
+                  all_map=_t(amap), cfg=RasterConfig(**EXACT))
     assert not bool(a.pairs_overflowed) and int(a.num_pairs) > 1000
     _compare_outputs(a, b)
     assert sum(_build.launch_counts.values()) == 0     # CPU: plain versions
     # the plain path selected explicitly gives the same render
-    c = rasterize(*map(_t, (means, scales, quats, opac)), _tcam(),
-                  torch.tensor([0.1, 0.2, 0.3]), shs=_t(shs), sh_degree=3,
-                  language_feature=_t(lang), instance_feature=_t(inst),
-                  all_map=_t(amap), cfg=RasterConfig(use_pallas=False,
-                                                     **EXACT))
+    with _build.plain():
+        c = rasterize(*map(_t, (means, scales, quats, opac)), _tcam(),
+                      torch.tensor([0.1, 0.2, 0.3]), shs=_t(shs),
+                      sh_degree=3, language_feature=_t(lang),
+                      instance_feature=_t(inst), all_map=_t(amap),
+                      cfg=RasterConfig(**EXACT))
     torch.testing.assert_close(c.color, b.color, atol=0, rtol=0)
 
 
@@ -287,13 +289,3 @@ def test_ply_round_trip_across_packages(tmp_path):
                                       err_msg=f)
         np.testing.assert_array_equal(getattr(t_loaded, f).numpy()[:n],
                                       d[f][d["alive"]], err_msg=f)
-
-
-@pytest.mark.parametrize("knob", [dict(depth_presort=True),
-                                  dict(payload_depth_rank=True),
-                                  dict(packed_sort=True),
-                                  dict(key_only_sort=True),
-                                  dict(align_free=False)])
-def test_unported_config_knobs_raise(knob):
-    with pytest.raises(NotImplementedError):
-        RasterConfig(**knob)

@@ -69,7 +69,6 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     _build.build()
-    _build.library()
     failed = repeat(torch.device("cuda", 0), args.repeats)
     print(f"{args.repeats - failed} of {args.repeats} repeats passed")
     return 1 if failed else 0
