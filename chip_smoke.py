@@ -5,7 +5,7 @@ probes once on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 22    # phases 1, 2 and 22 only
-    python3 chip_smoke.py --phase 25    # (or 23, 24, 26, 27, 30) likewise
+    python3 chip_smoke.py --phase 25    # (or 23, 24, 26, 27, 30, 31) likewise
 
 Phases (any failure raises, so the exit code is non-zero):
   1. device: require CUDA; print nvidia-smi's name and power limit;
@@ -32,7 +32,7 @@ Phases (any failure raises, so the exit code is non-zero):
      render_all_views over 4 views at 720x480 with the exact raster
      config (32x32 tiles, 14 blended channels + plane depth); no overflow
      flag, finite outputs, one view held against the plain path on the
-     card, and K1/K3/K4's launch counters > 0 for that run;
+     card, and K1/K15/K4's launch counters > 0 for that run;
   5. render profile: host wall time, device busy time and idle share of
      the identity view (torch.profiler);
   6. training path, configuration field-200k-720x480: create_from_points
@@ -52,8 +52,10 @@ Phases (any failure raises, so the exit code is non-zero):
      then K1 and K2 against their plain versions on that step's real inputs
      (its first view's lists, means, conics, opacities and 8 channels,
      and the loss's upstream gradients), timed and bounded as in phase 3
-     (the kernels line's field_* keys), and K3 bit for bit on every
-     stream the step compacts, its first view's timed as in phase 3;
+     (the kernels line's field_* keys), and K15 + K4 bit for bit
+     against the plain path on every list the step builds; K3 (which the
+     step no longer runs) on its first view's broadcast stream, timed as
+     in phase 3;
   8. train profile: host wall time, device busy time and idle share of
      that step;
   9. configuration trimap-dit-5b-49x480x720 (the JAX package's full-scale
@@ -166,7 +168,7 @@ Phases (any failure raises, so the exit code is non-zero):
      mode=render (PNGs, language maps, the four TSDF meshes) and
      mode=eval with 20 pose iterations per view; each mode's artifact
      tree, every PNG decoded to its shape, the PLY at 30 equal to the
-     trained state, no overflow flag, finite PSNRs, K1/K3/K4 launched in
+     trained state, no overflow flag, finite PSNRs, K1/K15/K4 launched in
      every mode and K2 in train and eval; seconds per mode, ms per train
      iteration (with and without outputs), the TSDF fuse, mesh
      extraction and clean-up apart, ms per eval pose iteration and each
@@ -246,6 +248,16 @@ Phases (any failure raises, so the exit code is non-zero):
      times of K14, the plain version and torch.cdist + torch.topk (a
      yardstick the port never calls) beside its FP32-issue bound; its
      kernels' cuobjdump resources (no spill).
+ 31. K15, the pair enumeration of the rank-key path, at the cell
+     field-sem-720x480's shape (the benchmark's room: 1.5M splats in 2^21
+     slots, 720x480, 32x32 tiles, the default raster config) from
+     BIN_VIEWS cameras of its arc: build_tile_lists through K15 + K4 bit
+     for bit against the broadcast + K3 + K4 of _build.plain() (all seven
+     fields), one K15 and no K3 launch and no broadcast fallback a call;
+     CUDA-event times of K15 alone (queued behind a spin), of the
+     broadcast enumeration + K3 it replaces and of the whole binning both
+     ways, beside K15's bytes bound; its two kernels' cuobjdump resources
+     (no spill).
 Every kernel's bound is computed from this run's shapes: the larger of
 its operations over the bf16 tensor-core peak and its bytes (each input
 read once, each output written once) over the HBM rate; K3's reads only
@@ -273,7 +285,9 @@ import numpy as np
 import torch
 
 from langscenex_tpu_torch import _build
-from langscenex_tpu_torch.convert import gather_lora, shard_lora
+from langscenex_tpu_torch.convert import (gather_lora,
+                                         raster_camera_from_numpy,
+                                         shard_lora)
 from langscenex_tpu_torch.ops import binning
 from langscenex_tpu_torch.ops.binning import enumerate_pairs
 from langscenex_tpu_torch.models.cogvideox.pipeline import (PipelineConfig,
@@ -305,6 +319,7 @@ from langscenex_tpu_torch.ops.gather import (gather_rows, gather_rows_kernel,
 from langscenex_tpu_torch.ops.ln_modulate import (ln_modulate,
                                                   ln_modulate_plain)
 from langscenex_tpu_torch.ops.rasterize import RasterConfig, prepare_blend
+from langscenex_tpu_torch.ops import rasterize as rasterize_mod
 from langscenex_tpu_torch.ops import rasterize_cuda
 from langscenex_tpu_torch.ops.losses import (_knn_smallest, exact_f32,
                                              knn_select, loss_cls_3d)
@@ -315,7 +330,9 @@ from langscenex_tpu_torch.ops.rasterize_cuda import (blend_backward,
                                                      blend_work)
 from langscenex_tpu_torch.ops.sort_engine import (SORT_TILE, sort_pairs,
                                                   sort_pairs_plain)
-from langscenex_tpu_torch.ops.transforms import focal2fov, fov2focal
+from langscenex_tpu_torch.ops.projection import preprocess
+from langscenex_tpu_torch.ops.transforms import (focal2fov, fov2focal,
+                                                projection_matrix)
 from langscenex_tpu_torch.parallel import dryrun
 from langscenex_tpu_torch.parallel.dryrun import rank_mesh, spawn
 from langscenex_tpu_torch.parallel.mesh import (dit_sharded_apply,
@@ -558,6 +575,13 @@ KNN_S, KNN_POINTS, KNN_N, KNN_K = 800, 1_500_000, 1 << 21, 5
 KNN_SEEDS = (0, 1, 2)
 KNN_ITERS, KNN_PLAIN_ITERS = 20, 3
 KNN_ISSUE, FP32_LANES_PER_SM = 6, 128
+# K15 at field-sem-720x480's shape: the benchmark's room from these cameras
+# of its arc (seed BIN_SEED); calls per timing. K15's bound is its bytes:
+# tiles touched of every slot, BIN_SPLAT_BYTES of each splat that touches
+# a tile (rect min and max x, depth rank, mean, conic, cull threshold) and
+# 8 bytes a slot of the stream it writes
+BIN_VIEWS, BIN_SEED, BIN_ITERS, BIN_PLAIN_ITERS = (0, 24, 48), 5, 50, 5
+BIN_SPLAT_BYTES = 40
 EXP2_BF16_REL_RMS = 2 ** -5
 PACKED_EXP_ULP, K13B_REL_RMS = 2 ** -7, 2 ** -7
 # K4: calls per timing, the passes of its LSD sort, and its time at 2^19
@@ -608,6 +632,11 @@ TPU_KERNELS = {
                   "port's dense d2, topk and tie sort (ops/losses."
                   "_knn_smallest), the largest layer of a semantic field "
                   "step",
+    "bin_pairs": "none: replaces ops/binning._enumerate_two_tier's XLA "
+                 "broadcast and K3 on the rank-key path "
+                 "(langscenex_tpu/ops/binning.py enumerates the pairs as "
+                 "broadcasts and compacts them), the largest block of a "
+                 "semantic field step",
 }
 SOURCES = {
     "sort_pairs": "langscenex_tpu_torch/csrc/sort.cu",
@@ -631,9 +660,12 @@ SOURCES = {
         "langscenex_tpu_torch/csrc/flash_attention_sm90.cu",
     "gather_rows": "langscenex_tpu_torch/csrc/gather_rows.cu",
     "knn_select": "langscenex_tpu_torch/csrc/knn_select.cu",
+    "bin_pairs": "langscenex_tpu_torch/csrc/bin_pairs.cu",
 }
-RENDER_TRAIN_KERNELS = ("blend_forward", "blend_backward", "compact_pairs",
+RENDER_TRAIN_KERNELS = ("blend_forward", "blend_backward", "bin_pairs",
                         "sort_pairs")
+# K3: the card's broadcast fallback of binning (no cell's path runs it)
+BIN_FALLBACK_KERNELS = ("compact_pairs",)
 DIT_KERNELS = ("flash_attention", "ln_modulate")
 TRAIN_DIT_KERNELS = ("flash_attention_backward",)
 TP_KERNELS = ("flash_attention_bhtd",)
@@ -1184,7 +1216,7 @@ def phase_main_path(dev, cams, path) -> dict:
     timed = one_pass()
     launches = dict(_build.launch_counts)
     print(f"launch counts over the render-path run: {launches}")
-    for name in ("sort_pairs", "compact_pairs", "blend_forward"):
+    for name in ("sort_pairs", "bin_pairs", "blend_forward"):
         require(launches[name] > 0,
                 f"kernel {name} was not launched on the render path")
 
@@ -1359,34 +1391,34 @@ def recorded_blend_backward():
 
 
 @contextlib.contextmanager
-def recorded_compaction():
-    """Record the arguments of every compact_pairs call that binning makes
-    inside the block (key, sid, sent_min, out_len, fill_key, fill_sid):
-    the real K3 streams of a render or a step."""
+def recorded_binning():
+    """Record the arguments (args, kwargs) of every build_tile_lists call
+    that the render makes inside the block: the real binning inputs of a
+    render or a step."""
     calls = []
-    inner = binning.compact_pairs
+    inner = rasterize_mod.build_tile_lists
 
-    def record(*args):
-        calls.append(args)
-        return inner(*args)
-    binning.compact_pairs = record
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return inner(*args, **kwargs)
+    rasterize_mod.build_tile_lists = record
     try:
         yield calls
     finally:
-        binning.compact_pairs = inner
+        rasterize_mod.build_tile_lists = inner
 
 
 def kernel_step(tr, it: int = 600) -> tuple:
     """One geometry + multi-view step at iteration ``it`` through the
-    kernels: its flags, batch and draws and the arguments of its K3 calls
-    (``compactions``), loss_and_grads' output, and the K1/K2 inputs of its
+    kernels: its flags, batch and draws and the arguments of its binning
+    calls (``binnings``), loss_and_grads' output, and the K1/K2 inputs of its
     first view as ``check_blend_kernels`` takes them (bargs, cfg, g_accum,
     g_T). Returns (inputs, output, blend)."""
     flags = phase_flags(it, tr.cfg)
     batch = tr._camera_batch(0, flags)
     samples = tr.draw_samples(flags)
     with recorded_blend_backward() as calls, \
-            recorded_compaction() as compactions:
+            recorded_binning() as binnings:
         out = loss_and_grads(tr.cfg, flags, tr.rcfg, tr.proxy_cam, tr.state,
                              batch, samples, tr.active_sh_degree)
     (lists, mean2d, conic, opacity, channels, _, _, g_accum, g_T, gx, gy,
@@ -1395,7 +1427,7 @@ def kernel_step(tr, it: int = 600) -> tuple:
              dataclasses.replace(tr.rcfg, tile_w=tw, tile_h=th), g_accum,
              g_T)
     return (dict(flags=flags, batch=batch, samples=samples,
-                 compactions=compactions), out, blend)
+                 binnings=binnings), out, blend)
 
 
 def phase_train(dev, cams, lang_dir: str) -> dict:
@@ -1620,17 +1652,28 @@ def phase_field_blend(dev, blend, results) -> None:
             "bound_term")})
 
 
-def phase_field_compaction(dev, compactions, results) -> None:
-    """K3 bit for bit against its plain version on every stream of phase
-    7's step, the first view's timed as in phase 3: its entries join the
-    kernels line as ``field_*``."""
-    require(len(compactions) > 0, "the kernel step made no K3 call")
-    for args in compactions[1:]:
-        got, ref = compact_pairs(*args), compact_pairs_plain(*args)
-        require(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
-                "compact_pairs (field step) differs from the argsort "
-                "reference")
-    e = check_compaction(dev, "field step, it 600", compactions[0])
+def phase_field_binning(dev, binnings, results) -> None:
+    """K15 + K4 bit for bit against the plain path on every list of phase
+    7's step; K3 (the card's fallback, which the step no longer runs) on
+    the first view's broadcast stream, timed as in phase 3: its entries
+    join the kernels line as ``field_*``."""
+    require(len(binnings) > 0, "the kernel step built no tile lists")
+    for args, kwargs in binnings:
+        got = binning.build_tile_lists(*args, **kwargs)
+        with _build.plain():
+            ref = binning.build_tile_lists(*args, **kwargs)
+        require(same_lists(got, ref), "build_tile_lists (field step): K15 "
+                "+ K4 differ from the plain path")
+    print(f"K15 bin_pairs: the field step's {len(binnings)} tile lists "
+          f"bit-identical to the plain path's")
+    (proc, gx, gy, K), kw = binnings[0]
+    ps = enumerate_pairs(proc, gx, gy, K, kw["max_pairs"], kw["big_splats"],
+                         kw["cull"], kw["extra_tiers"],
+                         rank_key=kw["rank_key"])
+    require(ps.rank_key, "the field step should take the rank-key path")
+    sent = (gx * gy) << 22
+    e = check_compaction(dev, "field step, it 600", (
+        ps.key, ps.sid, sent, ps.out_len, sent, proc.depth.shape[0]))
     results["compact_pairs"].update({f"field_{k}": e[k] for k in (
         "max_abs_err", "ms", "host_paced_ms", "plain_ms", "bound_ms",
         "library_ms")})
@@ -2266,6 +2309,11 @@ def check_packed_exp2(o, ro, v, what: str) -> float:
     return err
 
 
+def same_lists(a, b) -> bool:
+    """Whether two TileLists agree bit for bit in all seven fields."""
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def launches_now() -> dict:
     return {k: v for k, v in _build.launch_counts.items() if v}
 
@@ -2776,6 +2824,122 @@ def phase_knn(dev, results) -> None:
     torch.cuda.empty_cache()
 
 
+def room_binning(dev, view: int, seed: int = BIN_SEED):
+    """field-sem-720x480's binning inputs: the benchmark's room (its
+    configuration's 1.5M splats in 2^21 slots, dead ones at zero opacity)
+    from camera ``view`` of its arc, with the default raster config's
+    tiles and conic cull: (ProcessedSplats, CullSpec, grid_x, grid_y)."""
+    from benchmark.inputs import room
+    cfg = json.loads(open(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "benchmark", "configs",
+        "lsgs-field-1p5m-720x480.json")).read())
+    sc = room.scene(cfg, seed, dev)
+    W_, H_, fx, fy = cfg["width"], cfg["height"], cfg["fovx"], room.fovy(cfg)
+    cam = raster_camera_from_numpy(
+        room.w2c(*room.arc_poses(cfg)[view]),
+        projection_matrix(0.01, 100.0, fx, fy), W_, H_, math.tan(fx / 2),
+        math.tan(fy / 2), dev)
+    quats = sc["rotation"] / torch.linalg.norm(sc["rotation"], dim=-1,
+                                               keepdim=True)
+    opac = torch.sigmoid(sc["opacity"][:, 0]) * sc["alive"]
+    tile = RasterConfig().tile_w
+    proc = preprocess(sc["xyz"], torch.exp(sc["scaling"]), quats, cam,
+                      tile_w=tile, tile_h=tile, opacity=opac,
+                      colors_precomp=torch.zeros_like(sc["xyz"]))
+    op = torch.where(proc.visible, opac, 0.0)
+    qmax = 2.0 * torch.log(torch.clamp(255.0 * op, min=1e-12)) + 0.05
+    cull = binning.CullSpec(mean2d=proc.mean2d, conic=proc.conic, qmax=qmax,
+                            tile_w=tile, tile_h=tile)
+    return proc, cull, -(-W_ // tile), -(-H_ // tile)
+
+
+def phase_bin_pairs(dev, results) -> None:
+    """Phase 31, K15 at field-sem-720x480's shape: build_tile_lists through
+    K15 + K4 against the plain path from BIN_VIEWS cameras, its launches,
+    syncs and fallback counter, times beside the bound and the path it
+    replaces, resources."""
+    rc = RasterConfig()
+    kw = dict(max_pairs=rc.max_pairs, big_splats=rc.big_splats,
+              extra_tiers=rc.extra_tiers, rank_key=rc.rank_key_sort)
+    for view in BIN_VIEWS:
+        proc, cull, gx, gy = room_binning(dev, view)
+        args = (proc, gx, gy, rc.max_tiles_per_splat)
+        binning.build_tile_lists(*args, cull=cull, **kw)   # builds, warms
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        before = profiling.counters.get("bin.broadcast", 0)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = binning.build_tile_lists(*args, cull=cull, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        launches = launches_now()
+        fallback = profiling.counters.get("bin.broadcast", 0) - before
+        with _build.plain():
+            ref = binning.build_tile_lists(*args, cull=cull, **kw)
+        n_live = int((proc.tiles_touched > 0).sum())
+        print(f"K15 bin_pairs view {view}: {proc.depth.shape[0]} slots, "
+              f"{n_live} touch a tile, {int(ref.num_pairs)} pairs; lists "
+              f"bit-identical {same_lists(got, ref)}; launches {launches}, "
+              f"broadcast fallbacks {fallback}")
+        require(same_lists(got, ref), "K15 + K4 differ from the plain path")
+        require(launches.get("bin_pairs") == 1 and "compact_pairs" not in
+                launches and fallback == 0, "build_tile_lists: launches")
+
+    # ---- times on the last view at the cap the trainer settles on (1.5x
+    # the demand, a multiple of 128): K15 alone, what it replaces, binning
+    cap = (max(int(1.5 * int(ref.num_pairs)), 1 << 16) + 127) // 128 * 128
+    kw["max_pairs"] = cap
+    n_tiles = gx * gy
+    P = proc.depth.shape[0]
+    K1, K2, B, budget = binning._sizes(P, n_tiles, rc.max_tiles_per_splat,
+                                       cap, rc.big_splats)
+    tiers = binning._tiers(P, K1, K2, B, n_tiles, rc.extra_tiers)
+    specs = [t for t in tiers if t[0] > 0]
+    A = P * K1 + sum(b * k for b, _, k in specs)
+    out_len = min(cap, A)
+    tt = proc.tiles_touched
+    sid_base = torch.arange(P, dtype=torch.int32, device=dev)
+    rank = binning._rank_of_id(tt, proc.depth, sid_base, sort_pairs)
+    top = torch.sort(-tt, stable=True) if specs else None
+    k15 = (proc, rank, cull, specs, top, K1, gx, n_tiles, budget, out_len)
+    ms = time_ms(lambda: binning._emit_pairs(*k15), BIN_ITERS, dev,
+                 queued=True)
+    sent = n_tiles << 22
+
+    def broadcast():
+        ps = enumerate_pairs(*args, cull=cull, **kw)
+        return compact_pairs(ps.key, ps.sid, sent, ps.out_len, sent, P)
+    plain_ms = cuda_ms(broadcast, BIN_PLAIN_ITERS, warmup=1)
+    lists_ms = cuda_ms(lambda: binning.build_tile_lists(*args, cull=cull,
+                                                       **kw), BIN_ITERS)
+
+    def lists_broadcast():
+        c = broadcast()
+        key, pl = sort_pairs(*c)
+        return pl, binning._tile_ranges(key >> 22, n_tiles)
+    lists_plain_ms = cuda_ms(lists_broadcast, BIN_PLAIN_ITERS, warmup=1)
+    n_live = int((tt > 0).sum())
+    moved = 4 * P + BIN_SPLAT_BYTES * n_live + 8 * out_len
+    bound_ms = moved / PEAK_HBM_BYTES * 1e3
+    print(f"K15 bin_pairs [{P}] splats ({n_live} touch a tile) -> "
+          f"{out_len} slots (max_pairs {cap}): {ms:.4f} ms on the device "
+          f"(queued); the broadcast enumeration + K3 it replaces "
+          f"{plain_ms:.4f} ms (with the depth "
+          f"rank); the whole binning {lists_ms:.4f} ms (K15 + K4), "
+          f"{lists_plain_ms:.4f} ms (broadcast + K3 + K4); bound "
+          f"{bound_ms:.4f} ms (bytes: tiles touched {4 * P}, touching "
+          f"splats {BIN_SPLAT_BYTES * n_live}, stream {8 * out_len}), "
+          f"{bound_ms / ms:.1%} of it")
+    require_no_spill("bin_pairs", "K15 bin_pairs", count=2)
+    results["bin_pairs"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes", lists_ms=lists_ms, lists_plain_ms=lists_plain_ms)
+    del proc, cull, rank, top, k15
+    torch.cuda.empty_cache()
+
+
 def call_recorder(denoiser, on_call):
     """``denoiser`` that hands every call's inputs and output to
     ``on_call(lat, txt, t, out)``."""
@@ -3178,7 +3342,7 @@ def run_mode(argv: list, what: str):
     print(f"field-e2e {what}: {dt:.3f} s, launches "
           f"{ {k: launches[k] for k in RENDER_TRAIN_KERNELS} }")
     need = RENDER_TRAIN_KERNELS if what != "render" else (
-        "sort_pairs", "compact_pairs", "blend_forward")
+        "sort_pairs", "bin_pairs", "blend_forward")
     for k in need:
         require(launches[k] > 0, f"{what}: kernel {k} was not launched")
     return pipe, dt, launches
@@ -4217,7 +4381,7 @@ QS_ITERS = 30                       # field iterations (of 12,000)
 QS_AE_EPOCHS = 40                   # scene-AE epochs (of 400)
 QS_POSE_ITERS = 20                  # eval pose iterations per view
 QS_TRIMAP_KERNELS = ("flash_attention", "ln_modulate")          # K5, K8
-QS_FIELD_KERNELS = ("blend_forward", "compact_pairs", "sort_pairs")  # K1, K3, K4
+QS_FIELD_KERNELS = ("blend_forward", "bin_pairs", "sort_pairs")  # K1, K15, K4
 
 
 @contextlib.contextmanager
@@ -4612,7 +4776,7 @@ def _vp_leaves(st, one, old, grp):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", type=int,
-                    choices=(22, 23, 24, 25, 26, 27, 28, 29, 30),
+                    choices=(22, 23, 24, 25, 26, 27, 28, 29, 30, 31),
                     default=None,
                     help="run phases 1, 2 and this phase only (no result "
                          "lines)")
@@ -4660,6 +4824,10 @@ def main(argv=None) -> int:
         phase_knn(dev, {})
         print(smi)
         return 0
+    if args.phase == 31:
+        phase_bin_pairs(dev, {})
+        print(smi)
+        return 0
 
     # ---- 3. kernels vs plain versions at the slice's shapes --------------
     arrays = scene(P, seed=0)
@@ -4687,7 +4855,7 @@ def main(argv=None) -> int:
         train = phase_train(dev, tcams, lang_dir)
         step_in = compare_plain_step(train["trainer"])
         phase_field_blend(dev, step_in.pop("blend"), results)
-        phase_field_compaction(dev, step_in.pop("compactions"), results)
+        phase_field_binning(dev, step_in.pop("binnings"), results)
         phase_train_profile(train["trainer"], step_in)
     train_launches = train["launches"]
     del train, step_in, main
@@ -4751,6 +4919,9 @@ def main(argv=None) -> int:
     # ---- 30. K14, the 3D kNN selection at field-sem-720x480's shape -----
     phase_knn(dev, results)
 
+    # ---- 31. K15, the pair enumeration at field-sem-720x480's shape -----
+    phase_bin_pairs(dev, results)
+
     # ---- 22. the field stage through its CLI, field-e2e-200k-720x480 ----
     phase_22(dev)
     torch.cuda.empty_cache()
@@ -4773,7 +4944,8 @@ def main(argv=None) -> int:
     phase_parallel(dev, smi)
     print(f"phase 29: {time.perf_counter() - t0:.1f} s")
 
-    launches = {**{k: train_launches[k] for k in RENDER_TRAIN_KERNELS},
+    launches = {**{k: train_launches[k] for k in RENDER_TRAIN_KERNELS
+                   + BIN_FALLBACK_KERNELS},
                 **{k: request["launches"][k] for k in DIT_KERNELS},
                 "flash_attention_backward": lora["launches"],
                 "flash_attention_bhtd": tp["launches"],
@@ -4786,7 +4958,8 @@ def main(argv=None) -> int:
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=TPU_KERNELS[name], launches=launches[name],
                     **results[name])
-               for name in RENDER_TRAIN_KERNELS + DIT_KERNELS
+               for name in RENDER_TRAIN_KERNELS + BIN_FALLBACK_KERNELS
+               + DIT_KERNELS
                + TRAIN_DIT_KERNELS + TP_KERNELS + EXACT_KERNELS
                + K13_KERNELS + KNN_KERNELS]
     print(json.dumps({"kernels": kernels}))

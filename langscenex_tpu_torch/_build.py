@@ -117,6 +117,13 @@ _TABLE = {
     # K14: sf, sq_s, f, sq_f, out d2, out slots, scratch, S, N, k, stream
     "knn_select": ("lsx_knn_select",
                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    # K15: tt, rect_min, rect_max, depth rank, mean2d, conic, qmax, the
+    # register's -tt and ids, tiers (a host int array), n_tiers, out_key,
+    # out_sid, total, overflowed, status words, P, K1, grid_x, n_tiles,
+    # tile_w, tile_h, budget, out_len, n_blocks, stream
+    "bin_pairs": ("lsx_bin_pairs",
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                   _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _I, _P]),
 }
 KERNELS = tuple(_TABLE)
 # every C entry ctypes binds: the kernels' and K14's scratch-size query

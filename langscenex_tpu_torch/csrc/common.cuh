@@ -1,6 +1,7 @@
 // Shared device helpers for the langscenex kernels: the warp and block
-// scans of the radix sort (K4) and the compaction (K3), and the per-pixel
-// blend recurrence shared by the blend forward (K1) and backward (K2).
+// scans of the radix sort (K4) and the compaction (K3), the decoupled
+// look-back of the single-pass scans (K3, K15), and the per-pixel blend
+// recurrence shared by the blend forward (K1) and backward (K2).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -202,6 +203,83 @@ __device__ __forceinline__ unsigned block_inclusive_scan(unsigned v,
   unsigned out = incl + (warp > 0 ? warp_sums[warp - 1] : 0u);
   __syncthreads();
   return out;
+}
+
+// ---- the decoupled look-back of the single-pass scans (K3, K15) --------
+// (Merrill & Garland, "Single-pass Parallel Prefix Scan with Decoupled
+// Look-back", NVIDIA 2016.) Scratch: a 64-bit word holding the ticket
+// counter (low half) and a call epoch (high half), then a 64-bit status
+// word per tile (epoch, flag, 30-bit value), each word alone in its
+// 32-byte sector. A block takes its tile by ticket (tiles start in ticket
+// order, which the look-back's forward progress needs); the block that
+// draws the last ticket resets the counter and bumps the epoch; a status
+// word counts only if it carries this call's epoch, so stale words of
+// earlier calls need no reset.
+constexpr int STATUS_STRIDE = 4;            // int64 words a status word
+constexpr unsigned FLAG_AGG = 1u << 30;     // the tile's own count
+constexpr unsigned FLAG_PREFIX = 2u << 30;  // its inclusive prefix
+constexpr unsigned VALUE_MASK = FLAG_AGG - 1u;
+
+__device__ __forceinline__ unsigned long long ld_relaxed64(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed64(unsigned long long* p,
+                                             unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long status_word(unsigned epoch,
+                                                          unsigned flag,
+                                                          unsigned value) {
+  return ((unsigned long long)epoch << 32) | flag | value;
+}
+
+// Thread 0 of a block draws the block's ticket: (tile, epoch).
+__device__ __forceinline__ void draw_ticket(unsigned long long* scratch,
+                                            int& tile, unsigned& epoch) {
+  const unsigned long long old = atomicAdd(&scratch[0], 1ull);
+  epoch = (unsigned)(old >> 32);
+  if ((unsigned)old == gridDim.x - 1u) {
+    // every block of this call has its ticket: the next call (ordered
+    // after this one on the stream) starts at 0 with the next epoch
+    atomicExch(&scratch[0], (unsigned long long)(epoch + 1u) << 32);
+  }
+  tile = (int)(unsigned)old;
+}
+
+// The tile's exclusive prefix, by warp 0 (every lane calls it): lane l
+// reads the status word of tile base - l; a round counts once every word
+// up to the nearest inclusive prefix (or all 32) carries this epoch, else
+// it reads the same words again. One word a lane: wider windows were
+// slower on the card (PERF.md), their polls crowding the L2 lines
+// of the status words.
+__device__ inline unsigned look_back(const unsigned long long* status,
+                                     int tile, unsigned epoch) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  unsigned excl = 0u;
+  for (int base = tile - 1;;) {
+    const int j = base - lane;
+    const unsigned long long w =
+        j >= 0 ? ld_relaxed64(&status[(size_t)j * STATUS_STRIDE])
+               : status_word(epoch, FLAG_PREFIX, 0u);
+    const unsigned flag = (unsigned)w & ~VALUE_MASK;
+    const bool ready = (unsigned)(w >> 32) == epoch && flag != 0u;
+    const unsigned prefix = __ballot_sync(FULL, ready && flag == FLAG_PREFIX);
+    // the lanes up to the nearest inclusive prefix, or all of them
+    const unsigned need = prefix ? (prefix & (0u - prefix)) * 2u - 1u : FULL;
+    if ((__ballot_sync(FULL, ready) & need) != need) continue;
+    excl += __reduce_add_sync(
+        FULL, (need >> lane) & 1u ? (unsigned)w & VALUE_MASK : 0u);
+    if (prefix) return excl;
+    base -= 32;
+  }
 }
 
 }  // namespace lsx

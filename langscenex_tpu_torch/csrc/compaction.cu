@@ -57,6 +57,13 @@
 
 namespace {
 
+using lsx::FLAG_AGG;
+using lsx::FLAG_PREFIX;
+using lsx::STATUS_STRIDE;
+using lsx::look_back;
+using lsx::st_relaxed64;
+using lsx::status_word;
+
 constexpr int CMP_THREADS = 256;
 constexpr int CMP_WARPS = CMP_THREADS / 32;
 constexpr int CMP_ROWS = 4;                           // int4 loads a thread
@@ -64,13 +71,7 @@ constexpr int CMP_TILE = CMP_THREADS * CMP_ROWS * 4;  // 4,096 slots
 // 32.9 KB of staging a block lets six share an SM; at most 40 registers a
 // thread keeps them all resident
 constexpr int CMP_BLOCKS_PER_SM = 6;
-// one status word per 32-byte sector: the look-back's polls then spread
-// over more L2 lines, which was faster on the card (PERF.md)
-constexpr int STATUS_STRIDE = 4;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr unsigned FLAG_AGG = 1u << 30;     // the tile's own count
-constexpr unsigned FLAG_PREFIX = 2u << 30;  // its inclusive prefix
-constexpr unsigned VALUE_MASK = FLAG_AGG - 1u;
 static_assert(CMP_ROWS * CMP_WARPS == 32, "one warp scans the tile's counts");
 
 struct CompactSmem {
@@ -80,54 +81,6 @@ struct CompactSmem {
   unsigned count, excl, epoch;
   int tile;
 };
-
-__device__ __forceinline__ unsigned long long ld_relaxed64(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_relaxed64(unsigned long long* p,
-                                             unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long status_word(unsigned epoch,
-                                                          unsigned flag,
-                                                          unsigned value) {
-  return ((unsigned long long)epoch << 32) | flag | value;
-}
-
-// The tile's exclusive prefix, by warp 0 (every lane calls it): lane l
-// reads the status word of tile base - l; a round counts once every word
-// up to the nearest inclusive prefix (or all 32) carries this epoch, else
-// it reads the same words again. One word a lane: wider windows were
-// slower on the card (PERF.md), their polls crowding the L2 lines
-// of the status words.
-__device__ unsigned look_back(const unsigned long long* status, int tile,
-                              unsigned epoch) {
-  const int lane = threadIdx.x & 31;
-  unsigned excl = 0u;
-  for (int base = tile - 1;;) {
-    const int j = base - lane;
-    const unsigned long long w =
-        j >= 0 ? ld_relaxed64(&status[(size_t)j * STATUS_STRIDE])
-               : status_word(epoch, FLAG_PREFIX, 0u);
-    const unsigned flag = (unsigned)w & ~VALUE_MASK;
-    const bool ready = (unsigned)(w >> 32) == epoch && flag != 0u;
-    const unsigned prefix = __ballot_sync(FULL, ready && flag == FLAG_PREFIX);
-    // the lanes up to the nearest inclusive prefix, or all of them
-    const unsigned need = prefix ? (prefix & (0u - prefix)) * 2u - 1u : FULL;
-    if ((__ballot_sync(FULL, ready) & need) != need) continue;
-    excl += __reduce_add_sync(
-        FULL, (need >> lane) & 1u ? (unsigned)w & VALUE_MASK : 0u);
-    if (prefix) return excl;
-    base -= 32;
-  }
-}
 
 __global__ void __launch_bounds__(CMP_THREADS, CMP_BLOCKS_PER_SM)
 compact_pairs_onepass(const int* __restrict__ key,
@@ -141,17 +94,7 @@ compact_pairs_onepass(const int* __restrict__ key,
   const int warp = t >> 5;
   unsigned long long* status = scratch + STATUS_STRIDE;
 
-  if (t == 0) {
-    const unsigned long long old = atomicAdd(&scratch[0], 1ull);
-    const unsigned epoch = (unsigned)(old >> 32);
-    if ((unsigned)old == gridDim.x - 1u) {
-      // every block of this call has its ticket: the next call (ordered
-      // after this one on the stream) starts at 0 with the next epoch
-      atomicExch(&scratch[0], (unsigned long long)(epoch + 1u) << 32);
-    }
-    sm.tile = (int)(unsigned)old;
-    sm.epoch = epoch;
-  }
+  if (t == 0) lsx::draw_ticket(scratch, sm.tile, sm.epoch);
   __syncthreads();
   const int tile = sm.tile;
   const unsigned epoch = sm.epoch;

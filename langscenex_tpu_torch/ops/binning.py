@@ -22,21 +22,36 @@ way, and this port always compacts and radix-sorts. When ``(n_tiles + 1)
 stable radix sorts instead (the JAX ``_finish`` fallback). The JAX
 ``key_only`` path is not ported.
 
+On the card the rank-key path skips the broadcast and K3: kernel K15
+(``csrc/bin_pairs.cu``, :func:`_emit_pairs`) counts, scans and emits the
+kept pairs straight into the compacted stream, which holds the same set
+of unique keys, so K4 sorts it to the same lists. The broadcast and K3
+are its plain version (on CPU tensors and inside ``_build.plain()``) and
+the card's fallback where the kernel's limits do not hold
+(:func:`_kernel_takes`), counted under ``bin.broadcast``.
+
 When nothing overflows, ``(point_list, tile_starts, tile_counts)``,
 ``num_pairs``, ``overflowed``, ``k_overflowed`` and ``num_big`` equal the
 JAX output bit for bit, given the same ``ProcessedSplats``.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
-from .compaction import compact_pairs, compact_pairs_plain
+from .. import _build
+from ..utils import profiling
+from .compaction import StatusWords, compact_pairs, compact_pairs_plain
 from .projection import ProcessedSplats
 from .sort_engine import sort_pairs, sort_pairs_plain
 
 I32_MAX = 2 ** 31 - 1
+BIN_TILE = 1024          # splats per block (csrc/bin_pairs.cu)
+BIN_MAX_TIERS = 8        # register tiers K15 takes
+BIN_MAX_K1 = 32          # first-tier slots K15 keeps in a 32-bit mask
+BIN_MAX_SLOTS = 1 << 30  # its status words hold 30-bit counts
 
 
 class CullSpec(NamedTuple):
@@ -99,6 +114,38 @@ def _budget_offsets(kept_tt: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(k, 0) - k
 
 
+def _tiers(P, K1, K2, B, n_tiles, extra_tiers):
+    """The register's tiers in slot order as (B_i, first slot S_i, K_i):
+    the mid tiers (``extra_tiers``), then the catch-all (B, K2), each cut
+    to the tiles left; a tier with no slots left is dropped, one with no
+    entries (B_i = 0) is kept, its slots still counted."""
+    tiers = []
+    start = K1
+    for (Bi, Ki) in extra_tiers:
+        Ki = min(Ki, max(n_tiles - start, 0))
+        if Ki > 0:
+            tiers.append((min(Bi, P), start, Ki))
+        start += Ki
+    K2_eff = min(K2, max(n_tiles - start, 0))
+    if K2_eff > 0:
+        tiers.append((min(B, P), start, K2_eff))
+    return tiers
+
+
+def _register_overflow(tt, n_big, specs, K2, extra_tiers):
+    """k_overflowed: more splats need a tier than its register holds (with
+    no register tier: any splat beyond K1 tiles, where K2 or a mid tier
+    was asked for)."""
+    if not specs:
+        if K2 > 0 or extra_tiers:
+            return n_big > 0
+        return torch.zeros((), dtype=torch.bool, device=tt.device)
+    k_overflowed = torch.zeros((), dtype=torch.bool, device=tt.device)
+    for (Bi, Si, Ki) in specs:
+        k_overflowed = k_overflowed | ((tt > Si).sum() > Bi)
+    return k_overflowed
+
+
 def _enumerate_two_tier(tt, rect_min, rect_w, depth, sid_base, K1, K2, B,
                         grid_x, n_tiles, budget, cull=None,
                         extra_tiers=()):
@@ -145,17 +192,8 @@ def _enumerate_two_tier(tt, rect_min, rect_w, depth, sid_base, K1, K2, B,
         ctt1 = torch.clamp(tt, max=K1)
 
     # ---- mid tiers + final catch-all: (B_i, slot start S_i, width K_i)
-    specs = []
-    start = K1
-    for (Bi, Ki) in extra_tiers:
-        Bi = min(Bi, P)
-        Ki = min(Ki, max(n_tiles - start, 0))
-        if Bi > 0 and Ki > 0:
-            specs.append((Bi, start, Ki))
-        start += Ki
-    K2_eff = min(K2, max(n_tiles - start, 0))
-    if B > 0 and K2_eff > 0:
-        specs.append((min(B, P), start, K2_eff))
+    specs = [t for t in _tiers(P, K1, K2, B, n_tiles, extra_tiers)
+             if t[0] > 0]
 
     def pack(valid, tile_id, rows_depth, rows_sid):
         Kw = tile_id.shape[1]
@@ -163,11 +201,8 @@ def _enumerate_two_tier(tt, rect_min, rect_w, depth, sid_base, K1, K2, B,
                 rows_depth[:, None].expand(-1, Kw).reshape(-1),
                 torch.where(valid, rows_sid[:, None], P).reshape(-1))
 
+    k_overflowed = _register_overflow(tt, n_big, specs, K2, extra_tiers)
     if not specs:
-        if K2 > 0 or extra_tiers:
-            k_overflowed = n_big > 0
-        else:
-            k_overflowed = torch.zeros((), dtype=torch.bool, device=dev)
         demand_f = ctt1.float().sum() if cull is not None else None
         off = _budget_offsets(ctt1)
         valid1 = keep1 & (off[:, None] + rank1 < budget)
@@ -180,10 +215,6 @@ def _enumerate_two_tier(tt, rect_min, rect_w, depth, sid_base, K1, K2, B,
     B_max = max(s[0] for s in specs)
     stt, sidx = torch.sort(-tt, stable=True)
     top_tt, top_idx = -stt[:B_max], sidx[:B_max]
-
-    k_overflowed = torch.zeros((), dtype=torch.bool, device=dev)
-    for (Bi, Si, Ki) in specs:
-        k_overflowed = k_overflowed | ((tt > Si).sum() > Bi)
 
     ctt_run = ctt1.clone()                         # kept count per splat
     cov_run = torch.clamp(tt, max=K1)              # no-cull coverage
@@ -286,6 +317,33 @@ class PairStreams(NamedTuple):
     overflowed: torch.Tensor   # budget overflow only (without k_overflowed)
 
 
+def _sizes(P: int, n_tiles: int, max_tiles_per_splat: int,
+           max_pairs: int | None, big_splats: int):
+    """(K1, K2, B, budget): the first tier's width, the catch-all's, the
+    register's size and the kept-pair budget."""
+    K1 = min(max_tiles_per_splat, n_tiles)
+    K2 = n_tiles - K1
+    B = min(big_splats, P)
+    budget = max_pairs if max_pairs is not None else P * K1 + B * K2
+    return K1, K2, B, budget
+
+
+def _rank_key_fits(rank_key: bool, P: int, n_tiles: int) -> bool:
+    """Whether ``tile << 22 | depth rank`` fits an int32 key, the
+    sentinel ``n_tiles << 22`` included."""
+    return (rank_key and P < (1 << 22)
+            and (n_tiles + 1) * (1 << 22) + P < 2 ** 31)
+
+
+def _rank_of_id(tt, depth, sid_base, sort):
+    """rank_of_id[p] = depth rank of splat p; culled splats sink last."""
+    dkey = torch.where(tt > 0, depth, torch.full_like(depth, float("inf")))
+    perm = _depth_perm(dkey, sid_base, sort)
+    rank_of_id = torch.empty_like(sid_base)
+    rank_of_id[perm.long()] = sid_base
+    return rank_of_id
+
+
 def enumerate_pairs(proc: ProcessedSplats, grid_x: int, grid_y: int,
                     max_tiles_per_splat: int = 32,
                     max_pairs: int | None = None, big_splats: int = 256,
@@ -293,31 +351,20 @@ def enumerate_pairs(proc: ProcessedSplats, grid_x: int, grid_y: int,
                     rank_key: bool = False,
                     sort=sort_pairs) -> PairStreams:
     """Depth ranks (via ``sort``) and the enumerated pair streams with
-    their demand counters: everything ``build_tile_lists`` does before
-    compaction."""
+    their demand counters: everything the broadcast path of
+    ``build_tile_lists`` does before compaction."""
     n_tiles = grid_x * grid_y
     P = proc.depth.shape[0]
-    K1 = min(max_tiles_per_splat, n_tiles)
-    K2 = n_tiles - K1
-    B = min(big_splats, P)
-    budget = max_pairs if max_pairs is not None else P * K1 + B * K2
+    K1, K2, B, budget = _sizes(P, n_tiles, max_tiles_per_splat, max_pairs,
+                               big_splats)
 
     tt = proc.tiles_touched.detach()
     depth = proc.depth.detach()
     rect_w = torch.clamp(proc.rect_max[:, 0] - proc.rect_min[:, 0], min=1)
     sid_base = torch.arange(P, dtype=torch.int32, device=depth.device)
 
-    use_rank = (rank_key and P < (1 << 22)
-                and (n_tiles + 1) * (1 << 22) + P < 2 ** 31)
-    if use_rank:
-        # rank_of_id[p] = depth rank of splat p; culled splats sink last
-        dkey = torch.where(tt > 0, depth, torch.full_like(depth, float("inf")))
-        perm = _depth_perm(dkey, sid_base, sort)
-        rank_of_id = torch.empty_like(sid_base)
-        rank_of_id[perm.long()] = sid_base
-        depth_key = rank_of_id
-    else:
-        depth_key = depth
+    use_rank = _rank_key_fits(rank_key, P, n_tiles)
+    depth_key = _rank_of_id(tt, depth, sid_base, sort) if use_rank else depth
 
     (key_tile, key_depth, sid, k_overflowed, num_big,
      demand_f) = _enumerate_two_tier(
@@ -343,6 +390,101 @@ def enumerate_pairs(proc: ProcessedSplats, grid_x: int, grid_y: int,
         overflowed=overflowed)
 
 
+_status = StatusWords()
+
+
+def _kernel_takes(use_rank: bool, P: int, K1: int, tiers: list, cull,
+                  n_slots: int) -> bool:
+    """Whether K15 takes a card-side call: the rank-key path, a first tier
+    of at most 32 slots (its bit mask), at most BIN_MAX_TIERS register
+    tiers, fewer than 2^30 slots (its status words), and ranks that count
+    a splat's kept slots densely. With the cull they always do; without
+    it a pair's rank is its slot index, dense where each tier's register
+    holds no more splats than the tier before it."""
+    dense = cull is not None or all(
+        a[0] >= b[0] for a, b in zip(tiers, tiers[1:]))
+    return (use_rank and P > 0 and K1 <= BIN_MAX_K1 and dense
+            and sum(t[0] > 0 for t in tiers) <= BIN_MAX_TIERS
+            and n_slots < BIN_MAX_SLOTS)
+
+
+def _emit_pairs(proc: ProcessedSplats, rank_of_id, cull, specs, top, K1,
+                grid_x, n_tiles, budget, out_len):
+    """K15: the kept pairs of the rank-key path, keys ``tile << 22 | depth
+    rank`` and splat ids, at the front of an ``out_len``-slot stream whose
+    rest is ``(n_tiles << 22, P)``; with the kept-pair count (0-d int32)
+    and whether it exceeds ``budget`` (0-d bool). ``top`` is the register
+    (``torch.sort(-tt, stable=True)``) where ``specs`` has a tier."""
+    def i32(x):
+        return x.detach().to(torch.int32).contiguous()
+
+    tt = i32(proc.tiles_touched)
+    dev = tt.device
+    P = tt.shape[0]
+    tile_w = tile_h = 1
+    cl = (None, None, None)
+    if cull is not None:
+        cl = tuple(x.detach().float().contiguous()
+                   for x in (cull.mean2d, cull.conic, cull.qmax))
+        tile_w, tile_h = cull.tile_w, cull.tile_h
+    # the inputs stay referenced here until the launch has read them
+    ins = (tt, i32(proc.rect_min), i32(proc.rect_max), rank_of_id, *cl,
+           *(top if specs else (None, None)))
+    table = (ctypes.c_int * max(1, 3 * len(specs)))(
+        *[v for spec in specs for v in spec])
+    out_key = torch.empty(out_len, dtype=torch.int32, device=dev)
+    out_sid = torch.empty(out_len, dtype=torch.int32, device=dev)
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    over = torch.empty((), dtype=torch.bool, device=dev)
+    n_blocks = -(-P // BIN_TILE)
+    status = _status.get(dev, torch.cuda.current_stream(dev), n_blocks)
+    _build.launch("bin_pairs", dev,
+                  *(0 if x is None else x.data_ptr() for x in ins),
+                  ctypes.addressof(table), len(specs), out_key.data_ptr(),
+                  out_sid.data_ptr(), total.data_ptr(), over.data_ptr(),
+                  status.data_ptr(), P, K1, grid_x, n_tiles, tile_w, tile_h,
+                  budget, out_len, n_blocks)
+    return out_key, out_sid, total, over
+
+
+def _lists_by_kernel(proc: ProcessedSplats, grid_x: int, grid_y: int,
+                     max_tiles_per_splat: int, max_pairs: int | None,
+                     big_splats: int, cull: CullSpec | None,
+                     extra_tiers: tuple, rank_key: bool):
+    """The rank-key path on the card: depth ranks (K4), the pairs (K15),
+    their sort (K4) and the tiles' ranges; None where K15 does not take
+    the call (:func:`_kernel_takes`)."""
+    n_tiles = grid_x * grid_y
+    P = proc.depth.shape[0]
+    K1, K2, B, budget = _sizes(P, n_tiles, max_tiles_per_splat, max_pairs,
+                               big_splats)
+    tiers = _tiers(P, K1, K2, B, n_tiles, extra_tiers)
+    specs = [t for t in tiers if t[0] > 0]
+    A = P * K1 + sum(b * k for b, _, k in specs)
+    if not _kernel_takes(_rank_key_fits(rank_key, P, n_tiles), P, K1,
+                         tiers, cull, A):
+        return None
+    tt = proc.tiles_touched.detach()
+    sid_base = torch.arange(P, dtype=torch.int32, device=tt.device)
+    rank_of_id = _rank_of_id(tt, proc.depth.detach(), sid_base, sort_pairs)
+    out_len = A if max_pairs is None else min(max_pairs, A)
+    # the register: the stable order of -tt, as the plain path's
+    top = torch.sort(-tt, stable=True) if specs else None
+    key, sid, num_pairs, overflowed = _emit_pairs(
+        proc, rank_of_id, cull, specs, top, K1, grid_x, n_tiles, budget,
+        out_len)
+    if cull is None:
+        num_pairs, overflowed = _demand(tt, budget)
+    num_big = (tt > K1).sum().to(torch.int32)
+    k_overflowed = _register_overflow(tt, num_big, specs, K2, extra_tiers)
+    sorted_key, point_list = sort_pairs(key, sid)
+    tile_starts, tile_counts = _tile_ranges(sorted_key >> 22, n_tiles)
+    return TileLists(point_list=point_list, tile_starts=tile_starts,
+                     tile_counts=tile_counts, num_pairs=num_pairs,
+                     overflowed=overflowed | k_overflowed,
+                     k_overflowed=k_overflowed, num_big=num_big)
+
+
 def build_tile_lists(proc: ProcessedSplats, grid_x: int, grid_y: int,
                      max_tiles_per_splat: int = 32,
                      max_pairs: int | None = None,
@@ -352,15 +494,24 @@ def build_tile_lists(proc: ProcessedSplats, grid_x: int, grid_y: int,
                      rank_key: bool = False,
                      kernels: bool = True) -> TileLists:
     """Build depth-sorted per-tile splat lists (JAX ``build_tile_lists``
-    contract; see the module docstring). Compaction and sort follow
-    ``_build``'s rule (kernels K3 and K4, or their plain versions);
+    contract; see the module docstring). The kernels follow ``_build``'s
+    rule, asked once here: on the card the rank-key path runs K15 and K4,
+    any other call the broadcast with K3 and K4 (counted under
+    ``bin.broadcast``); elsewhere their plain versions run.
     ``kernels=False`` takes the plain versions even on CUDA tensors. It is
     kept only because the benchmark's tests call it so: in the port,
     ``_build.plain()`` is the way to the plain path."""
-    sort = sort_pairs if kernels else sort_pairs_plain
-    comp = compact_pairs if kernels else compact_pairs_plain
     n_tiles = grid_x * grid_y
     P = proc.depth.shape[0]
+    if kernels and _build.use_kernel(proc.depth):
+        lists = _lists_by_kernel(proc, grid_x, grid_y, max_tiles_per_splat,
+                                 max_pairs, big_splats, cull, extra_tiers,
+                                 rank_key)
+        if lists is not None:
+            return lists
+        profiling.count("bin.broadcast")
+    sort = sort_pairs if kernels else sort_pairs_plain
+    comp = compact_pairs if kernels else compact_pairs_plain
 
     s = enumerate_pairs(proc, grid_x, grid_y, max_tiles_per_splat,
                         max_pairs, big_splats, cull, extra_tiers, rank_key,

@@ -5,11 +5,12 @@
 the full :class:`RenderOutput`. Gradients flow by autograd through
 preprocess, the blend (a ``torch.autograd.Function``, see
 :mod:`.rasterize_cuda`) and the assembly; binning is discrete and runs
-outside the graph, on detached inputs. Binning goes through kernels K3
-(compaction) and K4 (radix sort) and the blend through kernels K1
-(forward) and K2 (backward), or every wrapper runs its plain version, by
-``_build``'s rule: inside ``_build.plain()`` the plain path runs on the
-card too, which is how the kernels are held against it there.
+outside the graph, on detached inputs. Binning goes through kernels K15
+(the pair enumeration; K3's compaction on the card's fallback) and K4
+(radix sort) and the blend through kernels K1 (forward) and K2
+(backward), or every wrapper runs its plain version, by ``_build``'s
+rule: inside ``_build.plain()`` the plain path runs on the card too,
+which is how the kernels are held against it there.
 
 Channel layout (config.h:15-20): 3 RGB + 3 language + 3 instance + 5
 all_map (local normal xyz, alpha-constant 1, plane distance).

@@ -144,3 +144,48 @@ def test_compact_pallas_sort_lists_bit_identical():
     b = build_tile_lists(tproc, gx, gy, cull=tcull, **kw)
     _assert_same(a, b)
     assert not bool(a.overflowed)
+
+
+def test_cpu_takes_the_broadcast_without_k15():
+    # on CPU tensors the rank-key path stays the broadcast enumeration and
+    # the plain compaction: no K15 launch and no card-side fallback counted
+    from langscenex_tpu_torch import _build
+    from langscenex_tpu_torch.utils import profiling
+    W, H, P, seed, tile, ties, kw, _ = CASES["rank_key_extra_tiers"]
+    proc, jcull, tproc, tcull, (gx, gy) = _setup(W, H, P, seed, tile, ties)
+    _build.reset_launch_counts()
+    before = profiling.counters.get("bin.broadcast", 0)
+    b = build_tile_lists(tproc, gx, gy, cull=tcull, **kw)
+    assert _build.launch_counts["bin_pairs"] == 0
+    assert profiling.counters.get("bin.broadcast", 0) == before
+    _assert_same(_jax_build(proc, gx, gy, cull=jcull, **kw), b)
+
+
+@pytest.mark.parametrize("case,takes", [
+    ("default", True), ("over_510_tiles", False), ("k1_over_32", False),
+    ("no_cull_growing_registers", False), ("cull_growing_registers", True),
+    ("too_many_tiers", False), ("no_splats", False)])
+def test_k15_takes_the_rank_key_path_within_its_limits(case, takes):
+    # where the card runs K15 (one call's sizes, no device needed): the
+    # rank-key path with a first tier of at most 32 slots, at most 8
+    # register tiers, and ranks dense in each splat's kept slots (always
+    # with the cull; without it only if no tier's register outgrows the
+    # one before)
+    from langscenex_tpu_torch.ops import binning
+    P, n_tiles, K1, B, extra, cull = 2 ** 21, 345, 32, 256, (), True
+    if case == "over_510_tiles":
+        n_tiles = 640
+    elif case == "k1_over_32":
+        K1 = 48
+    elif case.endswith("growing_registers"):
+        extra, cull = ((8, 2), (32, 2)), case.startswith("cull")
+    elif case == "too_many_tiers":
+        extra = tuple((64, 2) for _ in range(8))
+    elif case == "no_splats":
+        P = 0
+    tiers = binning._tiers(P, K1, n_tiles - K1, min(B, P), n_tiles, extra)
+    n_slots = P * K1 + sum(b * k for b, _, k in tiers if b > 0)
+    use_rank = binning._rank_key_fits(True, P, n_tiles)
+    assert binning._kernel_takes(use_rank, P, K1, tiers,
+                                 object() if cull else None,
+                                 n_slots) == takes

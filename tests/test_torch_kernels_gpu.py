@@ -203,6 +203,168 @@ def test_compaction_kernel_is_one_launch_and_reuses_its_scratch(cuda):
     assert _build.launch_counts["compact_pairs"] == 1
 
 
+TILE_LIST_FIELDS = ("point_list", "tile_starts", "tile_counts", "num_pairs",
+                    "overflowed", "k_overflowed", "num_big")
+
+# The rank-key cases of tests/test_torch_binning.py's CASES (W, H, P, seed,
+# build kwargs), on the port's own preprocess of the same scenes: extra
+# tiers, the catch-all alone, the budget dropping trailing splats, a
+# register overflow, depth ties, no cull, no catch-all register and no
+# budget; and tiers whose registers grow (ranks still dense with the cull)
+BIN_CASES = {
+    "rank_key_extra_tiers": (256, 128, 3000, 7, False, dict(
+        max_tiles_per_splat=8, max_pairs=12000, big_splats=16,
+        extra_tiers=((512, 8),))),
+    "two_tier_catch_all": (256, 128, 3000, 8, False, dict(
+        max_tiles_per_splat=4, max_pairs=20000, big_splats=1024)),
+    "budget_drops_splats": (256, 128, 3000, 9, False, dict(
+        max_tiles_per_splat=8, max_pairs=3000, big_splats=16,
+        extra_tiers=((512, 8),))),
+    "tier_register_overflow": (256, 128, 3000, 10, False, dict(
+        max_tiles_per_splat=2, max_pairs=12000, big_splats=4,
+        extra_tiers=((16, 2),))),
+    "depth_ties": (256, 128, 3000, 11, True, dict(
+        max_tiles_per_splat=8, max_pairs=12000, big_splats=16,
+        extra_tiers=((512, 8),))),
+    "no_cull_two_tier": (256, 128, 3000, 12, False, dict(
+        max_tiles_per_splat=8, max_pairs=30000, big_splats=512, cull=False)),
+    "no_catch_all_register": (256, 128, 3000, 13, False, dict(
+        max_tiles_per_splat=8, max_pairs=30000, big_splats=0)),
+    "unbudgeted": (256, 128, 3000, 14, False, dict(
+        max_tiles_per_splat=8, big_splats=512)),
+    "growing_registers": (256, 128, 3000, 15, False, dict(
+        max_tiles_per_splat=2, max_pairs=20000, big_splats=64,
+        extra_tiers=((8, 2), (32, 2)))),
+}
+
+
+def _binning_inputs(means, scales, quats, opac, cam, tile):
+    """preprocess and the conic cull spec as prepare_blend makes them:
+    (ProcessedSplats, CullSpec, grid_x, grid_y)."""
+    from langscenex_tpu_torch.ops.binning import CullSpec
+    from langscenex_tpu_torch.ops.projection import preprocess
+    proc = preprocess(means, scales, quats, cam, tile_w=tile, tile_h=tile,
+                      opacity=opac, colors_precomp=torch.zeros_like(means))
+    op = torch.where(proc.visible, opac, 0.0)
+    qmax = 2.0 * torch.log(torch.clamp(255.0 * op, min=1e-12)) + 0.05
+    cull = CullSpec(mean2d=proc.mean2d, conic=proc.conic, qmax=qmax,
+                    tile_w=tile, tile_h=tile)
+    return proc, cull, -(-cam.width // tile), -(-cam.height // tile)
+
+
+def _bin_scene(device, W, H, P, seed, depth_ties=False, tile=32):
+    """tests/test_torch_binning.py's scene through the port's preprocess."""
+    rng = np.random.default_rng(seed)
+    means = np.stack([rng.uniform(-2, 2, P), rng.uniform(-1, 1, P),
+                      rng.uniform(2, 8, P)], -1).astype(np.float32)
+    if depth_ties:
+        idx = rng.choice(P, P // 3, replace=False)
+        means[idx, 2] = rng.choice([3.0, 4.0, 4.5, 5.0, 6.0],
+                                   idx.size).astype(np.float32)
+    scales = np.exp(rng.uniform(-4, -1.5, (P, 3))).astype(np.float32)
+    quats = rng.normal(size=(P, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    opac = rng.uniform(0.2, 0.95, P).astype(np.float32)
+    fovy = focal2fov(fov2focal(1.0, W), H)
+    cam = raster_camera_from_numpy(np.eye(4), projection_matrix(
+        0.01, 100.0, 1.0, fovy), W, H, math.tan(0.5), math.tan(fovy / 2),
+        device)
+    t = [torch.from_numpy(v).to(device) for v in (means, scales, quats,
+                                                   opac)]
+    return _binning_inputs(*t, cam, tile)
+
+
+def _room_binning(device, view: int = 24, seed: int = 5):
+    """field-sem-720x480's binning inputs: the benchmark's room (1.5M
+    splats in 2^21 slots, dead ones with zero opacity) seen from one
+    camera of its arc, with the default raster config's tiles and cull."""
+    import json
+    import pathlib
+    from benchmark.inputs import room
+    cfg = json.loads((pathlib.Path(__file__).resolve().parent.parent
+                      / "benchmark" / "configs"
+                      / "lsgs-field-1p5m-720x480.json").read_text())
+    sc = room.scene(cfg, seed, device)
+    W, H, fx = cfg["width"], cfg["height"], cfg["fovx"]
+    fy = room.fovy(cfg)
+    R, T = room.arc_poses(cfg)[view]
+    cam = raster_camera_from_numpy(room.w2c(R, T), projection_matrix(
+        0.01, 100.0, fx, fy), W, H, math.tan(fx / 2), math.tan(fy / 2),
+        device)
+    q = sc["rotation"] / torch.linalg.norm(sc["rotation"], dim=-1,
+                                           keepdim=True)
+    opac = torch.sigmoid(sc["opacity"][:, 0]) * sc["alive"]
+    return _binning_inputs(sc["xyz"], torch.exp(sc["scaling"]), q, opac,
+                           cam, cfg["tile"])
+
+
+def _lists_and_plain(proc, cull, gx, gy, **kw):
+    """build_tile_lists through the kernels (with the launch counts and
+    bin.broadcast of that call) and through _build.plain()."""
+    from langscenex_tpu_torch.ops.binning import build_tile_lists
+    from langscenex_tpu_torch.utils import profiling
+    _build.reset_launch_counts()
+    before = profiling.counters.get("bin.broadcast", 0)
+    got = build_tile_lists(proc, gx, gy, cull=cull, rank_key=True, **kw)
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts,
+                  broadcast=profiling.counters.get("bin.broadcast", 0)
+                  - before)
+    with _build.plain():
+        ref = build_tile_lists(proc, gx, gy, cull=cull, rank_key=True, **kw)
+    return got, ref, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BIN_CASES) + ["field_sem_room"])
+def test_bin_pairs_kernel_matches_plain(cuda, case):
+    # K15 + K4 against the broadcast enumeration + K3 + K4 of
+    # _build.plain(): all seven TileLists fields bit for bit, with one K15
+    # launch, no K3 and no broadcast fallback
+    if case == "field_sem_room":
+        proc, cull, gx, gy = _room_binning(cuda)
+        kw, flag = {}, None
+    else:
+        W, H, P, seed, ties, kw = BIN_CASES[case]
+        kw = dict(kw)
+        proc, cull, gx, gy = _bin_scene(cuda, W, H, P, seed, ties)
+        if not kw.pop("cull", True):
+            cull = None
+    got, ref, counts = _lists_and_plain(proc, cull, gx, gy, **kw)
+    for f in TILE_LIST_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    assert int(ref.tile_counts.sum()) > 0
+    assert counts["bin_pairs"] == 1 and counts["compact_pairs"] == 0
+    assert counts["broadcast"] == 0
+    if case == "field_sem_room":
+        assert proc.depth.shape[0] == 1 << 21
+        assert int(ref.num_pairs) > 100_000 and not bool(ref.overflowed)
+
+
+@pytest.mark.gpu
+def test_bin_pairs_is_one_launch_without_sync(cuda):
+    # a card-side build_tile_lists on the rank-key path launches K15 once
+    # and K3 never, and synchronises nothing with the host; the stream is
+    # the same on every call
+    from langscenex_tpu_torch.ops.binning import build_tile_lists
+    proc, cull, gx, gy = _bin_scene(cuda, 256, 128, 3000, 7)
+    kw = dict(max_tiles_per_splat=8, max_pairs=12000, big_splats=16,
+              extra_tiers=((512, 8),), cull=cull, rank_key=True)
+    first = build_tile_lists(proc, gx, gy, **kw)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = build_tile_lists(proc, gx, gy, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert _build.launch_counts["bin_pairs"] == 1
+    assert _build.launch_counts["compact_pairs"] == 0
+    for f in TILE_LIST_FIELDS:
+        assert torch.equal(getattr(first, f), getattr(again, f)), f
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("tile,tiers", [
     ((32, 32), dict(max_tiles_per_splat=8, big_splats=64,

@@ -173,7 +173,7 @@ def test_wrappers_run_plain_on_cpu_and_check_inputs():
                                     "flash_attention_exp2": 0,
                                     "flash_attention_exp2_bf16": 0,
                                     "gather_rows": 0, "exp2_bf16x2": 0,
-                                    "knn_select": 0}
+                                    "knn_select": 0, "bin_pairs": 0}
     with pytest.raises(TypeError):
         sort_pairs(k.long(), v)
     with pytest.raises(ValueError):
